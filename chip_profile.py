@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile the torch port's 256^3 db4 L3 pair on one NVIDIA GPU.
+"""Profile the torch port's 256^3 db4 L3 pair and solvers on one NVIDIA GPU.
 
     python3 chip_profile.py
 
@@ -12,7 +12,10 @@ runs), then:
 2. 5 float32 pairs under ``torch.profiler``: device busy time, the device's
    idle share of the host-clock window (first launch to the final
    synchronize) and of the device span (first kernel start to last kernel
-   end), and device time per kernel.
+   end), and device time per kernel;
+3. the same for one 3-iteration run of each FISTA solver (``fista_inpaint``,
+   ``fista_inpaint_split``, ``fista_cs_mri``; float32, preserve_l2, lam
+   0.05, 40 % sampling) after one warm-up run.
 
 The last line is one JSON object with all of it. It exits non-zero
 without a CUDA device. ``chip_smoke.py`` is the correctness check; this
@@ -70,6 +73,37 @@ def busy_time(intervals) -> float:
     return busy
 
 
+def profiled(fn) -> dict:
+    """Run ``fn`` under ``torch.profiler``: the device's busy time, its idle
+    share of the host-clock window and of the device span, and its time per
+    kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    iv = [(ev.time_range.start, ev.time_range.end) for ev in dev]
+    busy = busy_time(iv)
+    span = max(e for _, e in iv) - min(s for s, _ in iv) if iv else 0.0
+    by_name = {}
+    for ev in dev:
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    return dict(
+        wall_us=wall_us,
+        device_busy_us=busy,
+        device_span_us=span,
+        idle_share_of_wall=1 - busy / wall_us,
+        idle_share_of_span=1 - busy / span if span else None,
+        device_us_by_kernel=dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -77,9 +111,9 @@ def main() -> int:
         print("chip_profile: no CUDA device; this runs only on a GPU",
               file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
-
     import non_decimated_wavelets_tpu_torch as tw
+    from non_decimated_wavelets_tpu_torch.models import (
+        fista_cs_mri, fista_inpaint, fista_inpaint_split)
 
     out = {"card_before": card()}
     print(out["card_before"], flush=True)
@@ -100,32 +134,26 @@ def main() -> int:
     plan = tw.NDDWT("db4", SHAPE, device="cuda")
     for _ in range(3):
         plan.rec(plan.dec(x, LEVEL, band_axis=0), band_axis=0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            plan.rec(plan.dec(x, LEVEL, band_axis=0), band_axis=0)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [ev for ev in prof.events()
-           if ev.device_type == torch.autograd.DeviceType.CUDA]
-    iv = [(ev.time_range.start, ev.time_range.end) for ev in dev]
-    busy = busy_time(iv)
-    span = max(e for _, e in iv) - min(s for s, _ in iv) if iv else 0.0
-    by_name = {}
-    for ev in dev:
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-    out.update(
-        profiled_pairs=5,
-        wall_us=wall_us,
-        device_busy_us=busy,
-        device_span_us=span,
-        idle_share_of_wall=1 - busy / wall_us,
-        idle_share_of_span=1 - busy / span if span else None,
-        device_us_by_kernel=dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
-        card_after=card(),
-    )
-    if not iv:
+    out["pairs"] = profiled(
+        lambda: [plan.rec(plan.dec(x, LEVEL, band_axis=0), band_axis=0)
+                 for _ in range(5)])
+
+    splan = tw.NDDWT("db4", SHAPE, preserve_l2=True, device="cuda")
+    xi = torch.randn(SHAPE, device="cuda", generator=gen)
+    mask = (torch.rand(SHAPE, device="cuda", generator=gen) < 0.4).float()
+    solvers = {
+        "fista_inpaint": lambda: fista_inpaint(splan, mask * x, mask, 0.05,
+                                               LEVEL, 3),
+        "fista_inpaint_split": lambda: fista_inpaint_split(
+            splan, mask * torch.stack([x, xi]), mask, 0.05, LEVEL, 3),
+        "fista_cs_mri": lambda: fista_cs_mri(
+            splan, mask * torch.fft.fftn(x, norm="ortho"), mask, 0.05, LEVEL, 3),
+    }
+    for name, fn in solvers.items():
+        fn()
+        out[name] = profiled(fn)
+    out["card_after"] = card()
+    if not all(out[k]["device_busy_us"] for k in ["pairs", *solvers]):
         print("chip_profile: the profiler saw no device time", file=sys.stderr)
         return 1
     print(json.dumps(out))

@@ -1,27 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the torch port's main path on one NVIDIA GPU and check it.
+"""Drive the torch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 The main path is the flagship workload: a 3-level db4 3D non-decimated DWT
 inside one denoising step (dec -> soft-threshold the details -> rec), at
-256^3 float32, through ``NDDWT.dec_rec``. Phases:
+256^3 float32, through ``NDDWT.dec_rec``. The solver paths run the FISTA
+solvers of ``models/cs_recon.py`` at the same width: ``fista_inpaint``,
+``fista_inpaint_split`` and ``fista_cs_mri`` on complex k-space. Phases:
 
-1. the card's name and power limit; build the CUDA kernels from this
-   checkout's sources;
-2. each kernel against its plain torch version on the card, at the main
-   path's shape and at small, odd, mixed-wavelet, 2D and bfloat16 shapes;
+1. the card's name and power limit; build every CUDA kernel from this
+   checkout's sources (one ``nvcc`` per source, all at once);
+2. each kernel against its plain torch version on the card, at the paths'
+   shapes and at small, odd, mixed-wavelet, 2D and bfloat16 shapes;
 3. the main path at 256^3 (both normalizations) against the plain path on
    the card, the threshold-0 round trip, and the 64^3 flagship step of
    ``__graft_entry__.entry`` against the float64 NumPy oracle; the kernels'
    launch counts are set to 0 just before each main-path ``dec_rec`` and
    before the 64^3 step, read just after, and must be one per level each;
-4. timings with CUDA events: each kernel per level, the dec+rec pair and the
-   fused dec_rec step, each beside its plain version.
+   then the solver paths, 10 iterations each at 256^3 db4 L3 float32
+   (preserve_l2, 40 % sampling): each against the same solver on a
+   ``path='direct'`` plan on the card, its launch counts zeroed just
+   before the run and held to the exact numbers its route launches;
+4. timings with CUDA events: each kernel per call, the dec+rec pair, the
+   fused dec_rec step and one iteration of each solver, each beside its
+   plain version; for the level kernels also one cuDNN convolution
+   computing the same level (the yardstick ``library_ms``).
 
 It exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
-before it a JSON list of the kernels with their launches, errors and times.
+before it a JSON list of the kernels with their launches, errors, times and
+bounds; the line before that the card's name and power limit.
 """
 
 import json
@@ -34,11 +43,23 @@ LEVEL = 3
 THRESHOLD = 0.1
 F32_TOL = 1e-5  # relative to max|plain|: float32 sums taken in another order
 BF16_TOL = 1e-2  # relative: bfloat16 storage rounds at 2^-8
-KERNELS = {
-    "nddwt_dec_level": "non_decimated_wavelets_tpu/ops/pallas_kernels.py:519",
-    "nddwt_rec_level": "non_decimated_wavelets_tpu/ops/pallas_kernels.py:1389",
+SOLVER_TOL = 1e-4  # relative: 10 iterations of the above, float32 momentum
+LAM, ITERS, SAMPLING = 0.05, 10, 0.4
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PAIR = (2, 22) + SHAPE  # the split pair of 256^3 L3 bands
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "nddwt_dec_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_level.cu",
+                        "non_decimated_wavelets_tpu/ops/pallas_kernels.py:519"),
+    "nddwt_rec_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_level.cu",
+                        "non_decimated_wavelets_tpu/ops/pallas_kernels.py:1389"),
+    "nddwt_mag_shrink_pair": (
+        "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_elemwise.cu",
+        "non_decimated_wavelets_tpu/ops/pallas_elemwise.py:57"),
+    "nddwt_fista_step": (
+        "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_elemwise.cu",
+        "non_decimated_wavelets_tpu/ops/pallas_elemwise.py:108"),
 }
-SOURCE = "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_level.cu"
 
 failures = []
 
@@ -64,6 +85,13 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def rel_tol(ref, dtype):
+    import torch
+
+    rel = F32_TOL if dtype == torch.float32 else BF16_TOL
+    return rel * ref.float().abs().max().item()
+
+
 def timed(fn, reps):
     """Mean ms per call over ``reps`` calls after two warm-up calls."""
     import torch
@@ -80,6 +108,44 @@ def timed(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(nbytes, flops):
+    """The least time for the work: bytes over the memory rate or flops over
+    the float32 rate, whichever is larger; and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv_weights(taps, rec):
+    """The 8 bands of one 3D level as a convolution's weights: band b's
+    filter is the outer product of axis a's lo (bit a of b clear) or hi row;
+    flipped for the synthesis, whose input is the 8 bands."""
+    import numpy as np
+    import torch
+
+    w = np.stack([
+        np.einsum("i,j,k->ijk", *(t[(b >> a) & 1] for a, t in enumerate(taps)))
+        for b in range(8)
+    ])
+    if rec:
+        w = w[:, ::-1, ::-1, ::-1][None]
+    else:
+        w = w[:, None]
+    return torch.from_numpy(np.ascontiguousarray(w)).float().cuda()
+
+
+def conv_pad(x, taps, rec):
+    """Circular pad of a (C, *s) array for the convolution: the analysis
+    halo (K/2 - 1, K/2) per axis, the synthesis halo mirrored."""
+    import torch.nn.functional as F
+
+    pads = []
+    for t in reversed(taps):
+        k = len(t[0])
+        left = k // 2 - 1
+        pads += [k - 1 - left, left] if rec else [left, k - 1 - left]
+    return F.pad(x[None], pads, mode="circular")
+
+
 def main() -> int:
     import torch
 
@@ -88,12 +154,15 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import numpy as np
+    import torch.nn.functional as F
 
     import non_decimated_wavelets_tpu_torch as tw
     from non_decimated_wavelets_tpu_torch import oracle
-    from non_decimated_wavelets_tpu_torch.models import soft_threshold
+    from non_decimated_wavelets_tpu_torch.models import (
+        fista_cs_mri, fista_inpaint, fista_inpaint_split, soft_threshold)
     from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
-    from non_decimated_wavelets_tpu_torch.ops import direct_path, level_ref
+    from non_decimated_wavelets_tpu_torch.ops import (
+        direct_path, elemwise, elemwise_ref, level_ref)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -107,8 +176,10 @@ def main() -> int:
     # ---------------------------------------------------------- phase 1
     print(f"phase 1: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+    libs = ck.build()
     ck.load()
-    print(f"  built and loaded {ck.build().name} in "
+    elemwise.load()
+    print(f"  built and loaded {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
     # ---------------------------------------------------------- phase 2
@@ -124,10 +195,9 @@ def main() -> int:
     ]
     for seed, (shape, wv, dt) in enumerate(cases):
         gen.manual_seed(seed)
-        plan = tw.NDDWT(wv, shape)
+        plan = tw.NDDWT(wv, shape, device=dev)
         nd = len(shape)
         nb, B = 2**nd, tw.num_bands(nd, LEVEL)
-        rel = F32_TOL if dt == torch.float32 else BF16_TOL
         tag = f"{shape} {wv} {str(dt).removeprefix('torch.')}"
         x = torch.randn(shape, generator=gen, device=dev).to(dt)
         for lam in (0.0, THRESHOLD):
@@ -138,7 +208,7 @@ def main() -> int:
                 ar = level_ref.dec_level_ref(x, br, B - (nb - 1), plan.taps_hp,
                                              lam, final)
                 torch.cuda.synchronize()
-                tol = rel * br.float().abs().max().item()
+                tol = rel_tol(br, dt)
                 err = check(f"nddwt_dec_level {tag} lam={lam} final={final}",
                             max_err(bk, br), tol)
                 if not final:
@@ -153,17 +223,65 @@ def main() -> int:
                 r = level_ref.rec_level_ref(y, x, src, plan.taps_hp, scale)
                 torch.cuda.synchronize()
                 err = check(f"nddwt_rec_level {tag} band0={src[0]} scale={scale}",
-                            max_err(k, r), rel * r.float().abs().max().item())
+                            max_err(k, r), rel_tol(r, dt))
                 if shape == SHAPE:
                     main_err["nddwt_rec_level"] = max(main_err["nddwt_rec_level"], err)
         del x, y, bk, br, ak, ar, k, r
+
+    for seed, (shape, dt) in enumerate([
+        (PAIR, torch.float32),
+        ((2, 15, 24, 40, 72), torch.float32),
+        ((2, 15, 23, 41, 73), torch.float32),  # odd count: element accesses
+        ((2, 15, 24, 40, 72), torch.bfloat16),
+        ((2, 15, 23, 41, 73), torch.bfloat16),
+    ]):
+        gen.manual_seed(10 + seed)
+        y = torch.randn(shape, generator=gen, device=dev).to(dt)
+        for lam in (0.0, THRESHOLD):
+            k = elemwise.mag_shrink_pair(y, lam)
+            r = elemwise_ref.mag_shrink_pair_ref(y, lam)
+            torch.cuda.synchronize()
+            err = check(f"nddwt_mag_shrink_pair {shape} "
+                        f"{str(dt).removeprefix('torch.')} lam={lam}",
+                        max_err(k, r), rel_tol(r, dt))
+            if not torch.equal(k[:, 0], y[:, 0]):
+                failures.append(f"nddwt_mag_shrink_pair {shape}: band 0 changed")
+            if shape == PAIR:
+                main_err["nddwt_mag_shrink_pair"] = max(
+                    main_err["nddwt_mag_shrink_pair"], err)
+        del y, k, r
+
+    # (array shape, mask shape, dtype, offset): the offset views the
+    # operands one element past an aligned base (element accesses).
+    for seed, (shape, mshape, dt, off) in enumerate([
+        (SHAPE, SHAPE, torch.float32, 0),
+        ((2,) + SHAPE, SHAPE, torch.float32, 0),
+        ((24, 40, 72), (24, 40, 72), torch.float32, 1),
+        ((2, 23, 41, 73), (23, 41, 73), torch.float32, 0),
+        ((2, 24, 40, 72), (24, 40, 72), torch.bfloat16, 0),
+        ((23, 41, 73), (23, 41, 73), torch.bfloat16, 1),
+    ]):
+        gen.manual_seed(20 + seed)
+        n = int(np.prod(shape))
+        buf = torch.randn(3 * n + off, generator=gen, device=dev).to(dt)
+        xn, xp, b = (buf[off + i * n: off + (i + 1) * n].view(shape) for i in range(3))
+        mask = (torch.rand(mshape, generator=gen, device=dev) < SAMPLING).to(dt)
+        k = elemwise.fista_step(xn, xp, mask, b, 0.6, 1.0)
+        r = elemwise_ref.fista_step_ref(xn, xp, mask, b, 0.6, 1.0)
+        torch.cuda.synchronize()
+        err = check(f"nddwt_fista_step {shape} mask {mshape} "
+                    f"{str(dt).removeprefix('torch.')} offset {off}",
+                    max_err(k, r), rel_tol(r, dt))
+        if shape == SHAPE:
+            main_err["nddwt_fista_step"] = err
+        del buf, xn, xp, b, mask, k, r
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 3
     print(f"phase 3: the main path, NDDWT.dec_rec at {SHAPE} db4 L{LEVEL} f32")
     gen.manual_seed(100)
     x = torch.randn(SHAPE, generator=gen, device=dev)
-    per_level = {name: LEVEL for name in KERNELS}
+    per_level = {name: LEVEL if "level" in name else 0 for name in KERNELS}
     for pl2 in (False, True):
         plan = tw.NDDWT("db4", SHAPE, preserve_l2=pl2, device=dev)
         ck.reset_launch_counts()
@@ -171,7 +289,7 @@ def main() -> int:
         got = check_launches(f"main path, preserve_l2={pl2}",
                              dict(ck.launch_counts), per_level)
         if not pl2:
-            launches = got  # the flagship's normalization: the main path's own
+            launches = dict(got)  # the flagship's normalization: the main path's own
         _, xr0 = plan.dec_rec(x, LEVEL, band_axis=0)
         torch.cuda.synchronize()
         B = plan.num_bands(LEVEL)
@@ -202,12 +320,63 @@ def main() -> int:
     check("64^3 flagship step vs float64 oracle",
           float(np.abs(step - oracle.rec(yo, "db4")).max()), 1e-4)
 
+    print(f"phase 3: the solver paths at {SHAPE} db4 L{LEVEL} f32, preserve_l2, "
+          f"{ITERS} iterations, lam {LAM}, {SAMPLING:.0%} sampling")
+    splan = tw.NDDWT("db4", SHAPE, preserve_l2=True, device=dev)
+    dplan = tw.NDDWT("db4", SHAPE, preserve_l2=True, path="direct", device=dev)
+    gen.manual_seed(200)
+    xi = torch.randn(SHAPE, generator=gen, device=dev)
+    mask = (torch.rand(SHAPE, generator=gen, device=dev) < SAMPLING).float()
+    L = LEVEL * ITERS
+    solvers = {  # name: (run on a plan, launches per run on the kernels)
+        "fista_inpaint": (
+            lambda p: fista_inpaint(p, mask * x, mask, LAM, LEVEL, ITERS),
+            {"nddwt_dec_level": L, "nddwt_rec_level": L,
+             "nddwt_mag_shrink_pair": 0, "nddwt_fista_step": ITERS}),
+        "fista_inpaint_split": (
+            lambda p: fista_inpaint_split(p, mask * torch.stack([x, xi]), mask,
+                                          LAM, LEVEL, ITERS),
+            {"nddwt_dec_level": 2 * L, "nddwt_rec_level": 2 * L,
+             "nddwt_mag_shrink_pair": ITERS, "nddwt_fista_step": ITERS}),
+        "fista_cs_mri": (
+            lambda p: fista_cs_mri(p, mask * torch.fft.fftn(x, norm="ortho"), mask,
+                                   LAM, LEVEL, ITERS),
+            {"nddwt_dec_level": 2 * L, "nddwt_rec_level": 2 * L,
+             "nddwt_mag_shrink_pair": ITERS, "nddwt_fista_step": 0}),
+    }
+    for name, (run, want) in solvers.items():
+        ck.reset_launch_counts()
+        out = run(splan)
+        got = check_launches(name, dict(ck.launch_counts), want)
+        for kernel in ("nddwt_mag_shrink_pair", "nddwt_fista_step"):
+            if got[kernel]:
+                launches[kernel] = got[kernel]
+        ck.reset_launch_counts()
+        ref = run(dplan)
+        torch.cuda.synchronize()
+        if any(ck.launch_counts.values()):
+            failures.append(f"{name}: the plain route launched {ck.launch_counts}")
+        want_shape = (2,) + SHAPE if name.endswith("split") else SHAPE
+        if tuple(out.shape) != want_shape or not torch.isfinite(out).all():
+            failures.append(f"{name}: shape {tuple(out.shape)} or non-finite values")
+        if out.is_complex():
+            out, ref = torch.view_as_real(out), torch.view_as_real(ref)
+        check(f"{name} vs the plain route", max_err(out, ref),
+              SOLVER_TOL * ref.abs().max().item())
+        del out, ref
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- phase 4
     print(f"phase 4: timings (CUDA events) {card}")
     plan = tw.NDDWT("db4", SHAPE, device=dev)
     nb, B = 8, plan.num_bands(LEVEL)
-    big = torch.empty((B,) + SHAPE, device=dev)
+    gen.manual_seed(300)
+    big = torch.randn((B,) + SHAPE, generator=gen, device=dev)
     src = [("y", b) for b in range(nb)]
+    ypair = torch.randn(PAIR, generator=gen, device=dev)
+    xn, xp, b = (torch.randn(SHAPE, generator=gen, device=dev) for _ in range(3))
+    pn, pp, pb = (torch.randn((2,) + SHAPE, generator=gen, device=dev)
+                  for _ in range(3))
     ms = {
         "nddwt_dec_level": (
             timed(lambda: ck.dec_level(x, big, B - 7, plan.taps_hp), 20),
@@ -218,10 +387,62 @@ def main() -> int:
             timed(lambda: level_ref.rec_level_ref(big, None, src, plan.taps_hp,
                                                   1 / nb), 5),
         ),
+        "nddwt_mag_shrink_pair": (
+            timed(lambda: elemwise.mag_shrink_pair(ypair, THRESHOLD), 20),
+            timed(lambda: elemwise_ref.mag_shrink_pair_ref(ypair, THRESHOLD), 5),
+        ),
+        "nddwt_fista_step": (
+            timed(lambda: elemwise.fista_step(xn, xp, mask, b, 0.6, 1.0), 20),
+            timed(lambda: elemwise_ref.fista_step_ref(xn, xp, mask, b, 0.6, 1.0), 5),
+        ),
     }
+    split_step = (
+        timed(lambda: elemwise.fista_step(pn, pp, mask, pb, 0.6, 1.0), 20),
+        timed(lambda: elemwise_ref.fista_step_ref(pn, pp, mask, pb, 0.6, 1.0), 5),
+    )
+    vox, f32 = int(np.prod(SHAPE)), 4
+    flops_level = vox * sum(2 ** (a + 2) * len(t[0]) for a, t in enumerate(plan.taps_hp))
+    bound = {
+        # one level: 1 array in, 8 out (dec); 8 in, 1 out (rec)
+        "nddwt_dec_level": bound_ms(9 * vox * f32, flops_level),
+        "nddwt_rec_level": bound_ms(9 * vox * f32, flops_level),
+        # the pair in and out; about 10 flops per detail element pair
+        "nddwt_mag_shrink_pair": bound_ms(2 * ypair.numel() * f32,
+                                          10 * ypair[0].numel()),
+        # x_new, x_prev, mask, b in; v out; 7 flops per element
+        "nddwt_fista_step": bound_ms(5 * vox * f32, 7 * vox),
+    }
+    split_bound = bound_ms(9 * vox * f32, 14 * vox)
+
+    # The yardstick: one cuDNN convolution computing the same level.
+    xpad = conv_pad(x[None], plan.taps_hp, rec=False)
+    wdec = conv_weights(plan.taps_hp, rec=False)
+    ck.dec_level(x, big, B - 7, plan.taps_hp, final=False)
+    approx = level_ref.dec_level_ref(x, big.clone(), B - 7, plan.taps_hp)
+    conv = F.conv3d(xpad, wdec)[0]
+    check("cuDNN conv3d as one analysis level",
+          max(max_err(conv[1:], big[B - 7:]), max_err(conv[0], approx)),
+          F32_TOL * big[B - 7:].abs().max().item())
+    ypad = conv_pad(big[:nb], plan.taps_hp, rec=True)
+    wrec = conv_weights(plan.taps_hp, rec=True) / nb
+    r = level_ref.rec_level_ref(big, None, src, plan.taps_hp, 1 / nb)
+    check("cuDNN conv3d as one synthesis level", max_err(F.conv3d(ypad, wrec)[0, 0], r),
+          F32_TOL * r.abs().max().item())
+    library = {
+        "nddwt_dec_level": timed(lambda: F.conv3d(xpad, wdec), 5),
+        "nddwt_rec_level": timed(lambda: F.conv3d(ypad, wrec), 5),
+        "nddwt_mag_shrink_pair": None,  # no single torch call shrinks a pair
+        "nddwt_fista_step": None,  # nor computes the step
+    }
+    del xpad, ypad, conv, approx, r
     for name, (k, p) in ms.items():
-        print(f"  {name} one level {SHAPE} db4 f32: kernel {k:.4f} ms, "
-              f"plain {p:.4f} ms {card}")
+        lib = f", cuDNN conv3d {library[name]:.4f} ms" if library[name] else ""
+        print(f"  {name} {SHAPE} db4 f32 per call: kernel {k:.4f} ms, plain "
+              f"{p:.4f} ms{lib}, bound {bound[name][0]:.4f} ms "
+              f"({bound[name][1]}) {card}")
+    print(f"  nddwt_fista_step split pair {(2,) + SHAPE} f32 per call: kernel "
+          f"{split_step[0]:.4f} ms, plain {split_step[1]:.4f} ms, bound "
+          f"{split_bound[0]:.4f} ms ({split_bound[1]}) {card}")
 
     def plain_pair(thr):
         yp = direct_path.dec_direct(x, plan.taps, LEVEL)
@@ -229,7 +450,6 @@ def main() -> int:
             yp = torch.cat([yp[:1], soft_threshold(yp[1:], thr)])
         return direct_path.rec_direct(yp, plan.taps, LEVEL, False)
 
-    vox = float(np.prod(SHAPE))
     steps = {
         "dec+rec pair": (
             lambda: plan.rec(plan.dec(x, LEVEL, band_axis=0), band_axis=0),
@@ -245,6 +465,13 @@ def main() -> int:
         print(f"  {what} {SHAPE} db4 L{LEVEL} f32: kernels {k:.4f} ms "
               f"({vox / k / 1e3:.1f} Mvox/s), plain {p:.4f} ms "
               f"({vox / p / 1e3:.1f} Mvox/s) {card}")
+    del big, ypair, xn, xp, b, pn, pp, pb
+    torch.cuda.empty_cache()
+    for name, (run, _) in solvers.items():
+        k = timed(lambda: run(splan), 1) / ITERS
+        p = timed(lambda: run(dplan), 1) / ITERS
+        print(f"  {name} {SHAPE} db4 L{LEVEL} f32 per iteration: kernels "
+              f"{k:.4f} ms, plain route {p:.4f} ms {card}")
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)
@@ -253,10 +480,11 @@ def main() -> int:
         return 1
     print(smi)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": where,
+        {"name": name, "route": "cuda", "source": source, "replaces": where,
          "launches": launches[name], "max_abs_err": main_err[name],
-         "ms": ms[name][0], "plain_ms": ms[name][1]}
-        for name, where in KERNELS.items()
+         "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": bound[name][0],
+         "bound_by": bound[name][1], "library_ms": library[name]}
+        for name, (source, where) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

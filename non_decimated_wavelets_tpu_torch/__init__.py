@@ -1,10 +1,11 @@
 """PyTorch + CUDA port of the non-decimated wavelet transform framework.
 
 The JAX package ``non_decimated_wavelets_tpu`` is the reference this port is
-held against; this package imports torch and NumPy and never JAX. On a CUDA
-tensor the 2D/3D float32/bfloat16 transforms run on hand-written Hopper
-kernels (``ops/csrc/nddwt_level.cu``), built by ``nvcc`` at first use;
-importing the package builds nothing.
+held against; this package imports torch and NumPy and never JAX. Plans run
+on the card unless the caller asks for ``device="cpu"``. On a CUDA tensor
+the 2D/3D float32/bfloat16 transforms and the solvers' elementwise passes
+run on hand-written Hopper kernels (``ops/csrc/*.cu``), built by ``nvcc``
+at first use; importing the package builds nothing.
 """
 
 from .filters import (

@@ -13,7 +13,7 @@ import numpy as np
 from .plan import NDDWT
 
 
-def plan_from_jax(config: dict, taps_hp, device="cpu") -> NDDWT:
+def plan_from_jax(config: dict, taps_hp, device="cuda") -> NDDWT:
     """Port plan from a JAX plan's ``to_config()`` and
     ``tuple(np.asarray(t) for t in jax_plan.taps_hp)``.
 

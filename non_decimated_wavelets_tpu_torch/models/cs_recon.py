@@ -1,0 +1,201 @@
+"""Compressed-sensing MRI reconstruction with an NDDWT sparsifier, in torch.
+
+Port of ``non_decimated_wavelets_tpu/models/cs_recon.py``: FISTA for
+
+    min_x  0.5 || M ⊙ F x - b ||^2 + lam || W x ||_1
+
+with ``F`` the orthonormal FFT, ``M`` a sampling mask and ``W`` the
+non-decimated DWT, and its image-domain variants (inpainting, real and
+split-complex). The loop the reference library was built for: the same
+transform applied hundreds of times (``README.md:2``).
+
+``transform`` is a single-device ``NDDWT``; sharded transforms are not
+ported yet and raise ``TypeError`` (``ROADMAP.md`` queue 1 item 14). The
+momentum schedule is computed on the host (``_fista_schedule``). With a
+scalar ``lam`` on a plan whose tensors go to the CUDA kernels, the
+inpainting solvers take the stepped routes: every iterate is kernels end
+to end (the transforms, the shrink, and one ``fista_step`` pass of glue).
+A tensor ``lam``, or a plan on the CPU, takes the generic loop. The JAX
+package's one-launch whole-solve route (``_fista_fused``) is not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import elemwise
+from .denoise import soft_threshold, soft_threshold_mag_pair
+
+
+def _check_transform(transform):
+    from ..plan import NDDWT
+
+    if not isinstance(transform, NDDWT):
+        raise TypeError(
+            f"expected an NDDWT plan, got {type(transform).__name__}; sharded "
+            "transforms (ShardedNDDWT) are not ported yet (ROADMAP.md queue 1 "
+            "item 14)"
+        )
+
+
+def _mask_input(transform, mask, dtype):
+    """The sampling mask as a tensor on the plan's device, in ``dtype``."""
+    mask = transform._as_input(mask)
+    if tuple(mask.shape) != transform.shape:
+        raise ValueError(
+            f"mask shape {tuple(mask.shape)} does not match plan shape "
+            f"{transform.shape}"
+        )
+    return mask.to(dtype)
+
+
+def _shrink_details(y, lam):
+    """Soft-threshold the detail bands only (band-first layout): the
+    approximation band carries the low-frequency content the l1 penalty
+    should not shrink, as in ``denoise.denoise``."""
+    return torch.cat([y[:1], soft_threshold(y[1:], lam)])
+
+
+def _prox(transform, v, lam, level):
+    """``W^T soft(W v, lam)`` (details only). A scalar ``lam`` goes through
+    the fused ``dec_rec`` iterate (the shrink rides the CUDA analysis
+    kernels)."""
+    if not hasattr(lam, "shape"):
+        _, xr = transform.dec_rec(v, level, threshold=float(lam), band_axis=0)
+        return xr
+    y = transform.dec(v, level, band_axis=0)
+    return transform.rec(_shrink_details(y, lam), band_axis=0)
+
+
+def _prox_split(transform, v_pair, lam, level):
+    """Split-complex prox: ``W^T shrink_mag(W v, lam)`` with the joint
+    re/im magnitude shrink, the prox of the complex l1 norm
+    (``Functions/nd_dwt_1D.m:57-61``)."""
+    if not hasattr(lam, "shape"):
+        _, xr = transform.dec_rec_split(v_pair, level, threshold=float(lam))
+        return xr
+    y = transform.dec_split(v_pair, level)
+    return transform.rec_split(soft_threshold_mag_pair(y, lam))
+
+
+def _fista_schedule(iters):
+    """The FISTA momentum coefficients ``(t_k - 1) / t_{k+1}``, ``t_1 = 1``,
+    computed on the host. (The JAX package's schedule also lists the
+    per-iteration threshold, ``lam * step`` every time, for its one-launch
+    solve, which is not ported.)"""
+    t, moms = 1.0, []
+    for _ in range(iters):
+        t_next = 0.5 * (1.0 + float(np.sqrt(1.0 + 4.0 * t * t)))
+        moms.append((t - 1.0) / t_next)
+        t = t_next
+    return moms
+
+
+def _fwd(x, mask):
+    return mask * torch.fft.fftn(x, norm="ortho")
+
+
+def _adj(k, mask):
+    return torch.fft.ifftn(mask * k, norm="ortho")
+
+
+def ista_step(transform, x, b, mask, lam, step, level):
+    """One proximal-gradient step: data consistency + wavelet shrinkage.
+    With ``preserve_l2`` the transform is a tight frame, so
+    ``W^T soft(W v, lam)`` is the cycle-spinning surrogate of the prox."""
+    grad = _adj(_fwd(x, mask) - b, mask)
+    return _prox(transform, x - step * grad, lam * step, level)
+
+
+def fista_cs_mri(transform, b, mask, lam, level=2, iters=20, step=1.0):
+    """FISTA on the masked-Fourier CS problem; returns the (complex)
+    reconstruction. ``b``: observed k-space (the image's shape), ``mask``:
+    0/1 sampling mask. On the card each iterate is two FFTs, one complex
+    ``dec_rec`` (both components' level chains and one ``mag_shrink_pair``
+    launch) and torch elementwise ops for the gradient and momentum."""
+    _check_transform(transform)
+    b = transform._as_input(b)
+    if not b.is_complex():
+        b = b.to(transform.complex_dtype)
+    mask = _mask_input(transform, mask, b.real.dtype)
+    x = _adj(b, mask)
+    z = x
+    for mom in _fista_schedule(iters):
+        x_new = ista_step(transform, z, b, mask, lam, step, level)
+        z = x_new + mom * (x_new - x)
+        x = x_new
+    return x
+
+
+def _fista_stepped(transform, b, mask, lam, level, moms, step):
+    """FISTA for inpainting with every iterate on kernels: the shrink rides
+    the analysis kernels (``dec_rec`` threshold fusion) and the momentum
+    and data-term glue is one ``fista_step`` pass. On the CPU the same loop
+    runs the kernels' plain versions."""
+    x = mask * b
+    v = x - step * (mask * (mask * x - b))  # z_0 = x_0, once before the loop
+    thr = float(lam) * float(step)
+    for mom in moms:
+        _, x_new = transform.dec_rec(v, level, threshold=thr, band_axis=0)
+        v = elemwise.fista_step(x_new, x, mask, b, mom, float(step))
+        x = x_new
+    return x
+
+
+def _fista_stepped_split(transform, b_pair, mask, lam, level, moms, step):
+    """Split-complex FISTA with every iterate on kernels: per-component
+    analysis chains, one ``mag_shrink_pair`` pass over both components'
+    details, per-component synthesis chains, one ``fista_step`` pass (the
+    mask read once per re/im pair)."""
+    x = mask * b_pair
+    v = x - step * (mask * (mask * x - b_pair))
+    thr = float(lam) * float(step)
+    for mom in moms:
+        y = elemwise.mag_shrink_pair(transform.dec_split(v, level), thr)
+        x_new = transform.rec_split(y)
+        v = elemwise.fista_step(x_new, x, mask, b_pair, mom, float(step))
+        x = x_new
+    return x
+
+
+def _fista_loop(prox, b, mask, iters, step):
+    """The generic FISTA loop for a masked image-domain data term."""
+    x = mask * b
+    z = x
+    for mom in _fista_schedule(iters):
+        x_new = prox(z - step * (mask * (mask * z - b)))
+        z = x_new + mom * (x_new - x)
+        x = x_new
+    return x
+
+
+def fista_inpaint(transform, b, mask, lam, level=2, iters=20, step=1.0):
+    """FISTA for image-domain masked observation (inpainting):
+    ``min_x 0.5 ||M ⊙ x - b||^2 + lam ||W x||_1``. ``b`` may be complex
+    (generic loop, joint-magnitude shrink)."""
+    _check_transform(transform)
+    b = transform._as_input(b)
+    mask = _mask_input(transform, mask, b.real.dtype)
+    if (not hasattr(lam, "shape") and not b.is_complex()
+            and transform._uses_kernels(b)):
+        return _fista_stepped(transform, b, mask, lam, level,
+                              _fista_schedule(iters), step)
+    return _fista_loop(lambda v: _prox(transform, v, lam * step, level),
+                       b, mask, iters, step)
+
+
+def fista_inpaint_split(transform, b_pair, mask, lam, level=2, iters=20,
+                        step=1.0):
+    """FISTA for image-domain masked observation of complex data carried as
+    a split re/im pair ``(2, *shape)``: ``min_x 0.5 ||M ⊙ x - b||^2 +
+    lam ||W x||_{1,c}`` with the complex l1 norm (joint re/im magnitude).
+    ``mask`` is real with the plan's shape."""
+    _check_transform(transform)
+    b_pair = transform._as_pair(b_pair)
+    mask = _mask_input(transform, mask, b_pair.dtype)
+    if not hasattr(lam, "shape") and transform._uses_kernels(b_pair):
+        return _fista_stepped_split(transform, b_pair, mask, lam, level,
+                                    _fista_schedule(iters), step)
+    return _fista_loop(lambda v: _prox_split(transform, v, lam * step, level),
+                       b_pair, mask, iters, step)

@@ -1,3 +1,4 @@
 """Compute paths: ``direct_path`` (torch stencils, the CPU path and the
-plain reference), ``level_ref`` (plain versions of the per-level kernels)
-and ``cuda_kernels`` (the hand-written CUDA kernels, built at first use)."""
+plain reference), ``level_ref`` and ``elemwise_ref`` (plain versions of the
+kernels), ``cuda_kernels`` (the build of the hand-written CUDA kernels and
+the per-level ones) and ``elemwise`` (the solvers' elementwise kernels)."""

@@ -1,4 +1,11 @@
-"""The per-level CUDA kernels: build, bind, launch, and the level loops.
+"""The CUDA kernels' build and the per-level kernels: bind, launch, loops.
+
+Every source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` at first
+use into its own shared library in ``non_decimated_wavelets_tpu_torch/_build/``,
+under a name keyed by a hash of the source and flags, and loaded with
+``ctypes`` (a plain C interface: no PyTorch headers, so a build takes
+seconds). ``build()`` starts one ``nvcc`` per source, all at once. Importing
+this module builds nothing.
 
 ``csrc/nddwt_level.cu`` holds the two hand-written Hopper kernels that
 replace the TPU kernels on the main path
@@ -7,17 +14,14 @@ replace the TPU kernels on the main path
 * ``nddwt_dec_level`` for ``_fused_dec_level`` / ``_make_dec_kernel``;
 * ``nddwt_rec_level`` for ``_fused_rec_level`` / ``_make_rec_kernel``.
 
-The source is compiled by ``nvcc`` for ``sm_90a`` at first use, into
-``non_decimated_wavelets_tpu_torch/_build/`` under a name keyed by a hash of
-the source and flags, and loaded with ``ctypes`` (a plain C interface: no
-PyTorch headers, so the build takes seconds). Importing this module builds
-nothing.
+``csrc/nddwt_elemwise.cu`` holds the solvers' elementwise kernels, bound in
+``ops/elemwise.py``.
 
 Each wrapper launches its kernel for a CUDA tensor and raises if the
 launch fails; for a CPU tensor it runs the kernel's plain version
-(``ops/level_ref.py``). Nothing falls back from CUDA to the plain version.
-``launch_counts`` counts the launches, so a run can show which kernels a
-path went through.
+(``ops/level_ref.py``, ``ops/elemwise_ref.py``). Nothing falls back from
+CUDA to the plain version. ``launch_counts`` counts the launches of every
+kernel, so a run can show which kernels a path went through.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ import torch
 from ..oracle import num_bands
 from .level_ref import dec_level_ref, rec_level_ref
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "nddwt_level.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("nddwt_level", "nddwt_elemwise")  # csrc/<name>.cu, one library each
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -45,9 +50,14 @@ NVCC_FLAGS = (
 _MAX_TAPS = 76  # kMaxTaps in the source
 # Dynamic shared memory a CTA may take: two CTAs fit one SM's 227 KB.
 _SMEM_BUDGET = 100 * 1024
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_counts = {"nddwt_dec_level": 0, "nddwt_rec_level": 0}
+launch_counts = {
+    "nddwt_dec_level": 0,
+    "nddwt_rec_level": 0,
+    "nddwt_mag_shrink_pair": 0,
+    "nddwt_fista_step": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -66,38 +76,63 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build() -> Path:
-    """Compile the kernels (if this source and these flags have not been
-    built yet) and return the shared library's path."""
-    src = _SRC.read_bytes()
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built: keyed by a hash
+    of the source and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"nddwt_level_{key}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    return BUILD_DIR / f"{name}_{key}.so"
+
+
+def build(names=SOURCES) -> list:
+    """Compile the named sources that have not been built yet, one ``nvcc``
+    each, all started together; return the libraries' paths."""
+    tmps, jobs = [], []
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {_SRC.name}:\n"
-                f"{proc.stdout}{proc.stderr}"
+        for name in names:
+            so = library_path(name)
+            if so.exists():
+                continue
+            BUILD_DIR.mkdir(exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            tmps.append(tmp)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-        os.replace(tmp, so)  # atomic: two processes building at once both succeed
+            jobs.append((name, so, tmp, proc))
+        failed = []
+        for name, so, tmp, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode:
+                failed.append(f"nvcc failed ({proc.returncode}) on {name}.cu:\n{out}")
+            else:  # atomic: two processes building at once both succeed
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return so
+        for *_, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for tmp in tmps:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return [library_path(name) for name in names]
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built at the first call and
+    loaded once."""
+    return ctypes.CDLL(str(build((name,))[0]))
 
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """The kernel library, built at the first call and loaded once."""
-    lib = ctypes.CDLL(str(build()))
+    """The per-level kernel library with its signatures declared."""
+    lib = library("nddwt_level")
     ip = ctypes.POINTER(ctypes.c_int)
     fp = ctypes.POINTER(ctypes.c_float)
     vp = ctypes.c_void_p
@@ -162,8 +197,8 @@ def _geometry(shape, taps, rec: bool):
             arr)
 
 
-def _check_array(name, t, ref=None):
-    if t.dtype not in _DTYPE_CODE:
+def check_array(name, t, ref=None):
+    if t.dtype not in DTYPE_CODE:
         raise NotImplementedError(
             f"{name}: the CUDA kernels take float32 and bfloat16, got "
             f"{t.dtype} (float64 kernels: ROADMAP.md queue 2 items 19-20)"
@@ -177,9 +212,10 @@ def _check_array(name, t, ref=None):
         )
 
 
-def _raise_on(err: int, kernel: str) -> None:
+def raise_on(lib, err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error (``lib`` names it)."""
     if err:
-        msg = load().nddwt_error_string(err).decode()
+        msg = lib.nddwt_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")
 
 
@@ -194,8 +230,8 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False):
             f"the per-level CUDA kernels take 2D and 3D arrays, got "
             f"{approx.ndim}D (ROADMAP.md queue 2)"
         )
-    _check_array("approx", approx)
-    _check_array("big", big, approx)
+    check_array("approx", approx)
+    check_array("big", big, approx)
     nb = 2**approx.ndim
     if big.shape[1:] != approx.shape or not 1 <= band_off <= big.shape[0] - nb + 1:
         raise ValueError(
@@ -208,11 +244,11 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False):
     with torch.cuda.device(approx.device):
         err = lib.nddwt_dec_level(
             approx.data_ptr(), big.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[approx.dtype], n, k, t, left, bit,
+            DTYPE_CODE[approx.dtype], n, k, t, left, bit,
             arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             int(band_off), float(lam), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(err, "nddwt_dec_level")
+    raise_on(lib, err, "nddwt_dec_level")
     launch_counts["nddwt_dec_level"] += 1
     return None if final else out
 
@@ -229,7 +265,7 @@ def rec_level(y, approx, band_src, taps, scale):
             f"the per-level CUDA kernels take 2D and 3D arrays, got "
             f"{len(shape)}D (ROADMAP.md queue 2)"
         )
-    _check_array("y", y)
+    check_array("y", y)
     nb = 2 ** len(shape)
     idx = []
     for kind, i in band_src:
@@ -244,7 +280,7 @@ def rec_level(y, approx, band_src, taps, scale):
     if -1 in idx:
         if approx is None or tuple(approx.shape) != shape:
             raise ValueError("band source ('a', 0) needs an approx of the band shape")
-        _check_array("approx", approx, y)
+        check_array("approx", approx, y)
     else:
         approx = y
     out = torch.empty(shape, dtype=y.dtype, device=y.device)
@@ -253,24 +289,25 @@ def rec_level(y, approx, band_src, taps, scale):
     with torch.cuda.device(y.device):
         err = lib.nddwt_rec_level(
             y.data_ptr(), approx.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[y.dtype], n, k, t, left, bit,
+            DTYPE_CODE[y.dtype], n, k, t, left, bit,
             arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             (ctypes.c_longlong * 8)(*(idx + [-1] * (8 - nb))),
             float(scale), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(err, "nddwt_rec_level")
+    raise_on(lib, err, "nddwt_rec_level")
     launch_counts["nddwt_rec_level"] += 1
     return out
 
 
-def dec_levels(x, taps, level: int, lam: float = 0.0):
-    """Multilevel analysis as one ``dec_level`` per level; ``(B, *s)``.
-    Level ``l`` writes its details at ``B - (2^d - 1)(l + 1)`` (the tail
-    of ``pallas_kernels._dec_dispatch``), the last one its approximation
-    into band 0."""
+def dec_levels(x, taps, level: int, lam: float = 0.0, out=None):
+    """Multilevel analysis as one ``dec_level`` per level; ``(B, *s)``,
+    written into ``out`` when given. Level ``l`` writes its details at
+    ``B - (2^d - 1)(l + 1)`` (the tail of ``pallas_kernels._dec_dispatch``),
+    the last one its approximation into band 0."""
     nb = 2**x.ndim
     B = num_bands(x.ndim, level)
-    big = torch.empty((B,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    big = out if out is not None else torch.empty(
+        (B,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     approx = x
     for lvl in range(level):
         approx = dec_level(approx, big, B - (nb - 1) * (lvl + 1), taps, lam,

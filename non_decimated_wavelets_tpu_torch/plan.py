@@ -1,17 +1,23 @@
 """Transform plan: validated config + cached filter bank + dec/rec, in torch.
 
 Port of ``non_decimated_wavelets_tpu/plan.py`` (``NDDWT`` core: ``dec``,
-``rec``, ``dec_rec``, band layouts, level inference, config round trip).
-The plan builds the per-axis correlation taps once, as the reference's
-constructors do (``Functions/nd_dwt_2D.m:1-4``), and names the device its
-transforms run on.
+``rec``, ``dec_rec``, complex data, the split-complex ``dec_split``,
+``rec_split``, ``dec_rec_split``, band layouts, level inference, config
+round trip). The plan builds the per-axis correlation taps once, as the
+reference's constructors do (``Functions/nd_dwt_2D.m:1-4``), and names the
+device its transforms run on: the card (``"cuda"``) unless the caller asks
+for ``device="cpu"``.
 
 Dispatch:
 
 * a CUDA tensor, 2D or 3D, float32 or bfloat16: the hand-written per-level
   kernels (``ops/cuda_kernels.py``), one analysis and one synthesis launch
-  per level, the shrink of ``dec_rec`` fused into the analysis;
-* a CPU tensor: the torch direct path (``ops/direct_path.py``);
+  per level, the shrink of ``dec_rec`` fused into the analysis. Complex
+  data (complex64) and split re/im pairs run each component through its
+  own level chain (the filters are real); their shrink is the joint-
+  magnitude ``mag_shrink_pair`` kernel (``ops/elemwise.py``);
+* a CPU tensor: the torch direct path (``ops/direct_path.py``), complex
+  data included;
 * anything else on CUDA raises ``NotImplementedError`` naming the
   ``ROADMAP.md`` item that will bring it; nothing runs silently on torch ops.
 
@@ -27,7 +33,8 @@ backward is the exact adjoint, as the JAX package's ``linear_call`` rules
 synthesis with ``preserve_l2=True`` on the same taps, and the adjoint of
 ``rec`` is ``dec`` with the per-level ``1/2^d`` redistributed onto the band
 groups when not ``preserve_l2``. ``dec_rec`` with a threshold on CUDA is
-non-linear and has no adjoint, as in JAX.
+non-linear and has no adjoint, as in JAX; nor do the split transforms on
+CUDA.
 """
 
 from __future__ import annotations
@@ -39,8 +46,8 @@ import torch
 
 from . import filters as _filters
 from . import oracle as _oracle
-from .models.denoise import soft_threshold
-from .ops import cuda_kernels, direct_path
+from .models.denoise import soft_threshold, soft_threshold_mag_pair
+from .ops import cuda_kernels, direct_path, elemwise
 
 _VALID_PATHS = ("auto", "fft", "direct", "pallas")
 _REAL_DTYPES = {
@@ -70,6 +77,21 @@ def _as_real_dtype(dtype) -> torch.dtype:
 def _is_cuda(t: torch.Tensor) -> bool:
     """Whether a transform of ``t`` runs on the CUDA kernels."""
     return t.is_cuda
+
+
+def _parts(z: torch.Tensor) -> torch.Tensor:
+    """Complex ``(*s)`` -> the real ``(2, *s)`` re/im pair."""
+    return torch.stack([z.real, z.imag])
+
+
+def _join(pair: torch.Tensor) -> torch.Tensor:
+    """The real ``(2, *s)`` re/im pair -> complex ``(*s)``."""
+    return torch.complex(pair[0], pair[1])
+
+
+def _no_adjoint_on_kernels(t: torch.Tensor, what: str) -> None:
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError(f"{what} has no adjoint on the CUDA kernels")
 
 
 def _rec_transpose_scales(ndim: int, level: int) -> np.ndarray:
@@ -121,9 +143,10 @@ class NDDWT:
     ``wavelet`` is one name or one per axis; ``shape`` the spatial extents;
     ``preserve_l2`` the tight-frame normalization (the reference's
     ``pres_l2_norm``); ``dtype`` the precision (``'single'``/``'double'``
-    accepted); ``path`` the route (module docstring); ``device`` is where
-    the transforms run: tensor inputs must lie there, NumPy arrays and
-    lists are copied there.
+    accepted; complex data computes in ``complex_dtype``); ``path`` the
+    route (module docstring); ``device`` is where the transforms run, the
+    card by default: tensor inputs must lie there, NumPy arrays and lists
+    are copied there.
     """
 
     wavelet: object
@@ -131,11 +154,12 @@ class NDDWT:
     preserve_l2: bool = False
     dtype: object = torch.float32
     path: str = "auto"
-    device: object = "cpu"
+    device: object = "cuda"
 
     wavelets: tuple = dataclasses.field(init=False)
     ndim: int = dataclasses.field(init=False)
     real_dtype: torch.dtype = dataclasses.field(init=False)
+    complex_dtype: torch.dtype = dataclasses.field(init=False)
     taps: tuple = dataclasses.field(init=False, repr=False)
     taps_hp: tuple = dataclasses.field(init=False, repr=False)
     filter_lengths: tuple = dataclasses.field(init=False)
@@ -154,6 +178,9 @@ class NDDWT:
             raise ValueError(f"path must be one of {_VALID_PATHS}, got {self.path!r}")
         rdt = _as_real_dtype(self.dtype)
         object.__setattr__(self, "real_dtype", rdt)
+        # float32 and bfloat16 both promote to complex64 (JAX plan.py:113-120).
+        cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+        object.__setattr__(self, "complex_dtype", cdt)
         object.__setattr__(self, "device", torch.device(self.device))
 
         scale = 1.0 / np.sqrt(2.0) if self.preserve_l2 else 1.0
@@ -219,25 +246,65 @@ class NDDWT:
                 )
         else:
             x = torch.as_tensor(x, device=self.device)
-        if x.is_complex():
-            raise NotImplementedError(
-                "complex data is not ported yet (ROADMAP.md queue 1 item 6)"
+        return x.to(dtype=self.complex_dtype if x.is_complex() else self.real_dtype)
+
+    def _as_pair(self, x_pair) -> torch.Tensor:
+        """A split re/im pair ``(2, *shape)``, real, on the plan's device."""
+        x_pair = self._as_input(x_pair)
+        if x_pair.is_complex():
+            raise ValueError(
+                "a split pair holds the real and imaginary parts as real "
+                "arrays; give complex tensors to dec/rec/dec_rec"
             )
-        return x.to(dtype=self.real_dtype)
+        if tuple(x_pair.shape) != (2,) + self.shape:
+            raise ValueError(
+                f"expected (2, *{self.shape}) split re/im array, got "
+                f"{tuple(x_pair.shape)}"
+            )
+        return x_pair
 
     def _dec_bands(self, x, level):
         """Band-first analysis, no autograd."""
-        if self._uses_kernels(x):
-            return cuda_kernels.dec_levels(x.contiguous(), self.taps_hp, level)
-        return direct_path.dec_direct(x, self.taps, level)
+        if not self._uses_kernels(x):
+            return direct_path.dec_direct(x, self.taps, level)
+        if x.is_complex():
+            return _join(self._dec_pair(_parts(x), level))
+        return cuda_kernels.dec_levels(x.contiguous(), self.taps_hp, level)
 
     def _rec_bands(self, y, level, preserve_l2):
         """Band-first synthesis, no autograd."""
-        if self._uses_kernels(y):
-            return cuda_kernels.rec_levels(
-                y.contiguous(), self.taps_hp, level, preserve_l2
-            )
-        return direct_path.rec_direct(y, self.taps, level, preserve_l2)
+        if not self._uses_kernels(y):
+            return direct_path.rec_direct(y, self.taps, level, preserve_l2)
+        if y.is_complex():
+            return _join(self._rec_pair(_parts(y), level, preserve_l2))
+        return cuda_kernels.rec_levels(
+            y.contiguous(), self.taps_hp, level, preserve_l2
+        )
+
+    def _dec_pair(self, xp, level):
+        """``(2, *s)`` real components -> ``(2, B, *s)``: the filters are
+        real, so each component runs its own analysis chain."""
+        if not self._uses_kernels(xp):
+            return direct_path.dec_direct(xp, self.taps, level).transpose(0, 1)
+        _no_adjoint_on_kernels(xp, "the split analysis")
+        out = torch.empty((2, self.num_bands(level)) + self.shape,
+                          dtype=xp.dtype, device=xp.device)
+        for c in range(2):
+            cuda_kernels.dec_levels(xp[c].contiguous(), self.taps_hp, level,
+                                    out=out[c])
+        return out
+
+    def _rec_pair(self, yp, level, preserve_l2):
+        """``(2, B, *s)`` -> ``(2, *s)``, one synthesis chain per component."""
+        if not self._uses_kernels(yp):
+            return direct_path.rec_direct(yp.transpose(0, 1), self.taps, level,
+                                          preserve_l2)
+        _no_adjoint_on_kernels(yp, "the split synthesis")
+        return torch.stack([
+            cuda_kernels.rec_levels(yp[c].contiguous(), self.taps_hp, level,
+                                    preserve_l2)
+            for c in range(2)
+        ])
 
     @staticmethod
     def _check_band_axis(band_axis):
@@ -287,34 +354,79 @@ class NDDWT:
         level = _oracle.level_from_bands(self.ndim, y.shape[0])
         return _Rec.apply(y, self, level)
 
+    @staticmethod
+    def _check_threshold(threshold) -> float:
+        threshold = float(threshold)
+        if threshold < 0:
+            raise ValueError(f"threshold must be >= 0, got {threshold}")
+        return threshold
+
     def dec_rec(self, x, level: int, threshold: float = 0.0,
                 band_axis: int = -1):
         """One analysis -> soft-threshold(details) -> synthesis iterate;
         returns ``(bands, reconstruction)``. On CUDA the shrink rides the
-        analysis kernel's band writes (``lam``), as on the TPU."""
+        analysis kernel's band writes (``lam``), as on the TPU; complex data
+        takes the joint-magnitude shrink, one ``mag_shrink_pair`` launch
+        between the components' analyses and syntheses."""
         level = self._check_level(level)
         self._check_band_axis(band_axis)
-        threshold = float(threshold)
-        if threshold < 0:
-            raise ValueError(f"threshold must be >= 0, got {threshold}")
+        threshold = self._check_threshold(threshold)
         x = self._as_input(x)
         self._check_shape(x)
         if threshold and self._uses_kernels(x):
-            if torch.is_grad_enabled() and x.requires_grad:
-                raise RuntimeError(
-                    "dec_rec with a threshold is non-linear and has no "
-                    "adjoint on the fused CUDA kernels"
-                )
-            y = cuda_kernels.dec_levels(x.contiguous(), self.taps_hp, level,
-                                        lam=threshold)
-            xr = cuda_kernels.rec_levels(y, self.taps_hp, level,
-                                         self.preserve_l2)
+            _no_adjoint_on_kernels(x, "dec_rec with a threshold (non-linear)")
+            if x.is_complex():
+                yp = elemwise.mag_shrink_pair(self._dec_pair(_parts(x), level),
+                                              threshold)
+                y = _join(yp)
+                xr = _join(self._rec_pair(yp, level, self.preserve_l2))
+            else:
+                y = cuda_kernels.dec_levels(x.contiguous(), self.taps_hp,
+                                            level, lam=threshold)
+                xr = cuda_kernels.rec_levels(y, self.taps_hp, level,
+                                             self.preserve_l2)
         else:
             y = _Dec.apply(x, self, level)
             if threshold:
                 y = torch.cat([y[:1], soft_threshold(y[1:], threshold)])
             xr = _Rec.apply(y, self, level)
         return (y.movedim(0, -1) if band_axis == -1 else y), xr
+
+    # ------------------------------------------------------ split-complex
+    def dec_split(self, x_pair, level: int):
+        """Analysis of complex data in split re/im form: ``(2, *shape)``
+        real -> ``(2, B, *shape)`` real, band-first. The filters are real,
+        so this equals ``dec`` of ``x_pair[0] + 1j * x_pair[1]``."""
+        level = self._check_level(level)
+        return self._dec_pair(self._as_pair(x_pair), level)
+
+    def rec_split(self, y_pair):
+        """Synthesis from split re/im bands: ``(2, B, *shape)`` ->
+        ``(2, *shape)``."""
+        y_pair = self._as_input(y_pair)
+        if (y_pair.is_complex() or y_pair.ndim != self.ndim + 2
+                or y_pair.shape[0] != 2 or tuple(y_pair.shape[2:]) != self.shape):
+            raise ValueError(
+                f"expected a real (2, B, *{self.shape}) split band array, got "
+                f"{y_pair.dtype} {tuple(y_pair.shape)}"
+            )
+        level = _oracle.level_from_bands(self.ndim, y_pair.shape[1])
+        return self._rec_pair(y_pair, level, self.preserve_l2)
+
+    def dec_rec_split(self, x_pair, level: int, threshold: float = 0.0):
+        """One split-complex iterate: analysis -> joint re/im magnitude
+        soft-threshold of the details (the prox of the complex l1 norm,
+        ``Functions/nd_dwt_1D.m:57-61``) -> synthesis. Returns
+        ``((2, B, *shape) bands, (2, *shape) reconstruction)``. On the
+        kernels: two per-component analysis chains, one ``mag_shrink_pair``
+        launch, two synthesis chains; elsewhere the torch shrink, as JAX."""
+        threshold = self._check_threshold(threshold)
+        y = self.dec_split(x_pair, level)
+        if threshold:
+            shrink = (elemwise.mag_shrink_pair if self._uses_kernels(y)
+                      else soft_threshold_mag_pair)
+            y = shrink(y, threshold)
+        return y, self.rec_split(y)
 
     def num_bands(self, level: int) -> int:
         return _oracle.num_bands(self.ndim, level)
@@ -331,7 +443,7 @@ class NDDWT:
         }
 
     @classmethod
-    def from_config(cls, cfg: dict, device="cpu") -> "NDDWT":
+    def from_config(cls, cfg: dict, device="cuda") -> "NDDWT":
         return cls(
             wavelet=tuple(cfg["wavelet"]),
             shape=tuple(cfg["shape"]),

@@ -86,7 +86,7 @@ def test_dec_levels_match_jax_chain(jx, shape, wv, lam, rng):
         y_jax = np.asarray(
             jx.jax.jit(lambda v: _jax_dec_chain(jx, v, taps_np, lam))(x)
         )
-    plan = tw.NDDWT(wv, shape)
+    plan = tw.NDDWT(wv, shape, device="cpu")
     y = cuda_kernels.dec_levels(torch.from_numpy(x), plan.taps_hp, LEVEL, lam)
     assert y.shape == y_jax.shape and y.dtype == torch.float32
     np.testing.assert_allclose(y.numpy(), y_jax, atol=1e-5)
@@ -100,7 +100,7 @@ def test_rec_levels_match_jax_chain(jx, shape, wv, rng):
     y = np.array(jx.direct_path.dec_direct(jx.jnp.asarray(x), jplan.taps, LEVEL))
     with jx.pltpu.force_tpu_interpret_mode():
         x_jax = np.asarray(jx.jax.jit(lambda v: _jax_rec_chain(jx, v, taps_np))(y))
-    plan = tw.NDDWT(wv, shape)
+    plan = tw.NDDWT(wv, shape, device="cpu")
     xr = cuda_kernels.rec_levels(torch.from_numpy(y), plan.taps_hp, LEVEL, False)
     np.testing.assert_allclose(xr.numpy(), x_jax, atol=1e-5)
     np.testing.assert_allclose(xr.numpy(), x, atol=1e-4)  # the round trip
@@ -110,7 +110,7 @@ def test_level_refs_contract():
     """dec_level_ref writes only its own detail slots (and band 0 when
     final); rec_level_ref reads band 0 from ``approx`` for ("a", 0)."""
     shape, nb = (6, 8, 10), 8
-    plan = tw.NDDWT("db2", shape)
+    plan = tw.NDDWT("db2", shape, device="cpu")
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     big = torch.full((15,) + shape, 7.0)
@@ -140,7 +140,7 @@ def test_kernel_geometry(shape, wv, rec):
     """The launch geometry the wrappers hand the kernels: the 2D slot
     padding, the analysis/adjoint halos and tap orientation, and a tile
     plan inside the shared-memory budget."""
-    plan = tw.NDDWT(wv, shape)
+    plan = tw.NDDWT(wv, shape, device="cpu")
     n, k, t, left, bit, arr = cuda_kernels._geometry(shape, plan.taps_hp, rec)
     pad = 3 - len(shape)
     assert list(n) == [1] * pad + list(shape)
@@ -159,7 +159,7 @@ def test_kernel_geometry(shape, wv, rec):
 
 
 def test_long_filters_raise_in_3d():
-    plan = tw.NDDWT("db15", (32, 32, 32))
+    plan = tw.NDDWT("db15", (32, 32, 32), device="cpu")
     with pytest.raises(NotImplementedError, match="too long"):
         cuda_kernels._geometry(plan.shape, plan.taps_hp, False)
 
@@ -172,7 +172,7 @@ def test_cuda_kernels_match_plain_versions(dtype):
     dt = getattr(torch, dtype)
     tol = 1e-5 if dt == torch.float32 else 1e-2  # relative to max|ref|
     shape, nb, B = (24, 40, 72), 8, 22
-    plan = tw.NDDWT("db4", shape)
+    plan = tw.NDDWT("db4", shape, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(shape, generator=g, device="cuda").to(dt)
     for lam in (0.0, 0.1):
@@ -205,7 +205,7 @@ def test_cuda_plan_matches_cpu_plan(pl2):
     shape, level = (24, 40, 72), 3
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(shape)).float()
     gpu = tw.NDDWT("db4", shape, preserve_l2=pl2, device="cuda")
-    cpu = tw.NDDWT("db4", shape, preserve_l2=pl2)
+    cpu = tw.NDDWT("db4", shape, preserve_l2=pl2, device="cpu")
     counts = dict(cuda_kernels.launch_counts)
     for a, b in zip(gpu.dec_rec(x.cuda(), level, 0.1), cpu.dec_rec(x, level, 0.1)):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)

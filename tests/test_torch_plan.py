@@ -43,7 +43,7 @@ def as_cuda(monkeypatch):
 
 def _check_plan_vs_jax(shape, wv, level, pl2, dtype, rng):
     jp = nw.NDDWT(wavelet=wv, shape=shape, preserve_l2=pl2, dtype=dtype)
-    tp = tw.NDDWT(wv, shape, preserve_l2=pl2, dtype=dtype)
+    tp = tw.NDDWT(wv, shape, preserve_l2=pl2, dtype=dtype, device="cpu")
     atol_dec, atol_rec = TOL[dtype]
     x = rng.standard_normal(shape).astype(dtype)
     y_j = np.array(jp.dec(jnp.asarray(x), level))
@@ -69,7 +69,7 @@ def test_bf16_plan_matches_jax(rng):
     reconstruction, within a few bf16 ulps (2^-8 relative) of JAX's."""
     shape, level = (16, 12, 20), 2
     jp = nw.NDDWT(wavelet="db4", shape=shape, dtype=jnp.bfloat16)
-    tp = tw.NDDWT("db4", shape, dtype="bfloat16")
+    tp = tw.NDDWT("db4", shape, dtype="bfloat16", device="cpu")
     x = rng.standard_normal(shape).astype(np.float32)
     y_j = np.asarray(jp.dec(jnp.asarray(x), level, band_axis=0)).astype(np.float32)
     y_t = tp.dec(x, level, band_axis=0)
@@ -104,7 +104,7 @@ def test_dec_rec_threshold_matches_jax_dispatch(as_cuda, rng):
 
     with pltpu.force_tpu_interpret_mode():
         y_j, xr_j = jax.jit(pair)(x)
-    y_t, xr_t = tw.NDDWT("db4", shape).dec_rec(x, level, 0.1, band_axis=0)
+    y_t, xr_t = tw.NDDWT("db4", shape, device="cpu").dec_rec(x, level, 0.1, band_axis=0)
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5)
     np.testing.assert_allclose(xr_t.numpy(), np.asarray(xr_j), atol=1e-4)
 
@@ -116,7 +116,7 @@ def test_flagship_step_matches_graft_entry():
 
     forward, (x,) = __graft_entry__.entry()
     want = np.asarray(forward(x))
-    plan = tw.NDDWT("db4", (64, 64, 64))
+    plan = tw.NDDWT("db4", (64, 64, 64), device="cpu")
     xt = torch.from_numpy(np.array(x))
     y = plan.dec(xt, 3, band_axis=0)
     y = torch.cat([y[:1], tden.soft_threshold(y[1:], 0.1)])
@@ -128,7 +128,7 @@ def test_flagship_step_matches_graft_entry():
 
 def test_band_axis_and_level_inference(rng):
     shape = (8, 10, 12)
-    plan = tw.NDDWT("db2", shape, dtype="float64")
+    plan = tw.NDDWT("db2", shape, dtype="float64", device="cpu")
     x = rng.standard_normal(shape)
     y0 = plan.dec(x, 2, band_axis=0)
     y1 = plan.dec(x, 2)
@@ -150,9 +150,9 @@ def test_band_axis_and_level_inference(rng):
     with pytest.raises(ValueError, match="threshold"):
         plan.dec_rec(x, 2, threshold=-1.0)
     with pytest.raises(ValueError, match="precision"):
-        tw.NDDWT("db2", shape, dtype="int32")
+        tw.NDDWT("db2", shape, dtype="int32", device="cpu")
     with pytest.raises(ValueError, match="shorter"):
-        tw.NDDWT("db4", (4, 8))
+        tw.NDDWT("db4", (4, 8), device="cpu")
 
 
 def test_config_round_trip_and_plan_from_jax():
@@ -160,15 +160,15 @@ def test_config_round_trip_and_plan_from_jax():
                   preserve_l2=True, dtype=jnp.bfloat16)
     cfg = jp.to_config()
     taps_hp = tuple(np.asarray(t) for t in jp.taps_hp)
-    tp = convert.plan_from_jax(cfg, taps_hp)
+    tp = convert.plan_from_jax(cfg, taps_hp, device="cpu")
     assert tp.to_config() == cfg
     assert tp.real_dtype == torch.bfloat16 and tp.device == torch.device("cpu")
-    again = tw.NDDWT.from_config(tp.to_config())
+    again = tw.NDDWT.from_config(tp.to_config(), device="cpu")
     for a, b in zip(again.taps_hp, taps_hp):
         assert np.array_equal(a, b)
     tampered = (taps_hp[0], np.nextafter(taps_hp[1], 1.0), taps_hp[2])
     with pytest.raises(ValueError, match="differ"):
-        convert.plan_from_jax(cfg, tampered)
+        convert.plan_from_jax(cfg, tampered, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -181,13 +181,28 @@ def test_config_round_trip_and_plan_from_jax():
     ],
 )
 def test_unported_cuda_cases_raise(as_cuda, shape, dtype, path, match, rng):
-    plan = tw.NDDWT("db2", shape, dtype=dtype, path=path)
+    plan = tw.NDDWT("db2", shape, dtype=dtype, path=path, device="cpu")
     x = rng.standard_normal(shape)
-    for call in (lambda: plan.dec(x, 1), lambda: plan.dec_rec(x, 1, 0.1)):
+    for call in (lambda: plan.dec(x, 1), lambda: plan.dec_rec(x, 1, 0.1),
+                 lambda: plan.dec(x + 1j * x, 1),
+                 lambda: plan.dec_split(np.stack([x, x]), 1)):
         with pytest.raises(NotImplementedError, match=match):
             call()
-    with pytest.raises(NotImplementedError, match="complex"):
-        plan.dec(x + 1j * x, 1)
+
+
+def test_plans_default_to_the_card():
+    """A plan runs on the card unless the caller asks for the CPU: on a
+    machine without one, the first use fails loudly instead of running on
+    the host."""
+    plan = tw.NDDWT("db2", (8, 8))
+    assert plan.device.type == "cuda"
+    with pytest.raises(ValueError, match="given to a plan on cuda"):
+        plan.dec(torch.zeros(8, 8), 1)
+    jp = nw.NDDWT(wavelet="db2", shape=(8, 8))
+    taps_hp = tuple(np.asarray(t) for t in jp.taps_hp)
+    for p in (tw.NDDWT.from_config(plan.to_config()),
+              convert.plan_from_jax(jp.to_config(), taps_hp)):
+        assert p.device.type == "cuda"
 
 
 @pytest.mark.parametrize("plan_dev,tensor_dev", [("cpu", "meta"), ("cuda", "cpu")])
@@ -217,7 +232,7 @@ def test_path_picks_the_route(as_cuda, monkeypatch, path, rng):
                             lambda *a, _f=real, **k: route.append(1) or _f(*a, **k))
     shape = (16, 12, 20)
     jp = nw.NDDWT(wavelet="db4", shape=shape, dtype=jnp.float32)
-    tp = tw.NDDWT("db4", shape, path=path)
+    tp = tw.NDDWT("db4", shape, path=path, device="cpu")
     x = rng.standard_normal(shape).astype(np.float32)
     yb_j, xr_j = jp.dec_rec(jnp.asarray(x), 3, threshold=0.1)
     yb_t, xr_t = tp.dec_rec(x, 3, threshold=0.1)
@@ -234,7 +249,7 @@ def test_path_picks_the_route(as_cuda, monkeypatch, path, rng):
 
 
 def test_fused_shrink_has_no_adjoint(as_cuda, rng):
-    plan = tw.NDDWT("db2", (8, 8, 8))
+    plan = tw.NDDWT("db2", (8, 8, 8), device="cpu")
     x = torch.from_numpy(rng.standard_normal((8, 8, 8)).astype(np.float32))
     with pytest.raises(RuntimeError, match="no adjoint"):
         plan.dec_rec(x.requires_grad_(), 2, threshold=0.1)
@@ -245,7 +260,7 @@ def test_gradcheck_f64(pl2, rng):
     """Exact adjoints: the backward of dec is the preserve_l2 synthesis,
     the backward of rec the analysis with the transpose scales."""
     shape, level = (4, 6, 8), 2
-    plan = tw.NDDWT("db2", shape, preserve_l2=pl2, dtype="float64")
+    plan = tw.NDDWT("db2", shape, preserve_l2=pl2, dtype="float64", device="cpu")
     x = torch.from_numpy(rng.standard_normal(shape)).requires_grad_()
     # fast_mode (random projections of the Jacobians): the full check runs
     # one backward per output element, 2880 of them, ~10 s per call.
@@ -271,7 +286,7 @@ def test_thresholds_match_jax(rng):
         np.asarray(jden.soft_threshold_mag_pair(jnp.asarray(pair), 0.5)),
         atol=1e-15,
     )
-    plan = tw.NDDWT("db2", (6, 7), dtype="float64")
+    plan = tw.NDDWT("db2", (6, 7), dtype="float64", device="cpu")
     jp = nw.NDDWT(wavelet="db2", shape=(6, 7), dtype=jnp.float64)
     lam = np.full((1,), 0.3)
     np.testing.assert_allclose(
