@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Profile the torch port's 256^3 db4 L3 pair and solvers on one NVIDIA GPU.
+"""Profile the torch port's 256^3 db4 L3 pair and solvers, and its 4D pair
+and 4D CS-MRI solver, on one NVIDIA GPU.
 
     python3 chip_profile.py
 
@@ -15,7 +16,10 @@ runs), then:
    end), and device time per kernel;
 3. the same for one 3-iteration run of each FISTA solver (``fista_inpaint``,
    ``fista_inpaint_split``, ``fista_cs_mri``; float32, preserve_l2, lam
-   0.05, 40 % sampling) after one warm-up run.
+   0.05, 40 % sampling) after one warm-up run;
+4. the 4D window: the (128, 128, 128, 32) db4 L3 float32 pair timed as in
+   1, 3 pairs under ``torch.profiler``, and one 3-iteration run of
+   ``fista_cs_mri`` on complex (128, 128, 64, 32) k-t data, profiled as in 3.
 
 The last line is one JSON object with all of it. It exits non-zero
 without a CUDA device. ``chip_smoke.py`` is the correctness check; this
@@ -28,6 +32,8 @@ import sys
 import time
 
 SHAPE = (256, 256, 256)
+SHAPE4 = (128, 128, 128, 32)
+CS_SHAPE4 = (128, 128, 64, 32)
 LEVEL = 3
 THRESHOLD = 0.1
 
@@ -152,8 +158,31 @@ def main() -> int:
     for name, fn in solvers.items():
         fn()
         out[name] = profiled(fn)
+    del x, xi, mask, solvers
+    torch.cuda.empty_cache()
+
+    plan4 = tw.NDDWT("db4", SHAPE4, device="cuda")
+    x4 = torch.randn(SHAPE4, device="cuda", generator=gen)
+
+    def pair4():
+        return plan4.rec(plan4.dec(x4, LEVEL, band_axis=0), band_axis=0)
+
+    out["pair4_float32_ms"] = repeats(pair4, n_rep=5, n_call=3)
+    print("pair4_float32_ms", out["pair4_float32_ms"], flush=True)
+    out["pairs4"] = profiled(lambda: [pair4() for _ in range(3)])
+    del x4
+    torch.cuda.empty_cache()
+    splan4 = tw.NDDWT("db4", CS_SHAPE4, preserve_l2=True, device="cuda")
+    mask4 = (torch.rand(CS_SHAPE4, device="cuda", generator=gen) < 0.4).float()
+    kt = mask4 * torch.fft.fftn(torch.randn(CS_SHAPE4, device="cuda", generator=gen),
+                                norm="ortho")
+    fn = lambda: fista_cs_mri(splan4, kt, mask4, 0.05, LEVEL, 3)  # noqa: E731
+    fn()
+    out["fista_cs_mri_4d"] = profiled(fn)
+    windows = ["pairs", "fista_inpaint", "fista_inpaint_split", "fista_cs_mri",
+               "pairs4", "fista_cs_mri_4d"]
     out["card_after"] = card()
-    if not all(out[k]["device_busy_us"] for k in ["pairs", *solvers]):
+    if not all(out[k]["device_busy_us"] for k in windows):
         print("chip_profile: the profiler saw no device time", file=sys.stderr)
         return 1
     print(json.dumps(out))

@@ -7,12 +7,17 @@ The main path is the flagship workload: a 3-level db4 3D non-decimated DWT
 inside one denoising step (dec -> soft-threshold the details -> rec), at
 256^3 float32, through ``NDDWT.dec_rec``. The solver paths run the FISTA
 solvers of ``models/cs_recon.py`` at the same width: ``fista_inpaint``,
-``fista_inpaint_split`` and ``fista_cs_mri`` on complex k-space. Phases:
+``fista_inpaint_split`` and ``fista_cs_mri`` on complex k-space. The 4D
+paths run the same step on a (128, 128, 128, 32) dynamic volume (db4 L3
+and Haar L1) and ``fista_cs_mri`` on complex (128, 128, 64, 32) k-t data,
+through the lane and lead stage kernels. Phases:
 
 1. the card's name and power limit; build every CUDA kernel from this
    checkout's sources (one ``nvcc`` per source, all at once);
 2. each kernel against its plain torch version on the card, at the paths'
-   shapes and at small, odd, mixed-wavelet, 2D and bfloat16 shapes;
+   shapes and at small, odd, mixed-wavelet, 2D and bfloat16 shapes; the
+   stage kernels also at odd Z/T, T > 128 and on a 3D db20 plan (the
+   long-filter route);
 3. the main path at 256^3 (both normalizations) against the plain path on
    the card, the threshold-0 round trip, and the 64^3 flagship step of
    ``__graft_entry__.entry`` against the float64 NumPy oracle; the kernels'
@@ -21,11 +26,13 @@ solvers of ``models/cs_recon.py`` at the same width: ``fista_inpaint``,
    then the solver paths, 10 iterations each at 256^3 db4 L3 float32
    (preserve_l2, 40 % sampling): each against the same solver on a
    ``path='direct'`` plan on the card, its launch counts zeroed just
-   before the run and held to the exact numbers its route launches;
+   before the run and held to the exact numbers its route launches; then
+   the 4D paths the same way (and a 3D db20 step on the long-filter route);
 4. timings with CUDA events: each kernel per call, the dec+rec pair, the
    fused dec_rec step and one iteration of each solver, each beside its
-   plain version; for the level kernels also one cuDNN convolution
-   computing the same level (the yardstick ``library_ms``).
+   plain version, in 3D and 4D; for the level kernels also one cuDNN
+   convolution computing the same level (the yardstick ``library_ms``;
+   PyTorch has no 4D convolution, so the stage kernels have none).
 
 It exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -48,6 +55,10 @@ LAM, ITERS, SAMPLING = 0.05, 10, 0.4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PAIR = (2, 22) + SHAPE  # the split pair of 256^3 L3 bands
+SHAPE4 = (128, 128, 128, 32)  # a dynamic volume: 128^3 frames, 32 time points
+CS_SHAPE4 = (128, 128, 64, 32)  # 4D CS-MRI k-t data
+STAGE_KERNELS = ("nddwt_lane_dec", "nddwt_lead_dec", "nddwt_lead_adj",
+                 "nddwt_lane_adj")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nddwt_dec_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_level.cu",
                         "non_decimated_wavelets_tpu/ops/pallas_kernels.py:519"),
@@ -59,6 +70,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nddwt_fista_step": (
         "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_elemwise.cu",
         "non_decimated_wavelets_tpu/ops/pallas_elemwise.py:108"),
+    **{name: ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_4d.cu",
+              f"non_decimated_wavelets_tpu/ops/pallas_4d.py:{line}")
+       for name, line in zip(STAGE_KERNELS, (503, 592, 882, 998))},
 }
 
 failures = []
@@ -73,7 +87,9 @@ def check(what, err, tol):
 
 
 def check_launches(what, got, want):
-    """Hold the launch counts read just after one run against ``want``."""
+    """Hold the launch counts read just after one run against ``want``; a
+    kernel that ``want`` does not name must not have launched."""
+    want = {**dict.fromkeys(got, 0), **want}
     ok = got == want
     print(f"  launches, {what}: {got} {'ok' if ok else f'FAIL (want {want})'}")
     if not ok:
@@ -92,11 +108,11 @@ def rel_tol(ref, dtype):
     return rel * ref.float().abs().max().item()
 
 
-def timed(fn, reps):
-    """Mean ms per call over ``reps`` calls after two warm-up calls."""
+def timed(fn, reps, warm=2):
+    """Mean ms per call over ``reps`` calls after ``warm`` warm-up calls."""
     import torch
 
-    for _ in range(2):
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -162,7 +178,7 @@ def main() -> int:
         fista_cs_mri, fista_inpaint, fista_inpaint_split, soft_threshold)
     from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
     from non_decimated_wavelets_tpu_torch.ops import (
-        direct_path, elemwise, elemwise_ref, level_ref)
+        direct_path, elemwise, elemwise_ref, level4_ref, level_ref)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -178,6 +194,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = ck.build()
     ck.load()
+    ck.load4()
     elemwise.load()
     print(f"  built and loaded {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -277,6 +294,63 @@ def main() -> int:
         del buf, xn, xp, b, mask, k, r
     torch.cuda.empty_cache()
 
+    # The stage kernels of the 4D level; a 3D db20 plan takes them too.
+    for seed, (shape, wv, dt) in enumerate([
+        ((64, 64, 20, 10), "db2", torch.float32),  # the reference's odd 4D volume
+        ((64, 64, 20, 10), "db2", torch.bfloat16),
+        ((16, 16, 8, 160), "db4", torch.float32),  # T > 128
+        ((40, 41, 45), "db20", torch.float32),  # the 3D long-filter route
+        ((40, 41, 45), "db20", torch.bfloat16),
+        (SHAPE4, "db4", torch.float32),
+    ]):
+        gen.manual_seed(30 + seed)
+        taps = tw.NDDWT(wv, shape, device=dev).taps_hp
+        tag = f"{shape} {wv} {str(dt).removeprefix('torch.')}"
+        errs = dict.fromkeys(STAGE_KERNELS, 0.0)
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        k = ck.lane_dec(x, taps)
+        temp = level4_ref.lane_dec_ref(x, taps)
+        torch.cuda.synchronize()
+        errs["nddwt_lane_dec"] = check(f"nddwt_lane_dec {tag}", max_err(k, temp),
+                                       rel_tol(temp, dt))
+        del k
+        nb = 4 * temp.shape[0]
+        for lam in (0.0, THRESHOLD):
+            for final in (False, True):
+                bk = torch.zeros((nb,) + shape, dtype=dt, device=dev)
+                br = bk.clone()
+                ak = ck.lead_dec(temp, bk, 1, taps, lam, final)
+                ar = level4_ref.lead_dec_ref(temp, br, 1, taps, lam, final)
+                torch.cuda.synchronize()
+                tol = rel_tol(br, dt)
+                err = check(f"nddwt_lead_dec {tag} lam={lam} final={final}",
+                            max_err(bk, br), tol)
+                if not final:
+                    err = max(err, check("    next approx", max_err(ak, ar), tol))
+                errs["nddwt_lead_dec"] = max(errs["nddwt_lead_dec"], err)
+                del bk, br, ak, ar
+        y = torch.randn((2 * nb - 1,) + shape, generator=gen, device=dev).to(dt)
+        for src in ([("y", b) for b in range(nb)],
+                    [("a", 0)] + [("y", nb + b - 1) for b in range(1, nb)]):
+            k = ck.lead_adj(y, x, src, taps)
+            r = level4_ref.lead_adj_ref(y, x, src, taps)
+            torch.cuda.synchronize()
+            errs["nddwt_lead_adj"] = max(errs["nddwt_lead_adj"], check(
+                f"nddwt_lead_adj {tag} band0={src[0]}", max_err(k, r), rel_tol(r, dt)))
+            del k, r
+        del y
+        for scale in (1.0, 1.0 / nb):
+            k = ck.lane_adj(temp, taps, scale)
+            r = level4_ref.lane_adj_ref(temp, taps, scale)
+            torch.cuda.synchronize()
+            errs["nddwt_lane_adj"] = max(errs["nddwt_lane_adj"], check(
+                f"nddwt_lane_adj {tag} scale={scale}", max_err(k, r), rel_tol(r, dt)))
+            del k, r
+        if shape == SHAPE4:
+            main_err.update(errs)
+        del x, temp
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- phase 3
     print(f"phase 3: the main path, NDDWT.dec_rec at {SHAPE} db4 L{LEVEL} f32")
     gen.manual_seed(100)
@@ -366,6 +440,87 @@ def main() -> int:
         del out, ref
     torch.cuda.empty_cache()
 
+    print(f"phase 3: the 4D path, NDDWT.dec_rec at {SHAPE4} f32, db4 L{LEVEL} "
+          "and haar L1")
+    gen.manual_seed(400)
+    x4 = torch.randn(SHAPE4, generator=gen, device=dev)
+    for wv, lvl, pl2 in (("db4", LEVEL, False), ("db4", LEVEL, True), ("haar", 1, False)):
+        plan4 = tw.NDDWT(wv, SHAPE4, preserve_l2=pl2, device=dev)
+        tag = f"4D {wv} L{lvl}, preserve_l2={pl2}"
+        ck.reset_launch_counts()
+        y, xr = plan4.dec_rec(x4, lvl, threshold=THRESHOLD, band_axis=0)
+        got = check_launches(tag, dict(ck.launch_counts),
+                             dict.fromkeys(STAGE_KERNELS, lvl))
+        if (wv, pl2) == ("db4", False):  # the 4D path's own launches
+            launches.update({name: got[name] for name in STAGE_KERNELS})
+        torch.cuda.synchronize()
+        B = plan4.num_bands(lvl)
+        if y.shape != (B,) + SHAPE4 or xr.shape != SHAPE4:
+            failures.append(f"{tag}: shapes {tuple(y.shape)} {tuple(xr.shape)}")
+        if not (torch.isfinite(y).all() and torch.isfinite(xr).all()):
+            failures.append(f"{tag}: non-finite output")
+        yp = direct_path.dec_direct(x4, plan4.taps, lvl)
+        yp = torch.cat([yp[:1], soft_threshold(yp[1:], THRESHOLD)])
+        check(f"bands vs plain path, {tag}", max_err(y, yp),
+              F32_TOL * yp.abs().max().item())
+        del y
+        xp = direct_path.rec_direct(yp, plan4.taps, lvl, pl2)
+        del yp
+        check(f"reconstruction vs plain path, {tag}", max_err(xr, xp),
+              F32_TOL * xp.abs().max().item())
+        _, xr0 = plan4.dec_rec(x4, lvl, band_axis=0)
+        check(f"threshold-0 round trip, {tag}", max_err(xr0, x4), 1e-4)
+        del xr, xp, xr0, _
+        torch.cuda.empty_cache()
+
+    # A 3D plan whose filters are too long for the per-level kernels' tile
+    # runs on the stage kernels (one lane axis, 8 bands).
+    plan20 = tw.NDDWT("db20", (128, 128, 128), device=dev)
+    x20 = torch.randn(plan20.shape, generator=gen, device=dev)
+    ck.reset_launch_counts()
+    y, xr = plan20.dec_rec(x20, 2, threshold=THRESHOLD, band_axis=0)
+    check_launches("3D db20 L2, the long-filter route", dict(ck.launch_counts),
+                   dict.fromkeys(STAGE_KERNELS, 2))
+    yp = direct_path.dec_direct(x20, plan20.taps, 2)
+    yp = torch.cat([yp[:1], soft_threshold(yp[1:], THRESHOLD)])
+    xp = direct_path.rec_direct(yp, plan20.taps, 2, False)
+    check("3D db20 bands vs plain path", max_err(y, yp), F32_TOL * yp.abs().max().item())
+    check("3D db20 reconstruction vs plain path", max_err(xr, xp),
+          F32_TOL * xp.abs().max().item())
+    del x20, y, xr, yp, xp
+
+    print(f"phase 3: 4D fista_cs_mri at {CS_SHAPE4} db4 L{LEVEL} f32, preserve_l2, "
+          f"{ITERS} iterations, lam {LAM}, {SAMPLING:.0%} sampling")
+    del x4
+    torch.cuda.empty_cache()
+    splan4 = tw.NDDWT("db4", CS_SHAPE4, preserve_l2=True, device=dev)
+    dplan4 = tw.NDDWT("db4", CS_SHAPE4, preserve_l2=True, path="direct", device=dev)
+    gen.manual_seed(500)
+    mask4 = (torch.rand(CS_SHAPE4, generator=gen, device=dev) < SAMPLING).float()
+    kt = mask4 * torch.fft.fftn(torch.randn(CS_SHAPE4, generator=gen, device=dev),
+                                norm="ortho")  # undersampled k-t data
+
+    def cs_mri4(p, iters=ITERS):
+        return fista_cs_mri(p, kt, mask4, LAM, LEVEL, iters)
+
+    ck.reset_launch_counts()
+    out = cs_mri4(splan4)
+    check_launches("4D fista_cs_mri", dict(ck.launch_counts),
+                   {**dict.fromkeys(STAGE_KERNELS, 2 * L), "nddwt_mag_shrink_pair": ITERS})
+    torch.cuda.empty_cache()
+    ck.reset_launch_counts()
+    ref = cs_mri4(dplan4)
+    torch.cuda.synchronize()
+    if any(ck.launch_counts.values()):
+        failures.append(f"4D fista_cs_mri: the plain route launched {ck.launch_counts}")
+    if tuple(out.shape) != CS_SHAPE4 or not torch.isfinite(torch.view_as_real(out)).all():
+        failures.append(f"4D fista_cs_mri: shape {tuple(out.shape)} or non-finite values")
+    out, ref = torch.view_as_real(out), torch.view_as_real(ref)
+    check("4D fista_cs_mri vs the plain route", max_err(out, ref),
+          SOLVER_TOL * ref.abs().max().item())
+    del out, ref
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- phase 4
     print(f"phase 4: timings (CUDA events) {card}")
     plan = tw.NDDWT("db4", SHAPE, device=dev)
@@ -435,7 +590,7 @@ def main() -> int:
         "nddwt_fista_step": None,  # nor computes the step
     }
     del xpad, ypad, conv, approx, r
-    for name, (k, p) in ms.items():
+    for name, (k, p) in ms.items():  # the 3D and solver kernels
         lib = f", cuDNN conv3d {library[name]:.4f} ms" if library[name] else ""
         print(f"  {name} {SHAPE} db4 f32 per call: kernel {k:.4f} ms, plain "
               f"{p:.4f} ms{lib}, bound {bound[name][0]:.4f} ms "
@@ -472,6 +627,78 @@ def main() -> int:
         p = timed(lambda: run(dplan), 1) / ITERS
         print(f"  {name} {SHAPE} db4 L{LEVEL} f32 per iteration: kernels "
               f"{k:.4f} ms, plain route {p:.4f} ms {card}")
+    del x, xi, mask
+    torch.cuda.empty_cache()
+
+    plan4 = tw.NDDWT("db4", SHAPE4, device=dev)
+    taps4 = plan4.taps_hp
+    gen.manual_seed(600)
+    x4 = torch.randn(SHAPE4, generator=gen, device=dev)
+    temp = ck.lane_dec(x4, taps4)
+    big4 = torch.randn((16,) + SHAPE4, generator=gen, device=dev)
+    src16 = [("y", b) for b in range(16)]
+    ms.update({
+        "nddwt_lane_dec": (
+            timed(lambda: ck.lane_dec(x4, taps4), 10),
+            timed(lambda: level4_ref.lane_dec_ref(x4, taps4), 3)),
+        "nddwt_lead_dec": (
+            timed(lambda: ck.lead_dec(temp, big4, 1, taps4), 10),
+            timed(lambda: level4_ref.lead_dec_ref(temp, big4, 1, taps4), 3)),
+        "nddwt_lead_adj": (
+            timed(lambda: ck.lead_adj(big4, None, src16, taps4), 10),
+            timed(lambda: level4_ref.lead_adj_ref(big4, None, src16, taps4), 3)),
+        "nddwt_lane_adj": (
+            timed(lambda: ck.lane_adj(temp, taps4, 1 / 16), 10),
+            timed(lambda: level4_ref.lane_adj_ref(temp, taps4, 1 / 16), 3)),
+    })
+    del temp, big4
+    torch.cuda.empty_cache()
+    vox4 = int(np.prod(SHAPE4))
+    k4 = [len(t[0]) for t in taps4]
+    # Lane stage: 2 outputs of Kz taps, then 4 of Kt, per voxel; the lead
+    # stage the same over X and Y for each of the 4 lane bands. The
+    # adjoints do the same multiply-adds. Bytes: lane 1 array in and 4 out
+    # (4 in, 1 out for the adjoint); lead 4 in, 16 out (16 in, 4 out).
+    lane_flops = vox4 * (4 * k4[2] + 8 * k4[3])
+    lead_flops = 4 * vox4 * (4 * k4[0] + 8 * k4[1])
+    bound.update({
+        "nddwt_lane_dec": bound_ms(5 * vox4 * f32, lane_flops),
+        "nddwt_lead_dec": bound_ms(20 * vox4 * f32, lead_flops),
+        "nddwt_lead_adj": bound_ms(20 * vox4 * f32, lead_flops),
+        "nddwt_lane_adj": bound_ms(5 * vox4 * f32, lane_flops),
+    })
+    library.update(dict.fromkeys(STAGE_KERNELS))  # PyTorch has no 4D convolution
+    for name in STAGE_KERNELS:
+        k, p = ms[name]
+        print(f"  {name} {SHAPE4} db4 f32 per call: kernel {k:.4f} ms, plain "
+              f"{p:.4f} ms, library none (no 4D convolution in PyTorch), bound "
+              f"{bound[name][0]:.4f} ms ({bound[name][1]}) {card}")
+
+    def plain_pair4(thr):
+        yp = direct_path.dec_direct(x4, plan4.taps, LEVEL)
+        if thr:
+            yp = torch.cat([yp[:1], soft_threshold(yp[1:], thr)])
+        return direct_path.rec_direct(yp, plan4.taps, LEVEL, False)
+
+    steps4 = {
+        "4D dec+rec pair": (
+            lambda: plan4.rec(plan4.dec(x4, LEVEL, band_axis=0), band_axis=0),
+            lambda: plain_pair4(0.0)),
+        f"4D fused dec_rec step (threshold {THRESHOLD})": (
+            lambda: plan4.dec_rec(x4, LEVEL, threshold=THRESHOLD, band_axis=0),
+            lambda: plain_pair4(THRESHOLD)),
+    }
+    for what, (fn, plain) in steps4.items():
+        k, p = timed(fn, 5), timed(plain, 2, warm=1)
+        print(f"  {what} {SHAPE4} db4 L{LEVEL} f32: kernels {k:.4f} ms "
+              f"({vox4 / k / 1e3:.1f} Mvox/s), plain {p:.4f} ms "
+              f"({vox4 / p / 1e3:.1f} Mvox/s) {card}")
+    del x4
+    torch.cuda.empty_cache()
+    k = timed(lambda: cs_mri4(splan4, 3), 1, warm=1) / 3
+    p = timed(lambda: cs_mri4(dplan4, 3), 1, warm=1) / 3
+    print(f"  4D fista_cs_mri {CS_SHAPE4} db4 L{LEVEL} f32 per iteration: kernels "
+          f"{k:.4f} ms, plain route {p:.4f} ms {card}")
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)

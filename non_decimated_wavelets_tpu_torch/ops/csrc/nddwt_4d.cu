@@ -1,0 +1,440 @@
+// The two stages of one 4D level of the multilevel non-decimated DWT,
+// hand-written for Hopper.
+//
+//   nddwt_lane_dec  replaces _lane_dec_call
+//                   (non_decimated_wavelets_tpu/ops/pallas_4d.py:503)
+//   nddwt_lead_dec  replaces _lead_dec_call (pallas_4d.py:592)
+//   nddwt_lead_adj  replaces _lead_adj_call (pallas_4d.py:882)
+//   nddwt_lane_adj  replaces _lane_adj_call (pallas_4d.py:998)
+//
+// An analysis level of an (X, Y, Z, T) array is the lane stage, K-tap lo/hi
+// correlations along Z and T into 4 (z,t)-bands c = zbit + 2 tbit, then the
+// lead stage, correlations of each along X and Y into the 16 bands
+// b = xbit + 2 ybit + 4 c: 15 details written in place into the (B, ...)
+// band array at band_off (soft-thresholded when lam > 0) and the next
+// approximation, or band 0 at the final level. The synthesis runs the
+// adjoints in reverse order: the lead stage sums the adjoints of bands 4c+a
+// into partial c, the lane stage the adjoints of the 4 partials, times the
+// per-level scale. Storage is float or bfloat16 (the 4 intermediate bands
+// too, as on the TPU); every sum is taken in float32 with float32 taps.
+//
+// Each stage is a launch over a 3-slot view of the array with a halo on two
+// slots and one pass-through slot: the lane stage sees (X*Y, Z, T), the lead
+// stage (X, Y, Z*T). A 3D array whose filters are too long for the
+// per-level kernels (nddwt_level.cu keeps a halo on all three axes) runs
+// through the same two stages as (X*Y, Z, 1) and (X, Y, Z), 2 lane bands
+// and 8 bands in all: the pass-through slot has one tap of 1.0.
+//
+// What bounds them: device-memory bytes. At (128, 128, 128, 32) float32 one
+// array is 268 MB; the lane analysis moves 5 arrays (0.40 ms at 3.35 TB/s),
+// the lead analysis 20 (1.60 ms), the lead adjoint 20 and the lane adjoint
+// 5. A halo on two slots instead of four keeps a CTA's window small (one
+// launch per level with halos on all four axes does not fit 100 KB at db4,
+// and reads its input 25 times), so the input is read about 1.3-2 times
+// over, mostly from L2, and the K-tap passes run in shared memory with
+// consecutive threads on consecutive addresses. The analysis computes both
+// halves of the second pass from one read of the intermediate. Flat indices
+// are split by multiply-high, not by division, and the lead stage keeps 8
+// window loads in flight per thread. They still run at 14-30 % of the bound
+// on an H100: every pass waits at a barrier for its window, and the lead
+// stage's window spans tile + K - 1 planes of X. Streaming X through the
+// CTA, with a ring of K planes, would read each plane once. Every index
+// wraps periodically, so any extent >= K runs: odd Z and T, T > 128.
+// TMA, wgmma and warp specialisation are left for later work.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+//        -Xcompiler -fPIC  (ops/cuda_kernels.py does this at first use).
+
+#include "nddwt_common.cuh"
+
+namespace {
+
+constexpr int kMaxBands = 16;
+
+struct Sources {
+  long long idx[kMaxBands];  // band d's index into y; -1 reads the approx array
+};
+
+// i / d by one multiply-high, m = ceil(2^32 / d): exact for 0 <= i < 2^16
+// and d < 2^16 (i = q d + r: i m / 2^32 = q + (r + i e / 2^32) / d with
+// e = m d - 2^32 < d, and i e < 2^32). Every flat index inside a CTA's
+// window, intermediate or tile is under 2^16: shared memory (227 KB) holds
+// fewer floats, and the wrapper keeps a tile to 8192 outputs. d == 1 gives
+// m = 0, one = ~0.
+struct FastDiv {
+  int d;
+  unsigned m, one;
+  __device__ explicit FastDiv(int divisor)
+      : d(divisor),
+        m(divisor == 1 ? 0u : 0xFFFFFFFFu / (unsigned)divisor + 1u),
+        one(divisor == 1 ? ~0u : 0u) {}
+  __device__ __forceinline__ int div(int i) const {
+    return (int)(__umulhi((unsigned)i, m) + ((unsigned)i & one));
+  }
+};
+
+// A flat index over (., n1, n2), slot 2 fastest, split into (c0, c1, c2)
+// without a hardware division: the index loops below would otherwise spend
+// most of their instructions on it.
+struct Split3 {
+  FastDiv f1, f2;
+  __device__ Split3(int n1, int n2) : f1(n1), f2(n2) {}
+  __device__ __forceinline__ void operator()(int i, int& c0, int& c1,
+                                             int& c2) const {
+    const int r = f2.div(i);
+    c2 = i - r * f2.d;
+    c0 = f1.div(r);
+    c1 = r - c0 * f1.d;
+  }
+};
+
+// i mod n for -n <= i < 3n: the wrapper keeps every tile inside its extent
+// and every filter no longer than its axis, so window indices stay there.
+__device__ __forceinline__ int wrap3(int i, int n) {
+  if (i < 0) return i + n;
+  if (i >= n) i -= n;
+  return i >= n ? i - n : i;
+}
+
+// The CTA's (e0, e1, e2) input window, wrapped periodically. Each thread
+// issues BATCH loads before it stores any. The lead stage's window is short
+// rows in tile + K - 1 planes of X that every pass waits on at a barrier:
+// 8 loads in flight per thread take a quarter off the lead adjoint. The lane
+// stage's rows are long, and there the registers cost more than they hide
+// (both measured on an H100 in a sweep of batches and tiles).
+template <int BATCH, typename T>
+__device__ void load_window(float* __restrict__ s, const T* __restrict__ src,
+                            const Level& g, const int* b, int e0, int e1,
+                            int e2) {
+  const int o0 = b[0] - g.left[0], o1 = b[1] - g.left[1],
+            o2 = b[2] - g.left[2];
+  const int total = e0 * e1 * e2;
+  const Split3 split(e1, e2);
+  for (int base = threadIdx.x; base < total; base += BATCH * blockDim.x) {
+    float v[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < total) {
+        int l0, l1, l2;
+        split(i, l0, l1, l2);
+        const long long g0 = wrap3(o0 + l0, g.n[0]);
+        const long long g1 = wrap3(o1 + l1, g.n[1]);
+        const int g2 = wrap3(o2 + l2, g.n[2]);
+        v[u] = to_f(src[(g0 * g.n[1] + g1) * g.n[2] + g2]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < total) s[i] = v[u];
+    }
+  }
+}
+
+// out = K-tap correlation of `in` (d0, d1, d2) along axis A, keeping `to`
+// outputs on that axis: out[c] = sum_j tp[j] * in[c + j e_A] (the pass of
+// nddwt_level.cu, with the index split by multiply-high).
+template <int A, bool ACCUM>
+__device__ void stage_pass(float* __restrict__ out, const float* __restrict__ in,
+                           int d0, int d1, int d2, int to,
+                           const float* __restrict__ tp, int K) {
+  const int o0 = A == 0 ? to : d0;
+  const int o1 = A == 1 ? to : d1;
+  const int o2 = A == 2 ? to : d2;
+  const int stride = A == 2 ? 1 : (A == 1 ? d2 : d1 * d2);
+  const int total = o0 * o1 * o2;
+  const Split3 split(o1, o2);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    int c0, c1, c2;
+    split(i, c0, c1, c2);
+    const float* p = in + (c0 * d1 + c1) * d2 + c2;
+    float acc = 0.f;
+    for (int j = 0; j < K; ++j) acc = fmaf(tp[j], p[j * stride], acc);
+    if (ACCUM)
+      out[i] += acc;
+    else
+      out[i] = acc;
+  }
+}
+
+__device__ __forceinline__ float shrink(float v, float lam) {
+  const float m = fabsf(v);
+  return v * (fmaxf(m - lam, 0.f) / fmaxf(m, 1e-30f));
+}
+
+// Analysis over halo slots HA < HB: input i (of n_in, one view's extent
+// apart) gives sub-band s = bitA + 2 bitB as output d = s + 4 i, written to
+// dst0 for d == 0 and to big[band_off + d - 1] otherwise, soft-thresholded
+// by lam > 0 when d > 0. smem: the window, then the HA-pass intermediate.
+template <typename T, int HA, int HB>
+__device__ void dec_stage(float* __restrict__ smem, float (*taps)[2][kMaxTaps],
+                          const T* __restrict__ src, int n_in, const Level& g,
+                          T* __restrict__ dst0, T* __restrict__ big,
+                          long long band_off, float lam) {
+  copy_taps(taps, g);
+  int b[3];
+  tile_origin(g, b);
+  const int t0 = g.t[0], t1 = g.t[1], t2 = g.t[2];
+  const int e0 = t0 + g.k[0] - 1, e1 = t1 + g.k[1] - 1, e2 = t2 + g.k[2] - 1;
+  const int d1 = HA == 1 ? t1 : e1, d2 = HA == 2 ? t2 : e2;  // intermediate
+  const int strideB = HB == 2 ? 1 : d2;
+  float* s0 = smem;
+  float* p1 = s0 + e0 * e1 * e2;
+  const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
+  const int nsA = g.k[HA] > 1 ? 2 : 1;
+  const bool hiB = g.k[HB] > 1;
+  const int KB = g.k[HB];
+  const float* tl = taps[HB][0];
+  const float* th = taps[HB][1];
+  const Split3 split(t1, t2);
+  for (int i = 0; i < n_in; ++i) {
+    __syncthreads();  // the previous input's window and intermediate are read
+    load_window<HA == 0 ? 8 : 1>(s0, src + i * vox, g, b, e0, e1, e2);
+    __syncthreads();
+    for (int sa = 0; sa < nsA; ++sa) {
+      stage_pass<HA, false>(p1, s0, e0, e1, e2, g.t[HA], taps[HA][sa],
+                            g.k[HA]);
+      __syncthreads();
+      const int dlo = sa + 4 * i, dhi = dlo + 2;
+      T* lo_dst = dlo == 0 ? dst0 : big + (band_off + dlo - 1) * vox;
+      T* hi_dst = hiB ? big + (band_off + dhi - 1) * vox : nullptr;
+      const bool shrink_lo = dlo != 0 && lam > 0.f, shrink_hi = lam > 0.f;
+      for (int o = threadIdx.x; o < t0 * t1 * t2; o += blockDim.x) {
+        int c0, c1, c2;
+        split(o, c0, c1, c2);
+        const int q0 = b[0] + c0, q1 = b[1] + c1, q2 = b[2] + c2;
+        if (q0 >= g.n[0] || q1 >= g.n[1] || q2 >= g.n[2]) continue;
+        const float* p = p1 + (c0 * d1 + c1) * d2 + c2;
+        float lo = 0.f, hi = 0.f;
+        for (int j = 0; j < KB; ++j) {
+          const float v = p[j * strideB];
+          lo = fmaf(tl[j], v, lo);
+          hi = fmaf(th[j], v, hi);
+        }
+        const long long q = ((long long)q0 * g.n[1] + q1) * g.n[2] + q2;
+        lo_dst[q] = from_f<T>(shrink_lo ? shrink(lo, lam) : lo);
+        if (hiB) hi_dst[q] = from_f<T>(shrink_hi ? shrink(hi, lam) : hi);
+      }
+      __syncthreads();  // the intermediate is rewritten by the next pass
+    }
+  }
+}
+
+// Synthesis over halo slots HA < HB: output group gi (of n_out, written one
+// view's extent apart) is scale * the sum over s of the adjoint of sub-band
+// s applied to band d = s + 4 gi, read from y[src.idx[d]] or, for -1, from
+// approx. The taps arrive reversed and the halo mirrored, so each adjoint
+// is a forward correlation. smem: window, intermediate, output tile.
+template <typename T, int HA, int HB>
+__device__ void adj_stage(float* __restrict__ smem, float (*taps)[2][kMaxTaps],
+                          const T* __restrict__ y, const T* __restrict__ approx,
+                          const Sources& src, int n_out, const Level& g,
+                          T* __restrict__ out, float scale) {
+  copy_taps(taps, g);
+  int b[3];
+  tile_origin(g, b);
+  const int t0 = g.t[0], t1 = g.t[1], t2 = g.t[2];
+  const int e0 = t0 + g.k[0] - 1, e1 = t1 + g.k[1] - 1, e2 = t2 + g.k[2] - 1;
+  const int d0 = HA == 0 ? t0 : e0, d1 = HA == 1 ? t1 : e1,
+            d2 = HA == 2 ? t2 : e2;
+  float* s0 = smem;
+  float* p1 = s0 + e0 * e1 * e2;
+  float* acc = p1 + d0 * d1 * d2;
+  const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
+  const int nsA = g.k[HA] > 1 ? 2 : 1, nsB = g.k[HB] > 1 ? 2 : 1;
+  const int p1n = d0 * d1 * d2, an = t0 * t1 * t2;
+  const Split3 split(t1, t2);
+  for (int gi = 0; gi < n_out; ++gi) {
+    for (int i = threadIdx.x; i < an; i += blockDim.x) acc[i] = 0.f;
+    for (int sb = 0; sb < nsB; ++sb) {
+      for (int i = threadIdx.x; i < p1n; i += blockDim.x) p1[i] = 0.f;
+      for (int sa = 0; sa < nsA; ++sa) {
+        const long long id = src.idx[sa + 2 * sb + 4 * gi];
+        const T* bsrc = id < 0 ? approx : y + id * vox;
+        __syncthreads();  // the previous band's window is consumed
+        load_window<HA == 0 ? 8 : 1>(s0, bsrc, g, b, e0, e1, e2);
+        __syncthreads();
+        stage_pass<HA, true>(p1, s0, e0, e1, e2, g.t[HA], taps[HA][sa],
+                             g.k[HA]);
+      }
+      __syncthreads();
+      stage_pass<HB, true>(acc, p1, d0, d1, d2, g.t[HB], taps[HB][sb],
+                           g.k[HB]);
+      __syncthreads();
+    }
+    T* dst = out + gi * vox;
+    for (int i = threadIdx.x; i < an; i += blockDim.x) {
+      int c0, c1, c2;
+      split(i, c0, c1, c2);
+      const int q0 = b[0] + c0, q1 = b[1] + c1, q2 = b[2] + c2;
+      if (q0 >= g.n[0] || q1 >= g.n[1] || q2 >= g.n[2]) continue;
+      dst[((long long)q0 * g.n[1] + q1) * g.n[2] + q2] = from_f<T>(acc[i] * scale);
+    }
+  }
+}
+
+// Lane analysis: x (X*Y, Z, T) -> temp (4, X*Y, Z, T), band c at temp[c].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    lane_dec_kernel(const T* __restrict__ x, T* __restrict__ temp,
+                    const __grid_constant__ Level g) {
+  extern __shared__ float smem[];
+  __shared__ float taps[3][2][kMaxTaps];
+  dec_stage<T, 1, 2>(smem, taps, x, 1, g, temp, temp, 1, 0.f);
+}
+
+// Lead analysis: temp (n_in, X, Y, Z*T) -> 16 bands (8 for a 3D array).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    lead_dec_kernel(const T* __restrict__ temp, T* __restrict__ big,
+                    T* __restrict__ approx_out, const __grid_constant__ Level g,
+                    int n_in, long long band_off, float lam) {
+  extern __shared__ float smem[];
+  __shared__ float taps[3][2][kMaxTaps];
+  dec_stage<T, 0, 1>(smem, taps, temp, n_in, g, approx_out, big, band_off,
+                     lam);
+}
+
+// Lead adjoint: 16 band sources -> partial (n_out, X, Y, Z*T).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    lead_adj_kernel(const T* __restrict__ y, const T* __restrict__ approx,
+                    T* __restrict__ partial, const __grid_constant__ Level g,
+                    const __grid_constant__ Sources src, int n_out) {
+  extern __shared__ float smem[];
+  __shared__ float taps[3][2][kMaxTaps];
+  adj_stage<T, 0, 1>(smem, taps, y, approx, src, n_out, g, partial, 1.f);
+}
+
+// Lane adjoint: partial (4, X*Y, Z, T) -> scale * (X*Y, Z, T).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    lane_adj_kernel(const T* __restrict__ partial, T* __restrict__ out,
+                    const __grid_constant__ Level g,
+                    const __grid_constant__ Sources src, float scale) {
+  extern __shared__ float smem[];
+  __shared__ float taps[3][2][kMaxTaps];
+  adj_stage<T, 1, 2>(smem, taps, partial, partial, src, 1, g, out, scale);
+}
+
+Level stage_level(const int* n, const int* k, const int* t, const int* left,
+                  const float* taps) {
+  const int no_bits[3] = {0, 0, 0};  // the stage kernels fix their band bits
+  return make_level(n, k, t, left, no_bits, taps);
+}
+
+// Dynamic shared memory: window + intermediate (+ output tile for adjoints).
+size_t stage_smem(const Level& g, int ha, bool adj) {
+  size_t e[3], d[3];
+  for (int a = 0; a < 3; ++a) d[a] = e[a] = g.t[a] + g.k[a] - 1;
+  d[ha] = g.t[ha];
+  size_t w = e[0] * e[1] * e[2] + d[0] * d[1] * d[2];
+  if (adj) w += (size_t)g.t[0] * g.t[1] * g.t[2];
+  return w * sizeof(float);
+}
+
+template <typename... KArgs, typename... Args>
+int launch(void (*kernel)(KArgs...), const Level& g, size_t smem,
+           cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<num_tiles(g), kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int lane_dec(const void* x, void* temp, const Level& g, cudaStream_t s) {
+  return launch(lane_dec_kernel<T>, g, stage_smem(g, 1, false), s,
+                (const T*)x, (T*)temp, g);
+}
+
+template <typename T>
+int lead_dec(const void* temp, void* big, void* approx_out, const Level& g,
+             int n_in, long long band_off, float lam, cudaStream_t s) {
+  return launch(lead_dec_kernel<T>, g, stage_smem(g, 0, false), s,
+                (const T*)temp, (T*)big, (T*)approx_out, g, n_in, band_off,
+                lam);
+}
+
+template <typename T>
+int lead_adj(const void* y, const void* approx, void* partial, const Level& g,
+             const Sources& src, int n_out, cudaStream_t s) {
+  return launch(lead_adj_kernel<T>, g, stage_smem(g, 0, true), s,
+                (const T*)y, (const T*)approx, (T*)partial, g, src, n_out);
+}
+
+template <typename T>
+int lane_adj(const void* partial, void* out, const Level& g,
+             const Sources& src, float scale, cudaStream_t s) {
+  return launch(lane_adj_kernel<T>, g, stage_smem(g, 1, true), s,
+                (const T*)partial, (T*)out, g, src, scale);
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
+// n, k, t, left: 3 ints each, the stage's view (slot 0 slowest); taps:
+// 3 * 2 * 76 floats. The caller makes the arrays' device current. Returns
+// the cudaError_t of the launch (0 on success); the launch is asynchronous
+// on `stream`.
+extern "C" int nddwt_max_taps() { return kMaxTaps; }
+
+extern "C" int nddwt_lane_dec(const void* x, void* temp, int dtype,
+                              const int* n, const int* k, const int* t,
+                              const int* left, const float* taps,
+                              void* stream) {
+  const Level g = stage_level(n, k, t, left, taps);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return lane_dec<float>(x, temp, g, s);
+  if (dtype == 1) return lane_dec<__nv_bfloat16>(x, temp, g, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int nddwt_lead_dec(const void* temp, void* big, void* approx_out,
+                              int dtype, const int* n, const int* k,
+                              const int* t, const int* left, const float* taps,
+                              int n_in, long long band_off, float lam,
+                              void* stream) {
+  const Level g = stage_level(n, k, t, left, taps);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return lead_dec<float>(temp, big, approx_out, g, n_in, band_off, lam, s);
+  if (dtype == 1)
+    return lead_dec<__nv_bfloat16>(temp, big, approx_out, g, n_in, band_off,
+                                   lam, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int nddwt_lead_adj(const void* y, const void* approx, void* partial,
+                              int dtype, const int* n, const int* k,
+                              const int* t, const int* left, const float* taps,
+                              const long long* band_idx, int n_out,
+                              void* stream) {
+  const Level g = stage_level(n, k, t, left, taps);
+  Sources src;
+  for (int d = 0; d < kMaxBands; ++d) src.idx[d] = band_idx[d];
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return lead_adj<float>(y, approx, partial, g, src, n_out, s);
+  if (dtype == 1)
+    return lead_adj<__nv_bfloat16>(y, approx, partial, g, src, n_out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int nddwt_lane_adj(const void* partial, void* out, int dtype,
+                              const int* n, const int* k, const int* t,
+                              const int* left, const float* taps, float scale,
+                              void* stream) {
+  const Level g = stage_level(n, k, t, left, taps);
+  Sources src;  // partial c is sub-band c
+  for (int d = 0; d < kMaxBands; ++d) src.idx[d] = d;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return lane_adj<float>(partial, out, g, src, scale, s);
+  if (dtype == 1) return lane_adj<__nv_bfloat16>(partial, out, g, src, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* nddwt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

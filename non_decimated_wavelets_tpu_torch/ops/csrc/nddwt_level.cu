@@ -28,39 +28,13 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (ops/cuda_kernels.py does this at first use).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "nddwt_common.cuh"
 
 namespace {
-
-constexpr int kMaxTaps = 76;  // db38, the longest filter the package builds
-constexpr int kThreads = 256;
-
-struct Level {
-  int n[3];     // extents, slot 0 slowest
-  int k[3];     // taps per slot; 1 marks the pass-through slot
-  int t[3];     // output tile extents
-  int left[3];  // left halo of the loaded tile
-  int bit[3];   // band-index bit of each slot (band bit k = high on axis k)
-  float taps[3][2][kMaxTaps];  // [slot][lo/hi][tap], already oriented
-};
 
 struct Sources {
   long long idx[8];  // band b's index into y; -1 reads the approx array
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch casts
-}
 
 __device__ __forceinline__ long long wrap(int i, int n) {
   int m = i % n;
@@ -109,22 +83,6 @@ __device__ void pass(float* __restrict__ out, const float* __restrict__ in,
     else
       out[i] = acc;
   }
-}
-
-__device__ void copy_taps(float (*dst)[2][kMaxTaps], const Level& g) {
-  for (int i = threadIdx.x; i < 3 * 2 * kMaxTaps; i += blockDim.x)
-    (&dst[0][0][0])[i] = (&g.taps[0][0][0])[i];
-}
-
-// Tile origin of this CTA (tiles flattened, slot 2 fastest).
-__device__ void tile_origin(const Level& g, int* b) {
-  int id = blockIdx.x;
-  const int n2 = (g.n[2] + g.t[2] - 1) / g.t[2];
-  const int n1 = (g.n[1] + g.t[1] - 1) / g.t[1];
-  b[2] = (id % n2) * g.t[2];
-  id /= n2;
-  b[1] = (id % n1) * g.t[1];
-  b[0] = (id / n1) * g.t[0];
 }
 
 // Analysis: writes detail band b (b >= 1) to big[band_off + b - 1] and
@@ -243,28 +201,6 @@ __global__ void __launch_bounds__(kThreads)
     if (q0 >= g.n[0] || q1 >= g.n[1] || q2 >= g.n[2]) continue;
     out[((long long)q0 * g.n[1] + q1) * g.n[2] + q2] = from_f<T>(acc[i] * scale);
   }
-}
-
-Level make_level(const int* n, const int* k, const int* t, const int* left,
-                 const int* bit, const float* taps) {
-  Level g;
-  for (int a = 0; a < 3; ++a) {
-    g.n[a] = n[a];
-    g.k[a] = k[a];
-    g.t[a] = t[a];
-    g.left[a] = left[a];
-    g.bit[a] = bit[a];
-    for (int s = 0; s < 2; ++s)
-      for (int j = 0; j < kMaxTaps; ++j)
-        g.taps[a][s][j] = taps[(a * 2 + s) * kMaxTaps + j];
-  }
-  return g;
-}
-
-unsigned int num_tiles(const Level& g) {
-  unsigned int c = 1;
-  for (int a = 0; a < 3; ++a) c *= (g.n[a] + g.t[a] - 1) / g.t[a];
-  return c;
 }
 
 size_t smem_bytes(const Level& g, bool rec) {

@@ -1,27 +1,41 @@
-"""The CUDA kernels' build and the per-level kernels: bind, launch, loops.
+"""The CUDA kernels' build, and the level kernels: bind, launch, loops.
 
 Every source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` at first
 use into its own shared library in ``non_decimated_wavelets_tpu_torch/_build/``,
-under a name keyed by a hash of the source and flags, and loaded with
-``ctypes`` (a plain C interface: no PyTorch headers, so a build takes
-seconds). ``build()`` starts one ``nvcc`` per source, all at once. Importing
-this module builds nothing.
+under a name keyed by a hash of the source, the shared header and the flags,
+and loaded with ``ctypes`` (a plain C interface: no PyTorch headers, so a
+build takes seconds). ``build()`` starts one ``nvcc`` per source, all at
+once. Importing this module builds nothing.
 
-``csrc/nddwt_level.cu`` holds the two hand-written Hopper kernels that
-replace the TPU kernels on the main path
-(``non_decimated_wavelets_tpu/ops/pallas_kernels.py``):
+``csrc/nddwt_level.cu`` holds the two hand-written Hopper kernels of a 2D or
+3D level (``non_decimated_wavelets_tpu/ops/pallas_kernels.py``):
 
 * ``nddwt_dec_level`` for ``_fused_dec_level`` / ``_make_dec_kernel``;
 * ``nddwt_rec_level`` for ``_fused_rec_level`` / ``_make_rec_kernel``.
+
+``csrc/nddwt_4d.cu`` holds the four stage kernels of a 4D level
+(``non_decimated_wavelets_tpu/ops/pallas_4d.py``), two launches per level
+and direction:
+
+* ``nddwt_lane_dec`` for ``_lane_dec_call``, ``nddwt_lead_dec`` for
+  ``_lead_dec_call``;
+* ``nddwt_lead_adj`` for ``_lead_adj_call``, ``nddwt_lane_adj`` for
+  ``_lane_adj_call``.
+
+A 3D level whose filters are too long for the per-level kernels' tile
+(about 30 taps and up on every axis, db15 and longer) runs on the stage
+kernels too, with one lane axis: ``dec_levels``/``rec_levels`` pick the
+route from the taps (``stage_route``).
 
 ``csrc/nddwt_elemwise.cu`` holds the solvers' elementwise kernels, bound in
 ``ops/elemwise.py``.
 
 Each wrapper launches its kernel for a CUDA tensor and raises if the
 launch fails; for a CPU tensor it runs the kernel's plain version
-(``ops/level_ref.py``, ``ops/elemwise_ref.py``). Nothing falls back from
-CUDA to the plain version. ``launch_counts`` counts the launches of every
-kernel, so a run can show which kernels a path went through.
+(``ops/level_ref.py``, ``ops/level4_ref.py``, ``ops/elemwise_ref.py``).
+Nothing falls back from CUDA to the plain version. ``launch_counts`` counts
+the launches of every kernel, so a run can show which kernels a path went
+through.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import itertools
 import os
 import subprocess
 import tempfile
@@ -38,10 +53,11 @@ import numpy as np
 import torch
 
 from ..oracle import num_bands
+from .level4_ref import lane_adj_ref, lane_dec_ref, lead_adj_ref, lead_dec_ref
 from .level_ref import dec_level_ref, rec_level_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("nddwt_level", "nddwt_elemwise")  # csrc/<name>.cu, one library each
+SOURCES = ("nddwt_level", "nddwt_elemwise", "nddwt_4d")  # csrc/<name>.cu, one library each
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -50,6 +66,11 @@ NVCC_FLAGS = (
 _MAX_TAPS = 76  # kMaxTaps in the source
 # Dynamic shared memory a CTA may take: two CTAs fit one SM's 227 KB.
 _SMEM_BUDGET = 100 * 1024
+# The stage kernels' tiles take less, so that more CTAs share an SM and hide
+# each other's window loads: the budgets that were fastest in a sweep of
+# tiles at (128, 128, 128, 32) db4 on an H100 (PERF.md).
+_STAGE_SMEM_BUDGET = {"lane": 32 * 1024, "lead": 64 * 1024}
+_THREADS = 256  # kThreads in the sources
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {
@@ -57,6 +78,10 @@ launch_counts = {
     "nddwt_rec_level": 0,
     "nddwt_mag_shrink_pair": 0,
     "nddwt_fista_step": 0,
+    "nddwt_lane_dec": 0,
+    "nddwt_lead_dec": 0,
+    "nddwt_lead_adj": 0,
+    "nddwt_lane_adj": 0,
 }
 
 
@@ -78,8 +103,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: keyed by a hash
-    of the source and the flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    of the source, the shared headers it may include, and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{key}.so"
 
@@ -143,6 +169,12 @@ def load() -> ctypes.CDLL:
     lib.nddwt_rec_level.argtypes = [vp, vp, vp] + geom + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp]
     lib.nddwt_rec_level.restype = ctypes.c_int
+    return _check_level_library(lib)
+
+
+def _check_level_library(lib) -> ctypes.CDLL:
+    """Declare the error and tap-count queries both level libraries
+    export, and check the tap count against the wrapper's."""
     lib.nddwt_error_string.argtypes = [ctypes.c_int]
     lib.nddwt_error_string.restype = ctypes.c_char_p
     lib.nddwt_max_taps.restype = ctypes.c_int
@@ -151,10 +183,29 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def _tiles(n, k, rec: bool) -> list:
+@functools.lru_cache(maxsize=None)
+def load4() -> ctypes.CDLL:
+    """The 4D stage kernel library with its signatures declared."""
+    lib = library("nddwt_4d")
+    ip = ctypes.POINTER(ctypes.c_int)
+    fp = ctypes.POINTER(ctypes.c_float)
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    geom = [i, ip, ip, ip, ip, fp]  # dtype, n, k, t, left, taps
+    lib.nddwt_lane_dec.argtypes = [vp, vp] + geom + [vp]
+    lib.nddwt_lead_dec.argtypes = [vp, vp, vp] + geom + [
+        i, ctypes.c_longlong, f, vp]
+    lib.nddwt_lead_adj.argtypes = [vp, vp, vp] + geom + [
+        ctypes.POINTER(ctypes.c_longlong), i, vp]
+    lib.nddwt_lane_adj.argtypes = [vp, vp] + geom + [f, vp]
+    for name in ("lane_dec", "lead_dec", "lead_adj", "lane_adj"):
+        getattr(lib, f"nddwt_{name}").restype = ctypes.c_int
+    return _check_level_library(lib)
+
+
+def _tiles(n, k, rec: bool):
     """Output tile per slot: (8, 8, 32) for 3D, (1, 32, 128) for 2D, capped
     by the extents and halved on the largest axis until the shared-memory
-    tile plan fits the budget."""
+    tile plan fits the budget; None if no tile fits."""
     base = (8, 8, 32) if k[0] > 1 else (1, 32, 128)
     t = [min(b, m) for b, m in zip(base, n)]
 
@@ -166,11 +217,7 @@ def _tiles(n, k, rec: bool) -> list:
     while 4 * words(t) > _SMEM_BUDGET:
         a = max(range(3), key=lambda i: t[i])
         if t[a] == 1:
-            raise NotImplementedError(
-                f"filters of lengths {k} are too long for the "
-                "shared-memory tile of the per-level CUDA kernels "
-                "(ROADMAP.md queue 3, port gap)"
-            )
+            return None
         t[a] = (t[a] + 1) // 2
     return t
 
@@ -187,14 +234,38 @@ def _geometry(shape, taps, rec: bool):
         raise NotImplementedError(f"filters longer than {_MAX_TAPS} taps")
     left = [0] * pad + [K // 2 if rec else K // 2 - 1 for K in k[pad:]]
     bit = [0] * pad + list(range(len(shape)))
+    tiles = _tiles(n, k, rec)
+    if tiles is None:
+        raise NotImplementedError(
+            f"filters of lengths {k} are too long for the shared-memory tile "
+            "of the per-level CUDA kernels (such levels run on the stage "
+            "kernels: stage_route)"
+        )
+    return (_ints(n), _ints(k), _ints(tiles), _ints(left), _ints(bit),
+            _tap_array([None] * pad + list(taps), rec))
+
+
+def _ints(v):
+    return (ctypes.c_int * 3)(*v)
+
+
+def _tap_array(slot_taps, rec: bool) -> np.ndarray:
+    """The (3, 2, kMaxTaps) float32 taps of a launch: one (2, K) array per
+    slot, reversed for a synthesis, whose adjoint reads the mirrored halo;
+    ``None`` marks a pass-through slot, one tap of 1.0."""
     arr = np.zeros((3, 2, _MAX_TAPS), np.float32)
-    arr[:pad, :, 0] = 1.0
-    for a, t in enumerate(taps):
-        t = np.asarray(t, np.float64)
-        arr[pad + a, :, : t.shape[1]] = t[:, ::-1] if rec else t
-    ints = lambda v: (ctypes.c_int * 3)(*v)  # noqa: E731
-    return (ints(n), ints(k), ints(_tiles(n, k, rec)), ints(left), ints(bit),
-            arr)
+    for a, t in enumerate(slot_taps):
+        if t is None:
+            arr[a, :, 0] = 1.0
+        else:
+            t = np.asarray(t, np.float64)
+            arr[a, :, : t.shape[1]] = t[:, ::-1] if rec else t
+    return arr
+
+
+def _taps_ptr(arr):
+    """A ``float *`` to the (3, 2, kMaxTaps) float32 tap array."""
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 
 
 def check_array(name, t, ref=None):
@@ -245,12 +316,30 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False):
         err = lib.nddwt_dec_level(
             approx.data_ptr(), big.data_ptr(), out.data_ptr(),
             DTYPE_CODE[approx.dtype], n, k, t, left, bit,
-            arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            _taps_ptr(arr),
             int(band_off), float(lam), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, err, "nddwt_dec_level")
     launch_counts["nddwt_dec_level"] += 1
     return None if final else out
+
+
+def _band_indices(band_src, n_bands: int, y, approx, shape) -> list:
+    """The kernels' band-source table: ``y`` index per band, -1 for
+    ``("a", 0)`` (then ``approx`` must be an array of the band shape)."""
+    idx = []
+    for kind, i in band_src:
+        if kind == "a":
+            idx.append(-1)
+        elif kind == "y" and 0 <= i < y.shape[0]:
+            idx.append(int(i))
+        else:
+            raise ValueError(f"bad band source {(kind, i)!r}")
+    if len(idx) != n_bands:
+        raise ValueError(f"expected {n_bands} band sources, got {len(idx)}")
+    if -1 in idx and (approx is None or tuple(approx.shape) != shape):
+        raise ValueError("band source ('a', 0) needs an approx of the band shape")
+    return idx
 
 
 def rec_level(y, approx, band_src, taps, scale):
@@ -267,19 +356,8 @@ def rec_level(y, approx, band_src, taps, scale):
         )
     check_array("y", y)
     nb = 2 ** len(shape)
-    idx = []
-    for kind, i in band_src:
-        if kind == "a":
-            idx.append(-1)
-        elif kind == "y" and 0 <= i < y.shape[0]:
-            idx.append(int(i))
-        else:
-            raise ValueError(f"bad band source {(kind, i)!r}")
-    if len(idx) != nb:
-        raise ValueError(f"expected {nb} band sources, got {len(idx)}")
+    idx = _band_indices(band_src, nb, y, approx, shape)
     if -1 in idx:
-        if approx is None or tuple(approx.shape) != shape:
-            raise ValueError("band source ('a', 0) needs an approx of the band shape")
         check_array("approx", approx, y)
     else:
         approx = y
@@ -290,7 +368,7 @@ def rec_level(y, approx, band_src, taps, scale):
         err = lib.nddwt_rec_level(
             y.data_ptr(), approx.data_ptr(), out.data_ptr(),
             DTYPE_CODE[y.dtype], n, k, t, left, bit,
-            arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            _taps_ptr(arr),
             (ctypes.c_longlong * 8)(*(idx + [-1] * (8 - nb))),
             float(scale), torch.cuda.current_stream().cuda_stream,
         )
@@ -299,32 +377,246 @@ def rec_level(y, approx, band_src, taps, scale):
     return out
 
 
+# --------------------------------------------------------------- 4D stages
+#
+# A stage is one launch over a 3-slot view of a 3D or 4D array with a halo
+# on two slots: the lane stage sees (n0*n1, n2, n3) — (n0*n1, n2, 1) for a
+# 3D array — with halos on slots 1 and 2; the lead stage sees
+# (n0, n1, n2*n3) with halos on slots 0 and 1. The remaining slot passes
+# through (one tap of 1.0).
+
+
+def _stage_slots(shape, taps, lane: bool):
+    """The stage's view extents and taps per slot (None: pass-through)."""
+    shape = tuple(int(s) for s in shape)
+    if lane:
+        n = [shape[0] * shape[1], shape[2], shape[3] if len(shape) == 4 else 1]
+        return n, [None, taps[2], taps[3] if len(shape) == 4 else None]
+    return [shape[0], shape[1], int(np.prod(shape[2:]))], [taps[0], taps[1], None]
+
+
+def _stage_words(t, k, halo, adj: bool) -> int:
+    """Shared-memory words of a stage launch: the halo'd window, the
+    intermediate after the first halo pass, and an adjoint's output tile."""
+    e = [t[a] + k[a] - 1 for a in range(3)]
+    d = list(e)
+    d[halo[0]] = t[halo[0]]
+    w = e[0] * e[1] * e[2] + d[0] * d[1] * d[2]
+    return w + (t[0] * t[1] * t[2] if adj else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_tiles(n: tuple, k: tuple, lane: bool, adj: bool) -> tuple:
+    """The stage's output tile: over power-of-two tiles (capped by the
+    extents) of at most 8192 outputs whose shared memory fits the budget,
+    the fewest 32-byte sectors of window loaded per output (rows run along
+    the last slot of extent > 1); at equal cost the smaller tile of at least
+    one output per thread. (1, 1, 1) always fits up to kMaxTaps, so there is
+    always a tile."""
+    halo = (1, 2) if lane else (0, 1)
+    sizes = [sorted({min(2**i, m) for i in range(14)}) for m in n]
+    best = None
+    for t in itertools.product(*sizes):
+        out = t[0] * t[1] * t[2]
+        words = _stage_words(t, k, halo, adj)
+        if out > 8192 or 4 * words > _STAGE_SMEM_BUDGET["lane" if lane else "lead"]:
+            continue
+        e = [t[a] + k[a] - 1 for a in range(3)]
+        rows, run = (e[0], e[1]) if n[2] == 1 else (e[0] * e[1], e[2])
+        key = (rows * -(-run // 8) * 8 / out, out < _THREADS, out)
+        if best is None or key < best[0]:
+            best = (key, t)
+    return best[1]
+
+
+def _stage_geometry(shape, taps, lane: bool, adj: bool):
+    """ctypes arguments of one stage launch: view extents, taps, tile and
+    left halo per slot, and the taps (reversed for an adjoint, whose halo is
+    mirrored: K//2 left instead of K//2 - 1)."""
+    n, slot_taps = _stage_slots(shape, taps, lane)
+    k = [1 if t is None else int(np.shape(t)[1]) for t in slot_taps]
+    if max(k) > _MAX_TAPS:
+        raise NotImplementedError(f"filters longer than {_MAX_TAPS} taps")
+    if any(K > m for K, m in zip(k, n)):
+        raise ValueError(f"filters of lengths {k} are longer than the axes {n}")
+    left = [0 if t is None else (K // 2 if adj else K // 2 - 1)
+            for K, t in zip(k, slot_taps)]
+    t = _stage_tiles(tuple(n), tuple(k), lane, adj)
+    return _ints(n), _ints(k), _ints(t), _ints(left), _tap_array(slot_taps, adj)
+
+
+def stage_route(shape, taps) -> bool:
+    """Whether a level of this shape runs on the stage kernels: every 4D
+    level, and a 3D level whose filters do not fit the per-level kernels'
+    tile (the synthesis's, the larger; both directions go together)."""
+    if len(shape) == 4:
+        return True
+    if len(shape) != 3:
+        return False
+    k = [int(np.shape(t)[1]) for t in taps]
+    return _tiles([int(m) for m in shape], k, rec=True) is None
+
+
+def _check_stage_array(name, t, taps, lead: int = 0):
+    """A stage operand: ``lead`` leading band axes, then a 3D or 4D array
+    with one (2, K) tap array per axis."""
+    if t.ndim - lead not in (3, 4) or len(taps) != t.ndim - lead:
+        raise NotImplementedError(
+            f"the stage kernels take 3D and 4D arrays with one filter per "
+            f"axis, got {name} of shape {tuple(t.shape)} with {len(taps)} filters"
+        )
+
+
+def lane_dec(x, taps):
+    """Lane stage analysis (contract of ``level4_ref.lane_dec_ref``):
+    ``(*s)`` -> the ``2^(d-2)`` lane bands ``(nl, *s)``."""
+    _check_stage_array("x", x, taps)
+    if not x.is_cuda:
+        return lane_dec_ref(x, taps)
+    check_array("x", x)
+    temp = torch.empty((2 ** (x.ndim - 2),) + tuple(x.shape), dtype=x.dtype,
+                       device=x.device)
+    n, k, t, left, arr = _stage_geometry(x.shape, taps, lane=True, adj=False)
+    lib = load4()
+    with torch.cuda.device(x.device):
+        err = lib.nddwt_lane_dec(
+            x.data_ptr(), temp.data_ptr(), DTYPE_CODE[x.dtype], n, k, t, left,
+            _taps_ptr(arr), torch.cuda.current_stream().cuda_stream,
+        )
+    raise_on(lib, err, "nddwt_lane_dec")
+    launch_counts["nddwt_lane_dec"] += 1
+    return temp
+
+
+def lead_dec(temp, big, band_off, taps, lam=0.0, final=False):
+    """Lead stage analysis (contract of ``level4_ref.lead_dec_ref``): the
+    ``4 nl - 1`` details into ``big[band_off:]``, shrunk by ``lam``; the
+    approximation into ``big[0]`` when ``final``, else returned."""
+    _check_stage_array("temp", temp, taps, lead=1)
+    shape, nb = tuple(temp.shape[1:]), 4 * temp.shape[0]
+    if (temp.shape[0] != 2 ** (len(shape) - 2) or tuple(big.shape[1:]) != shape
+            or not 1 <= band_off <= big.shape[0] - nb + 1):
+        raise ValueError(
+            f"band array {tuple(big.shape)} cannot take the {nb - 1} detail "
+            f"bands of lane bands {tuple(temp.shape)} at offset {band_off}"
+        )
+    if not temp.is_cuda:
+        return lead_dec_ref(temp, big, band_off, taps, lam, final)
+    check_array("temp", temp)
+    check_array("big", big, temp)
+    out = big[0] if final else torch.empty(shape, dtype=temp.dtype,
+                                           device=temp.device)
+    n, k, t, left, arr = _stage_geometry(shape, taps, lane=False, adj=False)
+    lib = load4()
+    with torch.cuda.device(temp.device):
+        err = lib.nddwt_lead_dec(
+            temp.data_ptr(), big.data_ptr(), out.data_ptr(),
+            DTYPE_CODE[temp.dtype], n, k, t, left, _taps_ptr(arr),
+            int(temp.shape[0]), int(band_off), float(lam),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    raise_on(lib, err, "nddwt_lead_dec")
+    launch_counts["nddwt_lead_dec"] += 1
+    return None if final else out
+
+
+def lead_adj(y, approx, band_src, taps):
+    """Lead stage synthesis (contract of ``level4_ref.lead_adj_ref``): the
+    ``2^d`` bands named by ``band_src`` -> the partial lane bands
+    ``(nl, *s)``."""
+    _check_stage_array("y", y, taps, lead=1)
+    shape = tuple(y.shape[1:])
+    idx = _band_indices(band_src, 2 ** len(shape), y, approx, shape)
+    if not y.is_cuda:
+        return lead_adj_ref(y, approx, band_src, taps)
+    check_array("y", y)
+    if -1 in idx:
+        check_array("approx", approx, y)
+    else:
+        approx = y
+    nl = 2 ** (len(shape) - 2)
+    partial = torch.empty((nl,) + shape, dtype=y.dtype, device=y.device)
+    n, k, t, left, arr = _stage_geometry(shape, taps, lane=False, adj=True)
+    lib = load4()
+    with torch.cuda.device(y.device):
+        err = lib.nddwt_lead_adj(
+            y.data_ptr(), approx.data_ptr(), partial.data_ptr(),
+            DTYPE_CODE[y.dtype], n, k, t, left, _taps_ptr(arr),
+            (ctypes.c_longlong * 16)(*(idx + [-1] * (16 - len(idx)))), nl,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    raise_on(lib, err, "nddwt_lead_adj")
+    launch_counts["nddwt_lead_adj"] += 1
+    return partial
+
+
+def lane_adj(partial, taps, scale):
+    """Lane stage synthesis (contract of ``level4_ref.lane_adj_ref``):
+    ``scale *`` the adjoint of the lane bands ``(nl, *s)`` -> ``(*s)``."""
+    _check_stage_array("partial", partial, taps, lead=1)
+    shape = tuple(partial.shape[1:])
+    if partial.shape[0] != 2 ** (len(shape) - 2):
+        raise ValueError(f"expected {2 ** (len(shape) - 2)} lane bands, got "
+                         f"{partial.shape[0]}")
+    if not partial.is_cuda:
+        return lane_adj_ref(partial, taps, scale)
+    check_array("partial", partial)
+    out = torch.empty(shape, dtype=partial.dtype, device=partial.device)
+    n, k, t, left, arr = _stage_geometry(shape, taps, lane=True, adj=True)
+    lib = load4()
+    with torch.cuda.device(partial.device):
+        err = lib.nddwt_lane_adj(
+            partial.data_ptr(), out.data_ptr(), DTYPE_CODE[partial.dtype],
+            n, k, t, left, _taps_ptr(arr), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    raise_on(lib, err, "nddwt_lane_adj")
+    launch_counts["nddwt_lane_adj"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ levels
+
+
 def dec_levels(x, taps, level: int, lam: float = 0.0, out=None):
-    """Multilevel analysis as one ``dec_level`` per level; ``(B, *s)``,
-    written into ``out`` when given. Level ``l`` writes its details at
-    ``B - (2^d - 1)(l + 1)`` (the tail of ``pallas_kernels._dec_dispatch``),
-    the last one its approximation into band 0."""
+    """Multilevel analysis, ``(B, *s)``, written into ``out`` when given:
+    per level one ``dec_level`` launch, or a lane and a lead stage launch
+    where ``stage_route`` says so (``pallas_4d.dec4``). Level ``l`` writes
+    its details at ``B - (2^d - 1)(l + 1)`` (the tail of
+    ``pallas_kernels._dec_dispatch``), the last one its approximation into
+    band 0."""
     nb = 2**x.ndim
     B = num_bands(x.ndim, level)
     big = out if out is not None else torch.empty(
         (B,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    stages = stage_route(x.shape, taps)
     approx = x
     for lvl in range(level):
-        approx = dec_level(approx, big, B - (nb - 1) * (lvl + 1), taps, lam,
-                           final=lvl == level - 1)
+        off, final = B - (nb - 1) * (lvl + 1), lvl == level - 1
+        if stages:
+            approx = lead_dec(lane_dec(approx, taps), big, off, taps, lam, final)
+        else:
+            approx = dec_level(approx, big, off, taps, lam, final)
     return big
 
 
 def rec_levels(y, taps, level: int, preserve_l2: bool):
-    """Multilevel synthesis as one ``rec_level`` per level (the tail of
-    ``pallas_kernels._rec_dispatch``): band 0 comes from the previous
-    level's output, the details from ``y[pos + b - 1]``."""
+    """Multilevel synthesis, per level one ``rec_level`` launch or a lead
+    and a lane stage adjoint (``pallas_4d.rec4``): band 0 comes from the
+    previous level's output, the details from ``y[pos + b - 1]`` (the tail
+    of ``pallas_kernels._rec_dispatch``)."""
     nb = 2 ** (y.ndim - 1)
     scale = 1.0 if preserve_l2 else 1.0 / nb
-    acc = rec_level(y, None, [("y", b) for b in range(nb)], taps, scale)
+    stages = stage_route(y.shape[1:], taps)
+
+    def one_level(acc, src):
+        if stages:
+            return lane_adj(lead_adj(y, acc, src, taps), taps, scale)
+        return rec_level(y, acc, src, taps, scale)
+
+    acc = one_level(None, [("y", b) for b in range(nb)])
     pos = nb
     for _ in range(1, level):
-        src = [("a", 0)] + [("y", pos + b - 1) for b in range(1, nb)]
-        acc = rec_level(y, acc, src, taps, scale)
+        acc = one_level(acc, [("a", 0)] + [("y", pos + b - 1) for b in range(1, nb)])
         pos += nb - 1
     return acc

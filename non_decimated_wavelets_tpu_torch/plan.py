@@ -10,9 +10,11 @@ for ``device="cpu"``.
 
 Dispatch:
 
-* a CUDA tensor, 2D or 3D, float32 or bfloat16: the hand-written per-level
-  kernels (``ops/cuda_kernels.py``), one analysis and one synthesis launch
-  per level, the shrink of ``dec_rec`` fused into the analysis. Complex
+* a CUDA tensor, 2D to 4D, float32 or bfloat16: the hand-written level
+  kernels (``ops/cuda_kernels.py``): per level and direction one launch in
+  2D and 3D, two (a lane and a lead stage) in 4D and for 3D filters too
+  long for the one-launch tile; the shrink of ``dec_rec`` fused into the
+  analysis. Complex
   data (complex64) and split re/im pairs run each component through its
   own level chain (the filters are real); their shrink is the joint-
   magnitude ``mag_shrink_pair`` kernel (``ops/elemwise.py``);
@@ -217,12 +219,7 @@ class NDDWT:
                     f"tensor lies on {x.device}; use path='auto' or 'direct'"
                 )
             return False
-        if self.ndim == 4:
-            raise NotImplementedError(
-                "4D transforms on CUDA are not ported yet (ROADMAP.md "
-                "queue 1 item 9)"
-            )
-        if self.ndim not in (2, 3):
+        if self.ndim not in (2, 3, 4):
             raise NotImplementedError(
                 f"{self.ndim}D transforms on CUDA are not ported yet "
                 "(ROADMAP.md queue 1 items 10 and 12)"

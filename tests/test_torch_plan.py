@@ -174,7 +174,7 @@ def test_config_round_trip_and_plan_from_jax():
 @pytest.mark.parametrize(
     "shape,dtype,path,match",
     [
-        ((8, 8, 8, 8), "float32", "auto", "4D"),
+        ((4, 4, 4, 4, 4), "float32", "auto", "5D"),
         ((64,), "float32", "auto", "1D"),
         ((8, 8, 8), "float64", "auto", "float64"),
         ((8, 8, 8), "float32", "fft", "fft"),
