@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""A/B of the float32 pairs between two checkouts of the port, on one NVIDIA
+GPU.
+
+    python3 chip_ab_pairs.py OTHER_CHECKOUT
+
+Times the 256^3 db4 L3 float32 dec+rec pair and the (128, 128, 128, 32)
+db4 L3 float32 pair of this checkout's ``non_decimated_wavelets_tpu_torch``
+and of OTHER_CHECKOUT's (the root of another checkout, e.g. the parent
+commit unpacked with ``git archive``), each in a fresh process that builds
+that checkout's kernels from its own sources, in the order other, this,
+this, other, so that the card's clock drifts against neither. Each process
+checks its pairs' round trip (1e-4) and times each pair with CUDA events:
+5 repeats of 10 (3D) or 3 (4D) pairs after 3 warm-up pairs.
+
+Prints the card's name and power limit first and one JSON object last, with
+every repeat and the median per checkout. It exits non-zero without a CUDA
+device or if a process fails.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+SHAPE = (256, 256, 256)
+SHAPE4 = (128, 128, 128, 32)
+LEVEL = 3
+
+
+def child(root: str) -> int:
+    """Time the pairs of the package found at ``root``."""
+    sys.path.insert(0, root)
+    import torch
+
+    import non_decimated_wavelets_tpu_torch as tw
+
+    if not Path(tw.__file__).resolve().is_relative_to(Path(root).resolve()):
+        print(f"imported {tw.__file__}, not the package under {root}", file=sys.stderr)
+        return 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for key, shape, n_call in (("pair_3d_ms", SHAPE, 10), ("pair_4d_ms", SHAPE4, 3)):
+        plan = tw.NDDWT("db4", shape, device="cuda")
+        x = torch.randn(shape, generator=gen, device="cuda")
+
+        def pair():
+            return plan.rec(plan.dec(x, LEVEL, band_axis=0), band_axis=0)
+
+        err = (pair() - x).abs().max().item()
+        if err > 1e-4:
+            print(f"{key}: round trip {err}", file=sys.stderr)
+            return 1
+        for _ in range(3):
+            pair()
+        times = []
+        for _ in range(5):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(n_call):
+                pair()
+            e.record()
+            torch.cuda.synchronize()
+            times.append(s.elapsed_time(e) / n_call)
+        out[key] = times
+        del plan, x
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--child":
+        return child(sys.argv[2])
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab_pairs: no CUDA device; this runs only on a GPU", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    roots = {"other": str(Path(sys.argv[1]).resolve()),
+             "this": str(Path(__file__).resolve().parent)}
+    runs = {"other": [], "this": []}
+    for name in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, __file__, "--child", roots[name]],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            print(f"chip_ab_pairs: the {name} checkout failed:\n{proc.stderr}",
+                  file=sys.stderr)
+            return 1
+        runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(name, runs[name][-1], flush=True)
+    median = {name: {key: statistics.median(t for r in rs for t in r[key])
+                     for key in ("pair_3d_ms", "pair_4d_ms")}
+              for name, rs in runs.items()}
+    print(json.dumps({"card": smi, "roots": roots, "runs": runs, "median": median}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -140,7 +140,7 @@ def run(torch, tw, ck, r4, libs, smi) -> int:
     for kernel, (fn, lane) in calls.items():
         row = {}
         for t in LANE_TILES if lane else LEAD_TILES:
-            ck._stage_tiles = lambda n, k, lane_, adj, t=t: t
+            ck._stage_tiles = lambda n, k, lane_, adj, word, t=t: t
             row[str(t)] = timed(fn)
         ck._stage_tiles = plan_tiles
         out["tiles"][kernel] = row

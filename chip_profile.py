@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Profile the torch port's 256^3 db4 L3 pair and solvers, and its 4D pair
-and 4D CS-MRI solver, on one NVIDIA GPU.
+"""Profile the torch port's 256^3 db4 L3 pair and solvers, its 4D pair and
+4D CS-MRI solver, its float64 and 1D pairs and a reference-style class, on
+one NVIDIA GPU.
 
     python3 chip_profile.py
 
 Prints the card's name, power limit and SM clock (before and after the
 runs), then:
 
-1. the dec+rec pair and the fused dec_rec step (threshold 0.1), in float32
-   and bfloat16: 7 repeats of 10 calls each after 3 warm-up calls, timed
-   with CUDA events, in ms per call, sorted;
+1. the dec+rec pair and the fused dec_rec step (threshold 0.1), in float32,
+   bfloat16 and float64: 7 repeats of 10 calls each after 3 warm-up calls,
+   timed with CUDA events, in ms per call, sorted;
 2. 5 float32 pairs under ``torch.profiler``: device busy time, the device's
    idle share of the host-clock window (first launch to the final
    synchronize) and of the device span (first kernel start to last kernel
@@ -19,7 +20,12 @@ runs), then:
    0.05, 40 % sampling) after one warm-up run;
 4. the 4D window: the (128, 128, 128, 32) db4 L3 float32 pair timed as in
    1, 3 pairs under ``torch.profiler``, and one 3-iteration run of
-   ``fista_cs_mri`` on complex (128, 128, 64, 32) k-t data, profiled as in 3.
+   ``fista_cs_mri`` on complex (128, 128, 64, 32) k-t data, profiled as in 3;
+5. 3 float64 256^3 pairs, 5 float32 2^23-sample db6 L4 1D pairs, and 3
+   dec+rec calls of ``nd_dwt_3D`` at the reference's (164, 64, 40)
+   (db1, db3, db9) L2 on complex double data with ``compute='gpu'`` and
+   with ``'gpu_off'`` (NumPy in and out: the copies show as idle device
+   time), each profiled as in 2.
 
 The last line is one JSON object with all of it. It exits non-zero
 without a CUDA device. ``chip_smoke.py`` is the correctness check; this
@@ -34,6 +40,8 @@ import time
 SHAPE = (256, 256, 256)
 SHAPE4 = (128, 128, 128, 32)
 CS_SHAPE4 = (128, 128, 64, 32)
+N1 = 2**23
+CLASS_SHAPE = (164, 64, 40)
 LEVEL = 3
 THRESHOLD = 0.1
 
@@ -125,7 +133,7 @@ def main() -> int:
     print(out["card_before"], flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(SHAPE, device="cuda", generator=gen)
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
         plan = tw.NDDWT("db4", SHAPE, dtype=dt, device="cuda")
         xd = x.to(dt)
         runs = {
@@ -179,8 +187,32 @@ def main() -> int:
     fn = lambda: fista_cs_mri(splan4, kt, mask4, 0.05, LEVEL, 3)  # noqa: E731
     fn()
     out["fista_cs_mri_4d"] = profiled(fn)
+    del kt, mask4
+    torch.cuda.empty_cache()
+
+    plan64 = tw.NDDWT("db4", SHAPE, dtype="double", device="cuda")
+    x64 = torch.randn(SHAPE, device="cuda", generator=gen, dtype=torch.float64)
+    pair64 = lambda: plan64.rec(plan64.dec(x64, LEVEL, band_axis=0), band_axis=0)  # noqa: E731
+    pair64()
+    out["pairs_float64"] = profiled(lambda: [pair64() for _ in range(3)])
+    del x64
+    plan1 = tw.NDDWT("db6", (N1,), device="cuda")
+    x1 = torch.randn(N1, device="cuda", generator=gen)
+    pair1 = lambda: plan1.rec(plan1.dec(x1, 4, band_axis=0), band_axis=0)  # noqa: E731
+    pair1()
+    out["pairs_1d"] = profiled(lambda: [pair1() for _ in range(5)])
+    import numpy as np
+
+    z = np.random.default_rng(0).standard_normal(CLASS_SHAPE + (2,)) @ np.array([1, 1j])
+    for compute in ("gpu", "gpu_off"):
+        t = tw.nd_dwt_3D(("db1", "db3", "db9"), CLASS_SHAPE, compute=compute, device="cuda")
+        zin = torch.from_numpy(z).cuda() if compute == "gpu" else z
+        t.rec(t.dec(zin, 2))
+        out[f"class_3d_{compute}"] = profiled(
+            lambda: [t.rec(t.dec(zin, 2)) for _ in range(3)])
     windows = ["pairs", "fista_inpaint", "fista_inpaint_split", "fista_cs_mri",
-               "pairs4", "fista_cs_mri_4d"]
+               "pairs4", "fista_cs_mri_4d", "pairs_float64", "pairs_1d",
+               "class_3d_gpu", "class_3d_gpu_off"]
     out["card_after"] = card()
     if not all(out[k]["device_busy_us"] for k in windows):
         print("chip_profile: the profiler saw no device time", file=sys.stderr)

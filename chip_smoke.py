@@ -10,14 +10,20 @@ solvers of ``models/cs_recon.py`` at the same width: ``fista_inpaint``,
 ``fista_inpaint_split`` and ``fista_cs_mri`` on complex k-space. The 4D
 paths run the same step on a (128, 128, 128, 32) dynamic volume (db4 L3
 and Haar L1) and ``fista_cs_mri`` on complex (128, 128, 64, 32) k-t data,
-through the lane and lead stage kernels. Phases:
+through the lane and lead stage kernels. The class paths run the six
+reference-style classes (``api.py``) at their default double precision on
+complex data at the reference's own test configurations, through the 1D
+kernels and the float64 level and stage kernels; then the 256^3 db4 L3
+float64 transform and step, and 1D float32 signals of 1M and 2^23
+samples. Phases:
 
 1. the card's name and power limit; build every CUDA kernel from this
    checkout's sources (one ``nvcc`` per source, all at once);
 2. each kernel against its plain torch version on the card, at the paths'
    shapes and at small, odd, mixed-wavelet, 2D and bfloat16 shapes; the
    stage kernels also at odd Z/T, T > 128 and on a 3D db20 plan (the
-   long-filter route);
+   long-filter route); every kernel in float64 too, and the 1D kernels at
+   1M, 54321, 8 (N = K) and 2^23 samples in float32, bfloat16 and float64;
 3. the main path at 256^3 (both normalizations) against the plain path on
    the card, the threshold-0 round trip, and the 64^3 flagship step of
    ``__graft_entry__.entry`` against the float64 NumPy oracle; the kernels'
@@ -28,16 +34,27 @@ through the lane and lead stage kernels. Phases:
    ``path='direct'`` plan on the card, its launch counts zeroed just
    before the run and held to the exact numbers its route launches; then
    the 4D paths the same way (and a 3D db20 step on the long-filter route);
+   then the class paths: each class at its reference configuration on
+   complex double data, with ``compute='gpu'`` and ``'gpu_off'``, held to
+   the float64 oracle (bands within 1e-12 max, round trip 1e-11, energy
+   1e-12 with ``pres_l2_norm``) with exact launch counts; the 256^3 float64
+   pair and step against the plain path on the card and a 64^3 float64
+   step against the oracle; 1D float32 at 1M and 2^23 samples;
 4. timings with CUDA events: each kernel per call, the dec+rec pair, the
    fused dec_rec step and one iteration of each solver, each beside its
    plain version, in 3D and 4D; for the level kernels also one cuDNN
    convolution computing the same level (the yardstick ``library_ms``;
-   PyTorch has no 4D convolution, so the stage kernels have none).
+   PyTorch has no 4D convolution, so the stage kernels have none); the 1D
+   kernels at 2^23 db6 and the float64 level kernels at 256^3 db4 the same
+   way (``F.conv1d``, ``F.conv3d`` in float64), and the float64 and 1D
+   pairs and steps.
 
 It exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
 before it a JSON list of the kernels with their launches, errors, times and
-bounds; the line before that the card's name and power limit.
+bounds (the float64 instantiations of the per-level and 1D kernels, which
+the class paths run, in a ``float64`` entry each); the line before that
+the card's name and power limit.
 """
 
 import json
@@ -50,10 +67,14 @@ LEVEL = 3
 THRESHOLD = 0.1
 F32_TOL = 1e-5  # relative to max|plain|: float32 sums taken in another order
 BF16_TOL = 1e-2  # relative: bfloat16 storage rounds at 2^-8
+F64_TOL = 1e-12  # relative: float64 sums taken in another order
 SOLVER_TOL = 1e-4  # relative: 10 iterations of the above, float32 momentum
 LAM, ITERS, SAMPLING = 0.05, 10, 0.4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+F64_FLOPS = 34e12  # H100 SXM float64 outside the tensor cores (data sheet)
+N1 = 2**23  # the long 1D signal: db6 L4
+N1M = 1_000_000  # bench.py's 1D config: db4 L3
 PAIR = (2, 22) + SHAPE  # the split pair of 256^3 L3 bands
 SHAPE4 = (128, 128, 128, 32)  # a dynamic volume: 128^3 frames, 32 time points
 CS_SHAPE4 = (128, 128, 64, 32)  # 4D CS-MRI k-t data
@@ -73,7 +94,26 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     **{name: ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_4d.cu",
               f"non_decimated_wavelets_tpu/ops/pallas_4d.py:{line}")
        for name, line in zip(STAGE_KERNELS, (503, 592, 882, 998))},
+    "nddwt_dec1_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_1d.cu",
+                         "non_decimated_wavelets_tpu/ops/pallas_padded.py:501"),
+    "nddwt_rec1_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_1d.cu",
+                         "non_decimated_wavelets_tpu/ops/pallas_padded.py:572"),
 }
+# The float64 instantiations of the per-level kernels replace the TPU's
+# float64-accurate (double-f32) levels.
+F64_REPLACES = {"nddwt_dec_level": "non_decimated_wavelets_tpu/ops/pallas_df32.py:271",
+                "nddwt_rec_level": "non_decimated_wavelets_tpu/ops/pallas_df32.py:392"}
+LEVEL1 = {"nddwt_dec1_level", "nddwt_rec1_level"}
+# The reference's own test configurations (Test/nddwt{1,2,3,4}D_test.m:5,
+# tests/test_reference_configs.py), at full size: class, sizes, wavelets, level.
+CLASS_CONFIGS = [
+    ("nd_dwt_1D", (54321,), "db4", 3),
+    ("nd_dwt_2D", (264, 264), ("db1", "db3"), 3),
+    ("nd_dwt_3D", (164, 64, 40), ("db1", "db3", "db9"), 2),
+    ("nd_dwt_4D", (64, 64, 20, 10), "db2", 2),
+    ("harr_nddwt_2D", (264, 264), "db1", 2),
+    ("harr_nddwt_4D", (64, 64, 20, 10), "db1", 2),
+]
 
 failures = []
 
@@ -98,14 +138,20 @@ def check_launches(what, got, want):
 
 
 def max_err(a, b):
-    return (a.float() - b.float()).abs().max().item()
+    """max |a - b|, in float64 for float64 and complex128 arrays."""
+    import torch
+
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    dt = torch.float64 if a.dtype == torch.float64 else torch.float32
+    return (a.to(dt) - b.to(dt)).abs().max().item()
 
 
 def rel_tol(ref, dtype):
     import torch
 
-    rel = F32_TOL if dtype == torch.float32 else BF16_TOL
-    return rel * ref.float().abs().max().item()
+    rel = {torch.float32: F32_TOL, torch.float64: F64_TOL}.get(dtype, BF16_TOL)
+    return rel * ref.double().abs().max().item()
 
 
 def timed(fn, reps, warm=2):
@@ -124,14 +170,15 @@ def timed(fn, reps, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
     """The least time for the work: bytes over the memory rate or flops over
-    the float32 rate, whichever is larger; and which of the two it is."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    the compute type's rate, whichever is larger; and which of the two it
+    is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def conv_weights(taps, rec):
+def conv_weights(taps, rec, dtype=None):
     """The 8 bands of one 3D level as a convolution's weights: band b's
     filter is the outer product of axis a's lo (bit a of b clear) or hi row;
     flipped for the synthesis, whose input is the 8 bands."""
@@ -146,7 +193,18 @@ def conv_weights(taps, rec):
         w = w[:, ::-1, ::-1, ::-1][None]
     else:
         w = w[:, None]
-    return torch.from_numpy(np.ascontiguousarray(w)).float().cuda()
+    return torch.from_numpy(np.ascontiguousarray(w)).to(dtype or torch.float32).cuda()
+
+
+def conv1d_weights(taps, rec, dtype):
+    """One 1D level as a convolution's weights: the lo and hi rows as two
+    output channels, or, flipped, as two input channels of the synthesis."""
+    import numpy as np
+    import torch
+
+    t = np.asarray(taps[0])
+    w = t[:, None, :] if not rec else t[None, :, ::-1]
+    return torch.from_numpy(np.ascontiguousarray(w)).to(dtype).cuda()
 
 
 def conv_pad(x, taps, rec):
@@ -195,6 +253,7 @@ def main() -> int:
     libs = ck.build()
     ck.load()
     ck.load4()
+    ck.load1()
     elemwise.load()
     print(f"  built and loaded {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -202,13 +261,23 @@ def main() -> int:
     # ---------------------------------------------------------- phase 2
     print("phase 2: each kernel against its plain version on the card")
     gen = torch.Generator(device=dev)
+
+    def randn(shape, dt=torch.float32):
+        """Seeded normal values, drawn in float64 for float64 arrays."""
+        draw = torch.float64 if dt == torch.float64 else torch.float32
+        return torch.randn(shape, generator=gen, device=dev, dtype=draw).to(dt)
+
     main_err = {name: 0.0 for name in KERNELS}
+    main_err64 = {name: 0.0 for name in (*F64_REPLACES, *LEVEL1)}
     cases = [
         ((24, 40, 72), "db4", torch.float32),
         ((16, 16, 128), ("db2", "db3", "db4"), torch.float32),
         ((32, 256), ("db2", "db6"), torch.float32),
         ((24, 40, 72), "db4", torch.bfloat16),
         (SHAPE, "db4", torch.float32),
+        ((24, 40, 72), ("db2", "db3", "db4"), torch.float64),
+        ((32, 256), ("db2", "db6"), torch.float64),
+        (SHAPE, "db4", torch.float64),
     ]
     for seed, (shape, wv, dt) in enumerate(cases):
         gen.manual_seed(seed)
@@ -216,7 +285,8 @@ def main() -> int:
         nd = len(shape)
         nb, B = 2**nd, tw.num_bands(nd, LEVEL)
         tag = f"{shape} {wv} {str(dt).removeprefix('torch.')}"
-        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        errs = main_err64 if dt == torch.float64 else main_err
+        x = randn(shape, dt)
         for lam in (0.0, THRESHOLD):
             for final in (False, True):
                 bk = torch.zeros((B,) + shape, dtype=dt, device=dev)
@@ -231,8 +301,8 @@ def main() -> int:
                 if not final:
                     err = max(err, check("    next approx", max_err(ak, ar), tol))
                 if shape == SHAPE:
-                    main_err["nddwt_dec_level"] = max(main_err["nddwt_dec_level"], err)
-        y = torch.randn((B,) + shape, generator=gen, device=dev).to(dt)
+                    errs["nddwt_dec_level"] = max(errs["nddwt_dec_level"], err)
+        y = randn((B,) + shape, dt)
         for src in ([("y", b) for b in range(nb)],
                     [("a", 0)] + [("y", nb + b - 1) for b in range(1, nb)]):
             for scale in (1.0, 1.0 / nb):
@@ -242,8 +312,9 @@ def main() -> int:
                 err = check(f"nddwt_rec_level {tag} band0={src[0]} scale={scale}",
                             max_err(k, r), rel_tol(r, dt))
                 if shape == SHAPE:
-                    main_err["nddwt_rec_level"] = max(main_err["nddwt_rec_level"], err)
+                    errs["nddwt_rec_level"] = max(errs["nddwt_rec_level"], err)
         del x, y, bk, br, ak, ar, k, r
+        torch.cuda.empty_cache()
 
     for seed, (shape, dt) in enumerate([
         (PAIR, torch.float32),
@@ -251,9 +322,11 @@ def main() -> int:
         ((2, 15, 23, 41, 73), torch.float32),  # odd count: element accesses
         ((2, 15, 24, 40, 72), torch.bfloat16),
         ((2, 15, 23, 41, 73), torch.bfloat16),
+        ((2, 15, 24, 40, 72), torch.float64),
+        ((2, 15, 23, 41, 73), torch.float64),
     ]):
         gen.manual_seed(10 + seed)
-        y = torch.randn(shape, generator=gen, device=dev).to(dt)
+        y = randn(shape, dt)
         for lam in (0.0, THRESHOLD):
             k = elemwise.mag_shrink_pair(y, lam)
             r = elemwise_ref.mag_shrink_pair_ref(y, lam)
@@ -277,10 +350,12 @@ def main() -> int:
         ((2, 23, 41, 73), (23, 41, 73), torch.float32, 0),
         ((2, 24, 40, 72), (24, 40, 72), torch.bfloat16, 0),
         ((23, 41, 73), (23, 41, 73), torch.bfloat16, 1),
+        ((2,) + SHAPE, SHAPE, torch.float64, 0),
+        ((23, 41, 73), (23, 41, 73), torch.float64, 1),
     ]):
         gen.manual_seed(20 + seed)
         n = int(np.prod(shape))
-        buf = torch.randn(3 * n + off, generator=gen, device=dev).to(dt)
+        buf = randn(3 * n + off, dt)
         xn, xp, b = (buf[off + i * n: off + (i + 1) * n].view(shape) for i in range(3))
         mask = (torch.rand(mshape, generator=gen, device=dev) < SAMPLING).to(dt)
         k = elemwise.fista_step(xn, xp, mask, b, 0.6, 1.0)
@@ -301,13 +376,15 @@ def main() -> int:
         ((16, 16, 8, 160), "db4", torch.float32),  # T > 128
         ((40, 41, 45), "db20", torch.float32),  # the 3D long-filter route
         ((40, 41, 45), "db20", torch.bfloat16),
+        ((64, 64, 20, 10), "db2", torch.float64),
+        ((40, 41, 45), "db20", torch.float64),
         (SHAPE4, "db4", torch.float32),
     ]):
         gen.manual_seed(30 + seed)
         taps = tw.NDDWT(wv, shape, device=dev).taps_hp
         tag = f"{shape} {wv} {str(dt).removeprefix('torch.')}"
         errs = dict.fromkeys(STAGE_KERNELS, 0.0)
-        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        x = randn(shape, dt)
         k = ck.lane_dec(x, taps)
         temp = level4_ref.lane_dec_ref(x, taps)
         torch.cuda.synchronize()
@@ -329,7 +406,7 @@ def main() -> int:
                     err = max(err, check("    next approx", max_err(ak, ar), tol))
                 errs["nddwt_lead_dec"] = max(errs["nddwt_lead_dec"], err)
                 del bk, br, ak, ar
-        y = torch.randn((2 * nb - 1,) + shape, generator=gen, device=dev).to(dt)
+        y = randn((2 * nb - 1,) + shape, dt)
         for src in ([("y", b) for b in range(nb)],
                     [("a", 0)] + [("y", nb + b - 1) for b in range(1, nb)]):
             k = ck.lead_adj(y, x, src, taps)
@@ -351,11 +428,49 @@ def main() -> int:
         del x, temp
         torch.cuda.empty_cache()
 
+    # The 1D level kernels: bench.py's 1M-sample signal, the reference's
+    # 54321-sample test length, N = K, and a 2^23-sample db6 signal.
+    for seed, (n, wv) in enumerate([(N1M, "db4"), (54321, "db4"), (8, "db4"), (N1, "db6")]):
+        taps = tw.NDDWT(wv, (n,), device=dev).taps_hp
+        for dt in (torch.float32, torch.bfloat16, torch.float64):
+            gen.manual_seed(40 + seed)
+            tag = f"({n},) {wv} {str(dt).removeprefix('torch.')}"
+            errs = dict.fromkeys(LEVEL1, 0.0)
+            x = randn((n,), dt)
+            for lam in (0.0, THRESHOLD):
+                for final in (False, True):
+                    bk = torch.zeros((3, n), dtype=dt, device=dev)
+                    br = bk.clone()
+                    ak = ck.dec1_level(x, bk, 2, taps, lam, final)
+                    ar = level_ref.dec_level_ref(x, br, 2, taps, lam, final)
+                    torch.cuda.synchronize()
+                    tol = rel_tol(br, dt)
+                    err = check(f"nddwt_dec1_level {tag} lam={lam} final={final}",
+                                max_err(bk, br), tol)
+                    if not final:
+                        err = max(err, check("    next approx", max_err(ak, ar), tol))
+                    errs["nddwt_dec1_level"] = max(errs["nddwt_dec1_level"], err)
+            y = randn((3, n), dt)
+            for src in ([("y", 0), ("y", 1)], [("a", 0), ("y", 2)]):
+                for scale in (1.0, 0.5):
+                    k = ck.rec1_level(y, x, src, taps, scale)
+                    r = level_ref.rec_level_ref(y, x, src, taps, scale)
+                    torch.cuda.synchronize()
+                    errs["nddwt_rec1_level"] = max(errs["nddwt_rec1_level"], check(
+                        f"nddwt_rec1_level {tag} band0={src[0]} scale={scale}",
+                        max_err(k, r), rel_tol(r, dt)))
+            if n >= 54321 and dt != torch.bfloat16:  # the class and 1D paths' shapes
+                into = main_err64 if dt == torch.float64 else main_err
+                for name in LEVEL1:
+                    into[name] = max(into[name], errs[name])
+            del x, y, bk, br, ak, ar, k, r
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- phase 3
     print(f"phase 3: the main path, NDDWT.dec_rec at {SHAPE} db4 L{LEVEL} f32")
     gen.manual_seed(100)
     x = torch.randn(SHAPE, generator=gen, device=dev)
-    per_level = {name: LEVEL if "level" in name else 0 for name in KERNELS}
+    per_level = dict.fromkeys(("nddwt_dec_level", "nddwt_rec_level"), LEVEL)
     for pl2 in (False, True):
         plan = tw.NDDWT("db4", SHAPE, preserve_l2=pl2, device=dev)
         ck.reset_launch_counts()
@@ -519,6 +634,116 @@ def main() -> int:
     check("4D fista_cs_mri vs the plain route", max_err(out, ref),
           SOLVER_TOL * ref.abs().max().item())
     del out, ref
+    torch.cuda.empty_cache()
+
+    print("phase 3: the class paths, each class at its reference configuration, "
+          "complex double, pres_l2_norm, compute 'gpu' and 'gpu_off'")
+    by_ndim = {1: ("nddwt_dec1_level", "nddwt_rec1_level"),
+               2: ("nddwt_dec_level", "nddwt_rec_level"),
+               3: ("nddwt_dec_level", "nddwt_rec_level"), 4: STAGE_KERNELS}
+    np_rng = np.random.default_rng(700)
+    for name, sizes, wv, lvl in CLASS_CONFIGS:
+        nd = len(sizes)
+        xc = np_rng.standard_normal(sizes) + 1j * np_rng.standard_normal(sizes)
+        gold = oracle.dec(xc, wv, lvl, preserve_l2=True)
+        want = dict.fromkeys(by_ndim[nd], 2 * lvl)  # two components
+        for compute in ("gpu", "gpu_off"):
+            tag = f"{name}{sizes} {wv} L{lvl} compute={compute}"
+            args = (sizes,) if name.startswith("harr") else (wv, sizes)
+            t = getattr(tw, name)(*args, pres_l2_norm=True, compute=compute, device=dev)
+            xin = torch.from_numpy(xc).to(dev) if compute == "gpu" else xc
+            ck.reset_launch_counts()
+            y = t.dec(xin, lvl)
+            xr = t.rec(y)
+            torch.cuda.synchronize()
+            got = check_launches(tag, dict(ck.launch_counts), want)
+            if (name, compute) == ("nd_dwt_1D", "gpu"):
+                launches1_class = {k: got[k] for k in LEVEL1}
+            if compute == "gpu":
+                if not (isinstance(y, torch.Tensor) and y.dtype == torch.complex128):
+                    failures.append(f"{tag}: bands are not complex128 on the card")
+                y, xr = y.cpu().numpy(), xr.cpu().numpy()
+            elif not (isinstance(y, np.ndarray) and isinstance(xr, np.ndarray)):
+                failures.append(f"{tag}: 'gpu_off' did not return NumPy arrays")
+            if y.shape != gold.shape or y.dtype != np.complex128:
+                failures.append(f"{tag}: bands {y.shape} {y.dtype}")
+            check(f"{tag} bands vs float64 oracle", float(np.abs(y - gold).max()),
+                  F64_TOL * float(np.abs(gold).max()))
+            check(f"{tag} round trip", float(np.abs(xr - xc).max()), 1e-11)
+            check(f"{tag} energy ratio - 1",
+                  abs(float(np.linalg.norm(y) / np.linalg.norm(xc)) - 1), 1e-12)
+            del t, y, xr, xin
+        torch.cuda.empty_cache()
+
+    print(f"phase 3: NDDWT at {SHAPE} db4 L{LEVEL} float64, dec+rec and "
+          f"dec_rec({THRESHOLD})")
+    plan64 = tw.NDDWT("db4", SHAPE, dtype="double", device=dev)
+    gen.manual_seed(800)
+    xd = randn(SHAPE, torch.float64)
+    ck.reset_launch_counts()
+    y = plan64.dec(xd, LEVEL, band_axis=0)
+    xr = plan64.rec(y, band_axis=0)
+    launches64 = check_launches("256^3 f64 dec+rec", dict(ck.launch_counts),
+                                dict.fromkeys(F64_REPLACES, LEVEL))
+    torch.cuda.synchronize()
+    if y.dtype != torch.float64 or not torch.isfinite(y).all():
+        failures.append(f"256^3 f64 bands: {y.dtype} or non-finite")
+    check("256^3 f64 round trip", max_err(xr, xd), 1e-12)
+    yp = direct_path.dec_direct(xd, plan64.taps, LEVEL)
+    check("256^3 f64 bands vs plain path", max_err(y, yp), F64_TOL * yp.abs().max().item())
+    del y, xr
+    ck.reset_launch_counts()
+    y, xr = plan64.dec_rec(xd, LEVEL, threshold=THRESHOLD, band_axis=0)
+    check_launches("256^3 f64 dec_rec", dict(ck.launch_counts),
+                   dict.fromkeys(F64_REPLACES, LEVEL))
+    yp = torch.cat([yp[:1], soft_threshold(yp[1:], THRESHOLD)])
+    check("256^3 f64 dec_rec bands vs plain path", max_err(y, yp),
+          F64_TOL * yp.abs().max().item())
+    xp = direct_path.rec_direct(yp, plan64.taps, LEVEL, False)
+    check("256^3 f64 dec_rec reconstruction vs plain path", max_err(xr, xp),
+          F64_TOL * xp.abs().max().item())
+    del y, xr, yp, xp
+    torch.cuda.empty_cache()
+    x64 = np.random.default_rng(0).standard_normal((64, 64, 64))
+    plan64s = tw.NDDWT("db4", (64, 64, 64), dtype="double", device=dev)
+    ck.reset_launch_counts()
+    y64 = plan64s.dec(x64, LEVEL, band_axis=0)
+    y64 = torch.cat([y64[:1], soft_threshold(y64[1:], THRESHOLD)])
+    step = plan64s.rec(y64, band_axis=0).cpu().numpy()
+    check_launches("64^3 f64 step", dict(ck.launch_counts), dict.fromkeys(F64_REPLACES, LEVEL))
+    yo = oracle.dec(x64, "db4", LEVEL)
+    d = yo[..., 1:]
+    yo[..., 1:] = d * np.maximum(np.abs(d) - THRESHOLD, 0) / np.maximum(np.abs(d), 1e-30)
+    check("64^3 f64 step vs float64 oracle",
+          float(np.abs(step - oracle.rec(yo, "db4")).max()), 1e-12)
+
+    print(f"phase 3: 1D float32, {N1M} samples db4 L3 and {N1} samples db6 L4 dec_rec")
+    x1 = np.random.default_rng(900).standard_normal(N1M).astype(np.float32)
+    plan1 = tw.NDDWT("db4", (N1M,), device=dev)
+    ck.reset_launch_counts()
+    y1 = plan1.dec(x1, LEVEL)
+    xr1 = plan1.rec(y1)
+    check_launches(f"1D {N1M} db4 L{LEVEL}", dict(ck.launch_counts),
+                   dict.fromkeys(LEVEL1, LEVEL))
+    check(f"1D {N1M} bands vs float64 oracle",
+          float(np.abs(y1.cpu().numpy() - oracle.dec(x1.astype(np.float64), "db4", LEVEL)).max()),
+          1e-4)
+    check(f"1D {N1M} round trip", float(np.abs(xr1.cpu().numpy() - x1).max()), 1e-4)
+    plan1l = tw.NDDWT("db6", (N1,), device=dev)
+    gen.manual_seed(901)
+    xl = randn((N1,))
+    ck.reset_launch_counts()
+    y, xr = plan1l.dec_rec(xl, 4, threshold=THRESHOLD, band_axis=0)
+    got = check_launches(f"1D {N1} db6 L4 dec_rec", dict(ck.launch_counts),
+                         dict.fromkeys(LEVEL1, 4))
+    launches.update({k: got[k] for k in LEVEL1})  # the 1D float32 path's own
+    yp = direct_path.dec_direct(xl, plan1l.taps, 4)
+    yp = torch.cat([yp[:1], soft_threshold(yp[1:], THRESHOLD)])
+    xp = direct_path.rec_direct(yp, plan1l.taps, 4, False)
+    check(f"1D {N1} bands vs plain path", max_err(y, yp), F32_TOL * yp.abs().max().item())
+    check(f"1D {N1} reconstruction vs plain path", max_err(xr, xp),
+          F32_TOL * xp.abs().max().item())
+    del y, xr, yp, xp, y1, xr1
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 4
@@ -699,6 +924,135 @@ def main() -> int:
     p = timed(lambda: cs_mri4(dplan4, 3), 1, warm=1) / 3
     print(f"  4D fista_cs_mri {CS_SHAPE4} db4 L{LEVEL} f32 per iteration: kernels "
           f"{k:.4f} ms, plain route {p:.4f} ms {card}")
+    del kt, mask4
+    torch.cuda.empty_cache()
+
+    # The float64 level kernels at 256^3 db4, the same work as the float32
+    # ones above in twice the bytes, at the float64 rate.
+    taps64, B64 = plan64.taps_hp, plan64.num_bands(LEVEL)
+    gen.manual_seed(1000)
+    big64 = randn((B64,) + SHAPE, torch.float64)
+    ms64 = {
+        "nddwt_dec_level": (
+            timed(lambda: ck.dec_level(xd, big64, B64 - 7, taps64), 10),
+            timed(lambda: level_ref.dec_level_ref(xd, big64, B64 - 7, taps64), 3)),
+        "nddwt_rec_level": (
+            timed(lambda: ck.rec_level(big64, None, src, taps64, 1 / nb), 10),
+            timed(lambda: level_ref.rec_level_ref(big64, None, src, taps64, 1 / nb), 3)),
+    }
+    bound64 = {name: bound_ms(9 * vox * 8, flops_level, F64_FLOPS) for name in F64_REPLACES}
+    xpad = conv_pad(xd[None], taps64, rec=False)
+    wdec = conv_weights(taps64, rec=False, dtype=torch.float64)
+    approx = level_ref.dec_level_ref(xd, big64, B64 - 7, taps64)
+    conv = F.conv3d(xpad, wdec)[0]
+    check("cuDNN conv3d f64 as one analysis level",
+          max(max_err(conv[1:], big64[B64 - 7:]), max_err(conv[0], approx)),
+          F64_TOL * big64[B64 - 7:].abs().max().item())
+    del conv, approx
+    ypad = conv_pad(big64[:nb], taps64, rec=True)
+    wrec = conv_weights(taps64, rec=True, dtype=torch.float64) / nb
+    r = level_ref.rec_level_ref(big64, None, src, taps64, 1 / nb)
+    check("cuDNN conv3d f64 as one synthesis level",
+          max_err(F.conv3d(ypad, wrec)[0, 0], r), F64_TOL * r.abs().max().item())
+    library64 = {
+        "nddwt_dec_level": timed(lambda: F.conv3d(xpad, wdec), 2, warm=1),
+        "nddwt_rec_level": timed(lambda: F.conv3d(ypad, wrec), 2, warm=1),
+    }
+    del xpad, ypad, r, big64
+    torch.cuda.empty_cache()
+    for name, (k, p) in ms64.items():
+        print(f"  {name} {SHAPE} db4 f64 per call: kernel {k:.4f} ms, plain {p:.4f} ms, "
+              f"cuDNN conv3d f64 {library64[name]:.4f} ms, bound {bound64[name][0]:.4f} "
+              f"ms ({bound64[name][1]}) {card}")
+
+    def plain_pair64(thr):
+        yp = direct_path.dec_direct(xd, plan64.taps, LEVEL)
+        if thr:
+            yp = torch.cat([yp[:1], soft_threshold(yp[1:], thr)])
+        return direct_path.rec_direct(yp, plan64.taps, LEVEL, False)
+
+    for what, (fn, plain) in {
+        "f64 dec+rec pair": (
+            lambda: plan64.rec(plan64.dec(xd, LEVEL, band_axis=0), band_axis=0),
+            lambda: plain_pair64(0.0)),
+        f"f64 fused dec_rec step (threshold {THRESHOLD})": (
+            lambda: plan64.dec_rec(xd, LEVEL, threshold=THRESHOLD, band_axis=0),
+            lambda: plain_pair64(THRESHOLD)),
+    }.items():
+        k, p = timed(fn, 5), timed(plain, 2, warm=1)
+        print(f"  {what} {SHAPE} db4 L{LEVEL}: kernels {k:.4f} ms "
+              f"({vox / k / 1e3:.1f} Mvox/s), plain {p:.4f} ms "
+              f"({vox / p / 1e3:.1f} Mvox/s) {card}")
+    del xd
+    torch.cuda.empty_cache()
+
+    # The 1D kernels at 2^23 db6, float32 (the top-level entries) and float64.
+    taps1 = plan1l.taps_hp
+    k1 = len(taps1[0][0])
+    ms1, bound1, library1 = {}, {}, {}
+    for dt, word, rate in ((torch.float32, 4, F32_FLOPS), (torch.float64, 8, F64_FLOPS)):
+        gen.manual_seed(1100)
+        x1d = randn((N1,), dt)
+        big1 = randn((5, N1), dt)
+        s1 = [("y", 0), ("y", 1)]
+        ms1[dt] = {
+            "nddwt_dec1_level": (
+                timed(lambda: ck.dec1_level(x1d, big1, 4, taps1), 50),
+                timed(lambda: level_ref.dec_level_ref(x1d, big1, 4, taps1), 10)),
+            "nddwt_rec1_level": (
+                timed(lambda: ck.rec1_level(big1, None, s1, taps1, 0.5), 50),
+                timed(lambda: level_ref.rec_level_ref(big1, None, s1, taps1, 0.5), 10)),
+        }
+        # 1 array in, 2 out (or 2 in, 1 out); 2 K multiply-adds per sample
+        bound1[dt] = dict.fromkeys(LEVEL1, bound_ms(3 * N1 * word, 4 * k1 * N1, rate))
+        xpad = F.pad(x1d[None, None], (k1 // 2 - 1, k1 - k1 // 2), mode="circular")
+        wdec = conv1d_weights(taps1, False, dt)
+        approx = level_ref.dec_level_ref(x1d, big1, 4, taps1)
+        conv = F.conv1d(xpad, wdec)[0]
+        tol = rel_tol(big1[4], dt)
+        check(f"F.conv1d {str(dt).removeprefix('torch.')} as one 1D analysis level",
+              max(max_err(conv[1], big1[4]), max_err(conv[0], approx)), tol)
+        ypad = F.pad(big1[None, :2], (k1 // 2, k1 - 1 - k1 // 2), mode="circular")
+        wrec = conv1d_weights(taps1, True, dt) * 0.5
+        r = level_ref.rec_level_ref(big1, None, s1, taps1, 0.5)
+        check(f"F.conv1d {str(dt).removeprefix('torch.')} as one 1D synthesis level",
+              max_err(F.conv1d(ypad, wrec)[0, 0], r), rel_tol(r, dt))
+        library1[dt] = {"nddwt_dec1_level": timed(lambda: F.conv1d(xpad, wdec), 20),
+                        "nddwt_rec1_level": timed(lambda: F.conv1d(ypad, wrec), 20)}
+        for name, (k, p) in ms1[dt].items():
+            print(f"  {name} ({N1},) db6 {str(dt).removeprefix('torch.')} per call: kernel "
+                  f"{k:.4f} ms, plain {p:.4f} ms, F.conv1d {library1[dt][name]:.4f} ms, "
+                  f"bound {bound1[dt][name][0]:.4f} ms ({bound1[dt][name][1]}) {card}")
+        del x1d, big1, xpad, ypad, conv, approx, r
+
+    def plain_pair1(thr):
+        yp = direct_path.dec_direct(xl, plan1l.taps, 4)
+        if thr:
+            yp = torch.cat([yp[:1], soft_threshold(yp[1:], thr)])
+        return direct_path.rec_direct(yp, plan1l.taps, 4, False)
+
+    for what, (fn, plain) in {
+        "1D dec+rec pair": (
+            lambda: plan1l.rec(plan1l.dec(xl, 4, band_axis=0), band_axis=0),
+            lambda: plain_pair1(0.0)),
+        f"1D fused dec_rec step (threshold {THRESHOLD})": (
+            lambda: plan1l.dec_rec(xl, 4, threshold=THRESHOLD, band_axis=0),
+            lambda: plain_pair1(THRESHOLD)),
+    }.items():
+        k, p = timed(fn, 20), timed(plain, 5)
+        print(f"  {what} ({N1},) db6 L4 f32: kernels {k:.4f} ms "
+              f"({N1 / k / 1e3:.1f} Msamples/s), plain {p:.4f} ms "
+              f"({N1 / p / 1e3:.1f} Msamples/s) {card}")
+    ms.update(ms1[torch.float32])
+    bound.update(bound1[torch.float32])
+    library.update(library1[torch.float32])
+    f64_entry = {  # name: (replaces, launches, error, times, bound, library)
+        **{name: (F64_REPLACES[name], launches64[name], main_err64[name], ms64[name],
+                  bound64[name], library64[name]) for name in F64_REPLACES},
+        **{name: (KERNELS[name][1], launches1_class[name], main_err64[name],
+                  ms1[torch.float64][name], bound1[torch.float64][name],
+                  library1[torch.float64][name]) for name in LEVEL1},
+    }
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)
@@ -706,13 +1060,21 @@ def main() -> int:
             print(f"  {f}", file=sys.stderr)
         return 1
     print(smi)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": where,
-         "launches": launches[name], "max_abs_err": main_err[name],
-         "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": bound[name][0],
-         "bound_by": bound[name][1], "library_ms": library[name]}
-        for name, (source, where) in KERNELS.items()
-    ]}))
+
+    def entry(where, n, err, times, bnd, lib):
+        return {"replaces": where, "launches": n, "max_abs_err": err, "ms": times[0],
+                "plain_ms": times[1], "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": lib}
+
+    kernels = []
+    for name, (source, where) in KERNELS.items():
+        k = {"name": name, "route": "cuda", "source": source,
+             **entry(where, launches[name], main_err[name], ms[name], bound[name],
+                     library[name])}
+        if name in f64_entry:  # the float64 instantiation, on the class paths
+            k["float64"] = entry(*f64_entry[name])
+        kernels.append(k)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,7 +16,9 @@
 // adjoints in reverse order: the lead stage sums the adjoints of bands 4c+a
 // into partial c, the lane stage the adjoints of the 4 partials, times the
 // per-level scale. Storage is float or bfloat16 (the 4 intermediate bands
-// too, as on the TPU); every sum is taken in float32 with float32 taps.
+// too, as on the TPU), every sum taken in float32 with float32 taps; or
+// double, every sum in float64 with float64 taps (the TPU sends float64 4D
+// levels to its XLA direct path, which has no kernel).
 //
 // Each stage is a launch over a 3-slot view of the array with a halo on two
 // slots and one pass-through slot: the lane stage sees (X*Y, Z, T), the lead
@@ -59,7 +61,7 @@ struct Sources {
 // and d < 2^16 (i = q d + r: i m / 2^32 = q + (r + i e / 2^32) / d with
 // e = m d - 2^32 < d, and i e < 2^32). Every flat index inside a CTA's
 // window, intermediate or tile is under 2^16: shared memory (227 KB) holds
-// fewer floats, and the wrapper keeps a tile to 8192 outputs. d == 1 gives
+// fewer words, and the wrapper keeps a tile to 8192 outputs. d == 1 gives
 // m = 0, one = ~0.
 struct FastDiv {
   int d;
@@ -102,16 +104,16 @@ __device__ __forceinline__ int wrap3(int i, int n) {
 // 8 loads in flight per thread take a quarter off the lead adjoint. The lane
 // stage's rows are long, and there the registers cost more than they hide
 // (both measured on an H100 in a sweep of batches and tiles).
-template <int BATCH, typename T>
-__device__ void load_window(float* __restrict__ s, const T* __restrict__ src,
-                            const Level& g, const int* b, int e0, int e1,
+template <int BATCH, typename T, typename C>
+__device__ void load_window(C* __restrict__ s, const T* __restrict__ src,
+                            const LevelT<C>& g, const int* b, int e0, int e1,
                             int e2) {
   const int o0 = b[0] - g.left[0], o1 = b[1] - g.left[1],
             o2 = b[2] - g.left[2];
   const int total = e0 * e1 * e2;
   const Split3 split(e1, e2);
   for (int base = threadIdx.x; base < total; base += BATCH * blockDim.x) {
-    float v[BATCH];
+    C v[BATCH];
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       const int i = base + u * blockDim.x;
@@ -135,10 +137,10 @@ __device__ void load_window(float* __restrict__ s, const T* __restrict__ src,
 // out = K-tap correlation of `in` (d0, d1, d2) along axis A, keeping `to`
 // outputs on that axis: out[c] = sum_j tp[j] * in[c + j e_A] (the pass of
 // nddwt_level.cu, with the index split by multiply-high).
-template <int A, bool ACCUM>
-__device__ void stage_pass(float* __restrict__ out, const float* __restrict__ in,
+template <int A, bool ACCUM, typename C>
+__device__ void stage_pass(C* __restrict__ out, const C* __restrict__ in,
                            int d0, int d1, int d2, int to,
-                           const float* __restrict__ tp, int K) {
+                           const C* __restrict__ tp, int K) {
   const int o0 = A == 0 ? to : d0;
   const int o1 = A == 1 ? to : d1;
   const int o2 = A == 2 ? to : d2;
@@ -148,9 +150,9 @@ __device__ void stage_pass(float* __restrict__ out, const float* __restrict__ in
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     int c0, c1, c2;
     split(i, c0, c1, c2);
-    const float* p = in + (c0 * d1 + c1) * d2 + c2;
-    float acc = 0.f;
-    for (int j = 0; j < K; ++j) acc = fmaf(tp[j], p[j * stride], acc);
+    const C* p = in + (c0 * d1 + c1) * d2 + c2;
+    C acc = 0;
+    for (int j = 0; j < K; ++j) acc = mad(tp[j], p[j * stride], acc);
     if (ACCUM)
       out[i] += acc;
     else
@@ -158,20 +160,15 @@ __device__ void stage_pass(float* __restrict__ out, const float* __restrict__ in
   }
 }
 
-__device__ __forceinline__ float shrink(float v, float lam) {
-  const float m = fabsf(v);
-  return v * (fmaxf(m - lam, 0.f) / fmaxf(m, 1e-30f));
-}
-
 // Analysis over halo slots HA < HB: input i (of n_in, one view's extent
 // apart) gives sub-band s = bitA + 2 bitB as output d = s + 4 i, written to
 // dst0 for d == 0 and to big[band_off + d - 1] otherwise, soft-thresholded
 // by lam > 0 when d > 0. smem: the window, then the HA-pass intermediate.
-template <typename T, int HA, int HB>
-__device__ void dec_stage(float* __restrict__ smem, float (*taps)[2][kMaxTaps],
-                          const T* __restrict__ src, int n_in, const Level& g,
-                          T* __restrict__ dst0, T* __restrict__ big,
-                          long long band_off, float lam) {
+template <typename T, int HA, int HB, typename C>
+__device__ void dec_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
+                          const T* __restrict__ src, int n_in,
+                          const LevelT<C>& g, T* __restrict__ dst0,
+                          T* __restrict__ big, long long band_off, C lam) {
   copy_taps(taps, g);
   int b[3];
   tile_origin(g, b);
@@ -179,14 +176,14 @@ __device__ void dec_stage(float* __restrict__ smem, float (*taps)[2][kMaxTaps],
   const int e0 = t0 + g.k[0] - 1, e1 = t1 + g.k[1] - 1, e2 = t2 + g.k[2] - 1;
   const int d1 = HA == 1 ? t1 : e1, d2 = HA == 2 ? t2 : e2;  // intermediate
   const int strideB = HB == 2 ? 1 : d2;
-  float* s0 = smem;
-  float* p1 = s0 + e0 * e1 * e2;
+  C* s0 = smem;
+  C* p1 = s0 + e0 * e1 * e2;
   const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
   const int nsA = g.k[HA] > 1 ? 2 : 1;
   const bool hiB = g.k[HB] > 1;
   const int KB = g.k[HB];
-  const float* tl = taps[HB][0];
-  const float* th = taps[HB][1];
+  const C* tl = taps[HB][0];
+  const C* th = taps[HB][1];
   const Split3 split(t1, t2);
   for (int i = 0; i < n_in; ++i) {
     __syncthreads();  // the previous input's window and intermediate are read
@@ -199,18 +196,18 @@ __device__ void dec_stage(float* __restrict__ smem, float (*taps)[2][kMaxTaps],
       const int dlo = sa + 4 * i, dhi = dlo + 2;
       T* lo_dst = dlo == 0 ? dst0 : big + (band_off + dlo - 1) * vox;
       T* hi_dst = hiB ? big + (band_off + dhi - 1) * vox : nullptr;
-      const bool shrink_lo = dlo != 0 && lam > 0.f, shrink_hi = lam > 0.f;
+      const bool shrink_lo = dlo != 0 && lam > 0, shrink_hi = lam > 0;
       for (int o = threadIdx.x; o < t0 * t1 * t2; o += blockDim.x) {
         int c0, c1, c2;
         split(o, c0, c1, c2);
         const int q0 = b[0] + c0, q1 = b[1] + c1, q2 = b[2] + c2;
         if (q0 >= g.n[0] || q1 >= g.n[1] || q2 >= g.n[2]) continue;
-        const float* p = p1 + (c0 * d1 + c1) * d2 + c2;
-        float lo = 0.f, hi = 0.f;
+        const C* p = p1 + (c0 * d1 + c1) * d2 + c2;
+        C lo = 0, hi = 0;
         for (int j = 0; j < KB; ++j) {
-          const float v = p[j * strideB];
-          lo = fmaf(tl[j], v, lo);
-          hi = fmaf(th[j], v, hi);
+          const C v = p[j * strideB];
+          lo = mad(tl[j], v, lo);
+          hi = mad(th[j], v, hi);
         }
         const long long q = ((long long)q0 * g.n[1] + q1) * g.n[2] + q2;
         lo_dst[q] = from_f<T>(shrink_lo ? shrink(lo, lam) : lo);
@@ -226,11 +223,11 @@ __device__ void dec_stage(float* __restrict__ smem, float (*taps)[2][kMaxTaps],
 // s applied to band d = s + 4 gi, read from y[src.idx[d]] or, for -1, from
 // approx. The taps arrive reversed and the halo mirrored, so each adjoint
 // is a forward correlation. smem: window, intermediate, output tile.
-template <typename T, int HA, int HB>
-__device__ void adj_stage(float* __restrict__ smem, float (*taps)[2][kMaxTaps],
+template <typename T, int HA, int HB, typename C>
+__device__ void adj_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
                           const T* __restrict__ y, const T* __restrict__ approx,
-                          const Sources& src, int n_out, const Level& g,
-                          T* __restrict__ out, float scale) {
+                          const Sources& src, int n_out, const LevelT<C>& g,
+                          T* __restrict__ out, C scale) {
   copy_taps(taps, g);
   int b[3];
   tile_origin(g, b);
@@ -238,17 +235,17 @@ __device__ void adj_stage(float* __restrict__ smem, float (*taps)[2][kMaxTaps],
   const int e0 = t0 + g.k[0] - 1, e1 = t1 + g.k[1] - 1, e2 = t2 + g.k[2] - 1;
   const int d0 = HA == 0 ? t0 : e0, d1 = HA == 1 ? t1 : e1,
             d2 = HA == 2 ? t2 : e2;
-  float* s0 = smem;
-  float* p1 = s0 + e0 * e1 * e2;
-  float* acc = p1 + d0 * d1 * d2;
+  C* s0 = smem;
+  C* p1 = s0 + e0 * e1 * e2;
+  C* acc = p1 + d0 * d1 * d2;
   const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
   const int nsA = g.k[HA] > 1 ? 2 : 1, nsB = g.k[HB] > 1 ? 2 : 1;
   const int p1n = d0 * d1 * d2, an = t0 * t1 * t2;
   const Split3 split(t1, t2);
   for (int gi = 0; gi < n_out; ++gi) {
-    for (int i = threadIdx.x; i < an; i += blockDim.x) acc[i] = 0.f;
+    for (int i = threadIdx.x; i < an; i += blockDim.x) acc[i] = 0;
     for (int sb = 0; sb < nsB; ++sb) {
-      for (int i = threadIdx.x; i < p1n; i += blockDim.x) p1[i] = 0.f;
+      for (int i = threadIdx.x; i < p1n; i += blockDim.x) p1[i] = 0;
       for (int sa = 0; sa < nsA; ++sa) {
         const long long id = src.idx[sa + 2 * sb + 4 * gi];
         const T* bsrc = id < 0 ? approx : y + id * vox;
@@ -275,67 +272,68 @@ __device__ void adj_stage(float* __restrict__ smem, float (*taps)[2][kMaxTaps],
 }
 
 // Lane analysis: x (X*Y, Z, T) -> temp (4, X*Y, Z, T), band c at temp[c].
-template <typename T>
+template <typename T, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads)
     lane_dec_kernel(const T* __restrict__ x, T* __restrict__ temp,
-                    const __grid_constant__ Level g) {
-  extern __shared__ float smem[];
-  __shared__ float taps[3][2][kMaxTaps];
-  dec_stage<T, 1, 2>(smem, taps, x, 1, g, temp, temp, 1, 0.f);
+                    const __grid_constant__ LevelT<C> g) {
+  __shared__ C taps[3][2][kMaxTaps];
+  dec_stage<T, 1, 2>(shared_words<C>(), taps, x, 1, g, temp, temp, 1, C(0));
 }
 
 // Lead analysis: temp (n_in, X, Y, Z*T) -> 16 bands (8 for a 3D array).
-template <typename T>
+template <typename T, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads)
     lead_dec_kernel(const T* __restrict__ temp, T* __restrict__ big,
-                    T* __restrict__ approx_out, const __grid_constant__ Level g,
-                    int n_in, long long band_off, float lam) {
-  extern __shared__ float smem[];
-  __shared__ float taps[3][2][kMaxTaps];
-  dec_stage<T, 0, 1>(smem, taps, temp, n_in, g, approx_out, big, band_off,
-                     lam);
+                    T* __restrict__ approx_out,
+                    const __grid_constant__ LevelT<C> g, int n_in,
+                    long long band_off, C lam) {
+  __shared__ C taps[3][2][kMaxTaps];
+  dec_stage<T, 0, 1>(shared_words<C>(), taps, temp, n_in, g, approx_out, big,
+                     band_off, lam);
 }
 
 // Lead adjoint: 16 band sources -> partial (n_out, X, Y, Z*T).
-template <typename T>
+template <typename T, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads)
     lead_adj_kernel(const T* __restrict__ y, const T* __restrict__ approx,
-                    T* __restrict__ partial, const __grid_constant__ Level g,
+                    T* __restrict__ partial, const __grid_constant__ LevelT<C> g,
                     const __grid_constant__ Sources src, int n_out) {
-  extern __shared__ float smem[];
-  __shared__ float taps[3][2][kMaxTaps];
-  adj_stage<T, 0, 1>(smem, taps, y, approx, src, n_out, g, partial, 1.f);
+  __shared__ C taps[3][2][kMaxTaps];
+  adj_stage<T, 0, 1>(shared_words<C>(), taps, y, approx, src, n_out, g,
+                     partial, C(1));
 }
 
 // Lane adjoint: partial (4, X*Y, Z, T) -> scale * (X*Y, Z, T).
-template <typename T>
+template <typename T, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads)
     lane_adj_kernel(const T* __restrict__ partial, T* __restrict__ out,
-                    const __grid_constant__ Level g,
-                    const __grid_constant__ Sources src, float scale) {
-  extern __shared__ float smem[];
-  __shared__ float taps[3][2][kMaxTaps];
-  adj_stage<T, 1, 2>(smem, taps, partial, partial, src, 1, g, out, scale);
+                    const __grid_constant__ LevelT<C> g,
+                    const __grid_constant__ Sources src, C scale) {
+  __shared__ C taps[3][2][kMaxTaps];
+  adj_stage<T, 1, 2>(shared_words<C>(), taps, partial, partial, src, 1, g, out,
+                     scale);
 }
 
-Level stage_level(const int* n, const int* k, const int* t, const int* left,
-                  const float* taps) {
+template <typename C>
+LevelT<C> stage_level(const int* n, const int* k, const int* t, const int* left,
+                      const void* taps) {
   const int no_bits[3] = {0, 0, 0};  // the stage kernels fix their band bits
-  return make_level(n, k, t, left, no_bits, taps);
+  return make_level<C>(n, k, t, left, no_bits, taps);
 }
 
 // Dynamic shared memory: window + intermediate (+ output tile for adjoints).
-size_t stage_smem(const Level& g, int ha, bool adj) {
+template <typename C>
+size_t stage_smem(const LevelT<C>& g, int ha, bool adj) {
   size_t e[3], d[3];
   for (int a = 0; a < 3; ++a) d[a] = e[a] = g.t[a] + g.k[a] - 1;
   d[ha] = g.t[ha];
   size_t w = e[0] * e[1] * e[2] + d[0] * d[1] * d[2];
   if (adj) w += (size_t)g.t[0] * g.t[1] * g.t[2];
-  return w * sizeof(float);
+  return w * sizeof(C);
 }
 
-template <typename... KArgs, typename... Args>
-int launch(void (*kernel)(KArgs...), const Level& g, size_t smem,
+template <typename C, typename... KArgs, typename... Args>
+int launch(void (*kernel)(KArgs...), const LevelT<C>& g, size_t smem,
            cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -344,94 +342,110 @@ int launch(void (*kernel)(KArgs...), const Level& g, size_t smem,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int lane_dec(const void* x, void* temp, const Level& g, cudaStream_t s) {
-  return launch(lane_dec_kernel<T>, g, stage_smem(g, 1, false), s,
+// The view's geometry: n, k, t, left (3 ints each) and the taps.
+struct Geom {
+  const int *n, *k, *t, *left;
+  const void* taps;
+};
+
+template <typename T, typename C = compute_t<T>>
+int lane_dec(const void* x, void* temp, const Geom& v, cudaStream_t s) {
+  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.taps);
+  return launch(lane_dec_kernel<T, C>, g, stage_smem(g, 1, false), s,
                 (const T*)x, (T*)temp, g);
 }
 
-template <typename T>
-int lead_dec(const void* temp, void* big, void* approx_out, const Level& g,
-             int n_in, long long band_off, float lam, cudaStream_t s) {
-  return launch(lead_dec_kernel<T>, g, stage_smem(g, 0, false), s,
+template <typename T, typename C = compute_t<T>>
+int lead_dec(const void* temp, void* big, void* approx_out, const Geom& v,
+             int n_in, long long band_off, double lam, cudaStream_t s) {
+  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.taps);
+  return launch(lead_dec_kernel<T, C>, g, stage_smem(g, 0, false), s,
                 (const T*)temp, (T*)big, (T*)approx_out, g, n_in, band_off,
-                lam);
+                (C)lam);
 }
 
-template <typename T>
-int lead_adj(const void* y, const void* approx, void* partial, const Level& g,
+template <typename T, typename C = compute_t<T>>
+int lead_adj(const void* y, const void* approx, void* partial, const Geom& v,
              const Sources& src, int n_out, cudaStream_t s) {
-  return launch(lead_adj_kernel<T>, g, stage_smem(g, 0, true), s,
+  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.taps);
+  return launch(lead_adj_kernel<T, C>, g, stage_smem(g, 0, true), s,
                 (const T*)y, (const T*)approx, (T*)partial, g, src, n_out);
 }
 
-template <typename T>
-int lane_adj(const void* partial, void* out, const Level& g,
-             const Sources& src, float scale, cudaStream_t s) {
-  return launch(lane_adj_kernel<T>, g, stage_smem(g, 1, true), s,
-                (const T*)partial, (T*)out, g, src, scale);
+template <typename T, typename C = compute_t<T>>
+int lane_adj(const void* partial, void* out, const Geom& v, const Sources& src,
+             double scale, cudaStream_t s) {
+  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.taps);
+  return launch(lane_adj_kernel<T, C>, g, stage_smem(g, 1, true), s,
+                (const T*)partial, (T*)out, g, src, (C)scale);
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// n, k, t, left: 3 ints each, the stage's view (slot 0 slowest); taps:
-// 3 * 2 * 76 floats. The caller makes the arrays' device current. Returns
-// the cudaError_t of the launch (0 on success); the launch is asynchronous
-// on `stream`.
+// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
+// 2 = float64. n, k, t, left: 3 ints each, the stage's view (slot 0
+// slowest); taps: 3 * 2 * 76 of the compute type (float for dtypes 0 and 1,
+// double for 2). The caller makes the arrays' device current. Returns the
+// cudaError_t of the launch (0 on success); the launch is asynchronous on
+// `stream`.
 extern "C" int nddwt_max_taps() { return kMaxTaps; }
 
 extern "C" int nddwt_lane_dec(const void* x, void* temp, int dtype,
                               const int* n, const int* k, const int* t,
-                              const int* left, const float* taps,
+                              const int* left, const void* taps,
                               void* stream) {
-  const Level g = stage_level(n, k, t, left, taps);
+  const Geom v{n, k, t, left, taps};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return lane_dec<float>(x, temp, g, s);
-  if (dtype == 1) return lane_dec<__nv_bfloat16>(x, temp, g, s);
+  if (dtype == 0) return lane_dec<float>(x, temp, v, s);
+  if (dtype == 1) return lane_dec<__nv_bfloat16>(x, temp, v, s);
+  if (dtype == 2) return lane_dec<double>(x, temp, v, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int nddwt_lead_dec(const void* temp, void* big, void* approx_out,
                               int dtype, const int* n, const int* k,
-                              const int* t, const int* left, const float* taps,
-                              int n_in, long long band_off, float lam,
+                              const int* t, const int* left, const void* taps,
+                              int n_in, long long band_off, double lam,
                               void* stream) {
-  const Level g = stage_level(n, k, t, left, taps);
+  const Geom v{n, k, t, left, taps};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return lead_dec<float>(temp, big, approx_out, g, n_in, band_off, lam, s);
+    return lead_dec<float>(temp, big, approx_out, v, n_in, band_off, lam, s);
   if (dtype == 1)
-    return lead_dec<__nv_bfloat16>(temp, big, approx_out, g, n_in, band_off,
+    return lead_dec<__nv_bfloat16>(temp, big, approx_out, v, n_in, band_off,
                                    lam, s);
+  if (dtype == 2)
+    return lead_dec<double>(temp, big, approx_out, v, n_in, band_off, lam, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int nddwt_lead_adj(const void* y, const void* approx, void* partial,
                               int dtype, const int* n, const int* k,
-                              const int* t, const int* left, const float* taps,
+                              const int* t, const int* left, const void* taps,
                               const long long* band_idx, int n_out,
                               void* stream) {
-  const Level g = stage_level(n, k, t, left, taps);
+  const Geom v{n, k, t, left, taps};
   Sources src;
   for (int d = 0; d < kMaxBands; ++d) src.idx[d] = band_idx[d];
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return lead_adj<float>(y, approx, partial, g, src, n_out, s);
+  if (dtype == 0) return lead_adj<float>(y, approx, partial, v, src, n_out, s);
   if (dtype == 1)
-    return lead_adj<__nv_bfloat16>(y, approx, partial, g, src, n_out, s);
+    return lead_adj<__nv_bfloat16>(y, approx, partial, v, src, n_out, s);
+  if (dtype == 2) return lead_adj<double>(y, approx, partial, v, src, n_out, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int nddwt_lane_adj(const void* partial, void* out, int dtype,
                               const int* n, const int* k, const int* t,
-                              const int* left, const float* taps, float scale,
+                              const int* left, const void* taps, double scale,
                               void* stream) {
-  const Level g = stage_level(n, k, t, left, taps);
+  const Geom v{n, k, t, left, taps};
   Sources src;  // partial c is sub-band c
   for (int d = 0; d < kMaxBands; ++d) src.idx[d] = d;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return lane_adj<float>(partial, out, g, src, scale, s);
-  if (dtype == 1) return lane_adj<__nv_bfloat16>(partial, out, g, src, scale, s);
+  if (dtype == 0) return lane_adj<float>(partial, out, v, src, scale, s);
+  if (dtype == 1) return lane_adj<__nv_bfloat16>(partial, out, v, src, scale, s);
+  if (dtype == 2) return lane_adj<double>(partial, out, v, src, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,11 @@
 // What the per-level kernels (nddwt_level.cu) and the 4D stage kernels
 // (nddwt_4d.cu) share: the geometry of one launch over a 3-slot view of the
-// array, the float32 <-> storage conversions, the taps' copy into shared
+// array, the storage <-> compute conversions, the taps' copy into shared
 // memory and the tile order.
+//
+// Every kernel has a storage type T and a compute type C = compute_t<T>:
+// float for float and bfloat16 storage, double for double. The taps of a
+// launch arrive in C, so a float64 level correlates with float64 taps.
 //
 // A slot with one tap (of 1.0) and no halo is a pass-through axis: a 2D
 // level runs as (1, n0, n1), and each 4D stage keeps one slot without halo.
@@ -16,35 +20,69 @@ namespace {
 constexpr int kMaxTaps = 76;  // db38, the longest filter the package builds
 constexpr int kThreads = 256;
 
-struct Level {
+template <typename T>
+struct Compute {
+  using type = float;
+};
+template <>
+struct Compute<double> {
+  using type = double;
+};
+template <typename T>
+using compute_t = typename Compute<T>::type;
+
+template <typename C>
+struct LevelT {
   int n[3];     // extents, slot 0 slowest
   int k[3];     // taps per slot; 1 marks the pass-through slot
   int t[3];     // output tile extents
   int left[3];  // left halo of the loaded tile
   int bit[3];   // band-index bit of each slot (band bit k = high on axis k)
-  float taps[3][2][kMaxTaps];  // [slot][lo/hi][tap], already oriented
+  C taps[3][2][kMaxTaps];  // [slot][lo/hi][tap], already oriented
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ double to_f(double v) { return v; }
 template <typename T>
-__device__ __forceinline__ T from_f(float v);
+__device__ __forceinline__ T from_f(compute_t<T> v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch casts
 }
+template <>
+__device__ __forceinline__ double from_f<double>(double v) { return v; }
 
-__device__ void copy_taps(float (*dst)[2][kMaxTaps], const Level& g) {
+__device__ __forceinline__ float mad(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double mad(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// v * max(|v| - lam, 0) / max(|v|, 1e-30): the soft threshold of a detail.
+__device__ __forceinline__ float shrink(float v, float lam) {
+  const float m = fabsf(v);
+  return v * (fmaxf(m - lam, 0.f) / fmaxf(m, 1e-30f));
+}
+__device__ __forceinline__ double shrink(double v, double lam) {
+  const double m = fabs(v);
+  return v * (fmax(m - lam, 0.0) / fmax(m, 1e-30));
+}
+
+template <typename C>
+__device__ void copy_taps(C (*dst)[2][kMaxTaps], const LevelT<C>& g) {
   for (int i = threadIdx.x; i < 3 * 2 * kMaxTaps; i += blockDim.x)
     (&dst[0][0][0])[i] = (&g.taps[0][0][0])[i];
 }
 
 // Tile origin of this CTA (tiles flattened, slot 2 fastest).
-__device__ void tile_origin(const Level& g, int* b) {
+template <typename C>
+__device__ void tile_origin(const LevelT<C>& g, int* b) {
   int id = blockIdx.x;
   const int n2 = (g.n[2] + g.t[2] - 1) / g.t[2];
   const int n1 = (g.n[1] + g.t[1] - 1) / g.t[1];
@@ -54,9 +92,11 @@ __device__ void tile_origin(const Level& g, int* b) {
   b[0] = (id / n1) * g.t[0];
 }
 
-Level make_level(const int* n, const int* k, const int* t, const int* left,
-                 const int* bit, const float* taps) {
-  Level g;
+template <typename C>
+LevelT<C> make_level(const int* n, const int* k, const int* t, const int* left,
+                     const int* bit, const void* taps) {
+  const C* tp = static_cast<const C*>(taps);
+  LevelT<C> g;
   for (int a = 0; a < 3; ++a) {
     g.n[a] = n[a];
     g.k[a] = k[a];
@@ -65,15 +105,25 @@ Level make_level(const int* n, const int* k, const int* t, const int* left,
     g.bit[a] = bit[a];
     for (int s = 0; s < 2; ++s)
       for (int j = 0; j < kMaxTaps; ++j)
-        g.taps[a][s][j] = taps[(a * 2 + s) * kMaxTaps + j];
+        g.taps[a][s][j] = tp[(a * 2 + s) * kMaxTaps + j];
   }
   return g;
 }
 
-unsigned int num_tiles(const Level& g) {
+template <typename C>
+unsigned int num_tiles(const LevelT<C>& g) {
   unsigned int c = 1;
   for (int a = 0; a < 3; ++a) c *= (g.n[a] + g.t[a] - 1) / g.t[a];
   return c;
+}
+
+// The dynamic shared memory of a kernel over compute type C, typed: one
+// extern array for every instantiation (two extern arrays of different
+// types in one translation unit would conflict).
+template <typename C>
+__device__ __forceinline__ C* shared_words() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return reinterpret_cast<C*>(smem_raw);
 }
 
 }  // namespace

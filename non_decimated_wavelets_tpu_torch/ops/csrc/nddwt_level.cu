@@ -6,8 +6,18 @@
 //                    (non_decimated_wavelets_tpu/ops/pallas_kernels.py:1389,1468)
 //
 // Both work on 2D and 3D arrays of float or bfloat16, computing in float32
-// with float32 taps. A 2D array runs as (1, n0, n1): slot 0 is then a
-// pass-through axis with one tap of 1.0 and no band split.
+// with float32 taps, and of double, computing in float64 with float64 taps
+// and fma. The double instantiations replace the TPU's float64-accurate
+// levels, which emulate float64 with pairs of float32 (error-free sums and
+// products; Hopper has float64 units):
+//
+//   nddwt_dec_level  (double) replaces _make_dec_kernel_df / _dec_level_df
+//                    (non_decimated_wavelets_tpu/ops/pallas_df32.py:271,334)
+//   nddwt_rec_level  (double) replaces _make_rec_kernel_df / _rec_level_df
+//                    (non_decimated_wavelets_tpu/ops/pallas_df32.py:392,494)
+//
+// A 2D array runs as (1, n0, n1): slot 0 is then a pass-through axis with
+// one tap of 1.0 and no band split.
 //
 // Each CTA owns one output tile. It loads the tile's halo'd input into
 // shared memory once, wrapping every index periodically (so extents smaller
@@ -18,7 +28,7 @@
 //
 // What bounds them: one analysis level of a 3D array reads the array once and
 // writes 2^d of them, so it is bound by device-memory bytes (9 arrays moved;
-// at 256^3 f32 about 0.6 GB, ~0.18 ms at 3.35 TB/s). The K-tap passes
+// at 256^3 f32 about 0.6 GB, ~0.18 ms at 3.35 TB/s; f64 twice that). The K-tap passes
 // read shared memory K times per output, which is the next limit; they keep
 // consecutive threads on consecutive addresses (no bank conflicts), and the
 // depth-first tree does (2 + 4 + 8) passes' work on shrinking intermediates
@@ -42,9 +52,9 @@ __device__ __forceinline__ long long wrap(int i, int n) {
 }
 
 // The tile's (e0, e1, e2) input window starting at (o0, o1, o2), wrapped.
-template <typename T>
-__device__ void load_tile(float* __restrict__ s, const T* __restrict__ src,
-                          const Level& g, int o0, int o1, int o2, int e0,
+template <typename T, typename C>
+__device__ void load_tile(C* __restrict__ s, const T* __restrict__ src,
+                          const LevelT<C>& g, int o0, int o1, int o2, int e0,
                           int e1, int e2) {
   const int total = e0 * e1 * e2;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
@@ -61,10 +71,10 @@ __device__ void load_tile(float* __restrict__ s, const T* __restrict__ src,
 
 // out = K-tap correlation of `in` (d0, d1, d2) along axis A, keeping `to`
 // outputs on that axis: out[c] = sum_j tp[j] * in[c + j e_A].
-template <int A, bool ACCUM>
-__device__ void pass(float* __restrict__ out, const float* __restrict__ in,
+template <int A, bool ACCUM, typename C>
+__device__ void pass(C* __restrict__ out, const C* __restrict__ in,
                      int d0, int d1, int d2, int to,
-                     const float* __restrict__ tp, int K) {
+                     const C* __restrict__ tp, int K) {
   const int o0 = A == 0 ? to : d0;
   const int o1 = A == 1 ? to : d1;
   const int o2 = A == 2 ? to : d2;
@@ -75,9 +85,9 @@ __device__ void pass(float* __restrict__ out, const float* __restrict__ in,
     const int r = i / o2;
     const int c1 = r % o1;
     const int c0 = r / o1;
-    const float* p = in + (c0 * d1 + c1) * d2 + c2;
-    float acc = 0.f;
-    for (int j = 0; j < K; ++j) acc = fmaf(tp[j], p[j * stride], acc);
+    const C* p = in + (c0 * d1 + c1) * d2 + c2;
+    C acc = 0;
+    for (int j = 0; j < K; ++j) acc = mad(tp[j], p[j * stride], acc);
     if (ACCUM)
       out[i] += acc;
     else
@@ -88,22 +98,22 @@ __device__ void pass(float* __restrict__ out, const float* __restrict__ in,
 // Analysis: writes detail band b (b >= 1) to big[band_off + b - 1] and
 // band 0 to approx_out (the next approximation, or big[0] at the final
 // level). lam > 0 soft-thresholds the details in registers.
-template <typename T>
+template <typename T, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads)
     dec_level_kernel(const T* __restrict__ x, T* __restrict__ big,
                      T* __restrict__ approx_out,
-                     const __grid_constant__ Level g, long long band_off,
-                     float lam) {
-  extern __shared__ float smem[];
-  __shared__ float taps[3][2][kMaxTaps];
+                     const __grid_constant__ LevelT<C> g, long long band_off,
+                     C lam) {
+  C* smem = shared_words<C>();
+  __shared__ C taps[3][2][kMaxTaps];
   copy_taps(taps, g);
   int b[3];
   tile_origin(g, b);
   const int t0 = g.t[0], t1 = g.t[1], t2 = g.t[2];
   const int e0 = t0 + g.k[0] - 1, e1 = t1 + g.k[1] - 1, e2 = t2 + g.k[2] - 1;
-  float* s0 = smem;               // (e0, e1, e2) input tile
-  float* p1 = s0 + e0 * e1 * e2;  // (t0, e1, e2) after axis 0
-  float* p2 = p1 + t0 * e1 * e2;  // (t0, t1, e2) after axis 1
+  C* s0 = smem;               // (e0, e1, e2) input tile
+  C* p1 = s0 + e0 * e1 * e2;  // (t0, e1, e2) after axis 0
+  C* p2 = p1 + t0 * e1 * e2;  // (t0, t1, e2) after axis 1
   load_tile(s0, x, g, b[0] - g.left[0], b[1] - g.left[1], b[2] - g.left[2],
             e0, e1, e2);
   __syncthreads();
@@ -121,8 +131,8 @@ __global__ void __launch_bounds__(kThreads)
         const int band =
             (s0i << g.bit[0]) | (s1i << g.bit[1]) | (s2i << g.bit[2]);
         T* dst = band == 0 ? approx_out : big + (band_off + band - 1) * vox;
-        const bool shrink = band != 0 && lam > 0.f;
-        const float* tp = taps[2][s2i];
+        const bool shrunk = band != 0 && lam > 0;
+        const C* tp = taps[2][s2i];
         for (int i = threadIdx.x; i < t0 * t1 * t2; i += blockDim.x) {
           const int c2 = i % t2;
           const int r = i / t2;
@@ -130,13 +140,10 @@ __global__ void __launch_bounds__(kThreads)
           const int c0 = r / t1;
           const int q0 = b[0] + c0, q1 = b[1] + c1, q2 = b[2] + c2;
           if (q0 >= g.n[0] || q1 >= g.n[1] || q2 >= g.n[2]) continue;
-          const float* p = p2 + (c0 * t1 + c1) * e2 + c2;
-          float acc = 0.f;
-          for (int j = 0; j < g.k[2]; ++j) acc = fmaf(tp[j], p[j], acc);
-          if (shrink) {
-            const float m = fabsf(acc);
-            acc = acc * (fmaxf(m - lam, 0.f) / fmaxf(m, 1e-30f));
-          }
+          const C* p = p2 + (c0 * t1 + c1) * e2 + c2;
+          C acc = 0;
+          for (int j = 0; j < g.k[2]; ++j) acc = mad(tp[j], p[j], acc);
+          if (shrunk) acc = shrink(acc, lam);
           dst[((long long)q0 * g.n[1] + q1) * g.n[2] + q2] = from_f<T>(acc);
         }
       }
@@ -148,32 +155,32 @@ __global__ void __launch_bounds__(kThreads)
 // Synthesis: out = scale * sum_b adjoint_b(band b), band b read from
 // y[src.idx[b]] or from approx. The taps arrive reversed, so the adjoint is
 // the same forward correlation over a tile with the mirrored halo.
-template <typename T>
+template <typename T, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads)
     rec_level_kernel(const T* __restrict__ y, const T* __restrict__ approx,
-                     T* __restrict__ out, const __grid_constant__ Level g,
-                     const __grid_constant__ Sources src, float scale) {
-  extern __shared__ float smem[];
-  __shared__ float taps[3][2][kMaxTaps];
+                     T* __restrict__ out, const __grid_constant__ LevelT<C> g,
+                     const __grid_constant__ Sources src, C scale) {
+  C* smem = shared_words<C>();
+  __shared__ C taps[3][2][kMaxTaps];
   copy_taps(taps, g);
   int b[3];
   tile_origin(g, b);
   const int t0 = g.t[0], t1 = g.t[1], t2 = g.t[2];
   const int e0 = t0 + g.k[0] - 1, e1 = t1 + g.k[1] - 1, e2 = t2 + g.k[2] - 1;
-  float* s0 = smem;               // (e0, e1, e2) one band's tile
-  float* p1 = s0 + e0 * e1 * e2;  // (t0, e1, e2) sum over the axis-0 bit
-  float* p2 = p1 + t0 * e1 * e2;  // (t0, t1, e2) sum over the axis-1 bit
-  float* acc = p2 + t0 * t1 * e2; // (t0, t1, t2) the output tile
+  C* s0 = smem;               // (e0, e1, e2) one band's tile
+  C* p1 = s0 + e0 * e1 * e2;  // (t0, e1, e2) sum over the axis-0 bit
+  C* p2 = p1 + t0 * e1 * e2;  // (t0, t1, e2) sum over the axis-1 bit
+  C* acc = p2 + t0 * t1 * e2; // (t0, t1, t2) the output tile
   const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
   const int ns0 = g.k[0] > 1 ? 2 : 1;
   const int ns1 = g.k[1] > 1 ? 2 : 1;
   const int p1n = t0 * e1 * e2, p2n = t0 * t1 * e2, an = t0 * t1 * t2;
 
-  for (int i = threadIdx.x; i < an; i += blockDim.x) acc[i] = 0.f;
+  for (int i = threadIdx.x; i < an; i += blockDim.x) acc[i] = 0;
   for (int s2i = 0; s2i < 2; ++s2i) {
-    for (int i = threadIdx.x; i < p2n; i += blockDim.x) p2[i] = 0.f;
+    for (int i = threadIdx.x; i < p2n; i += blockDim.x) p2[i] = 0;
     for (int s1i = 0; s1i < ns1; ++s1i) {
-      for (int i = threadIdx.x; i < p1n; i += blockDim.x) p1[i] = 0.f;
+      for (int i = threadIdx.x; i < p1n; i += blockDim.x) p1[i] = 0;
       for (int s0i = 0; s0i < ns0; ++s0i) {
         const int band =
             (s0i << g.bit[0]) | (s1i << g.bit[1]) | (s2i << g.bit[2]);
@@ -203,44 +210,52 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-size_t smem_bytes(const Level& g, bool rec) {
+template <typename C>
+size_t smem_bytes(const LevelT<C>& g, bool rec) {
   const size_t e0 = g.t[0] + g.k[0] - 1, e1 = g.t[1] + g.k[1] - 1,
                e2 = g.t[2] + g.k[2] - 1;
   size_t w = e0 * e1 * e2 + g.t[0] * e1 * e2 + (size_t)g.t[0] * g.t[1] * e2;
   if (rec) w += (size_t)g.t[0] * g.t[1] * g.t[2];
-  return w * sizeof(float);
+  return w * sizeof(C);
 }
 
-template <typename T>
-int launch_dec(const void* x, void* big, void* approx_out, const Level& g,
-               long long band_off, float lam, cudaStream_t stream) {
+template <typename T, typename C = compute_t<T>>
+int launch_dec(const void* x, void* big, void* approx_out, const int* n,
+               const int* k, const int* t, const int* left, const int* bit,
+               const void* taps, long long band_off, double lam,
+               cudaStream_t stream) {
+  const LevelT<C> g = make_level<C>(n, k, t, left, bit, taps);
   const size_t smem = smem_bytes(g, false);
   cudaError_t e = cudaFuncSetAttribute(
       dec_level_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dec_level_kernel<T><<<num_tiles(g), kThreads, smem, stream>>>(
-      (const T*)x, (T*)big, (T*)approx_out, g, band_off, lam);
+      (const T*)x, (T*)big, (T*)approx_out, g, band_off, (C)lam);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_rec(const void* y, const void* approx, void* out, const Level& g,
-               const Sources& src, float scale, cudaStream_t stream) {
+template <typename T, typename C = compute_t<T>>
+int launch_rec(const void* y, const void* approx, void* out, const int* n,
+               const int* k, const int* t, const int* left, const int* bit,
+               const void* taps, const Sources& src, double scale,
+               cudaStream_t stream) {
+  const LevelT<C> g = make_level<C>(n, k, t, left, bit, taps);
   const size_t smem = smem_bytes(g, true);
   cudaError_t e = cudaFuncSetAttribute(
       rec_level_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   rec_level_kernel<T><<<num_tiles(g), kThreads, smem, stream>>>(
-      (const T*)y, (const T*)approx, (T*)out, g, src, scale);
+      (const T*)y, (const T*)approx, (T*)out, g, src, (C)scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// n, k, t, left, bit: 3 ints each (slot 0 slowest); taps: 3 * 2 * 76 floats.
+// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
+// 2 = float64. n, k, t, left, bit: 3 ints each (slot 0 slowest); taps:
+// 3 * 2 * 76 of the compute type (float for dtypes 0 and 1, double for 2).
 // The caller makes the arrays' device current. Returns the cudaError_t of
 // the launch (0 on success); the launch is asynchronous on `stream`.
 extern "C" int nddwt_max_taps() { return kMaxTaps; }
@@ -248,28 +263,38 @@ extern "C" int nddwt_max_taps() { return kMaxTaps; }
 extern "C" int nddwt_dec_level(const void* x, void* big, void* approx_out,
                                int dtype, const int* n, const int* k,
                                const int* t, const int* left, const int* bit,
-                               const float* taps, long long band_off,
-                               float lam, void* stream) {
-  const Level g = make_level(n, k, t, left, bit, taps);
+                               const void* taps, long long band_off,
+                               double lam, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_dec<float>(x, big, approx_out, g, band_off, lam, s);
+  if (dtype == 0)
+    return launch_dec<float>(x, big, approx_out, n, k, t, left, bit, taps,
+                             band_off, lam, s);
   if (dtype == 1)
-    return launch_dec<__nv_bfloat16>(x, big, approx_out, g, band_off, lam, s);
+    return launch_dec<__nv_bfloat16>(x, big, approx_out, n, k, t, left, bit,
+                                     taps, band_off, lam, s);
+  if (dtype == 2)
+    return launch_dec<double>(x, big, approx_out, n, k, t, left, bit, taps,
+                              band_off, lam, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int nddwt_rec_level(const void* y, const void* approx, void* out,
                                int dtype, const int* n, const int* k,
                                const int* t, const int* left, const int* bit,
-                               const float* taps, const long long* band_idx,
-                               float scale, void* stream) {
-  const Level g = make_level(n, k, t, left, bit, taps);
+                               const void* taps, const long long* band_idx,
+                               double scale, void* stream) {
   Sources src;
   for (int b = 0; b < 8; ++b) src.idx[b] = band_idx[b];
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_rec<float>(y, approx, out, g, src, scale, s);
+  if (dtype == 0)
+    return launch_rec<float>(y, approx, out, n, k, t, left, bit, taps, src,
+                             scale, s);
   if (dtype == 1)
-    return launch_rec<__nv_bfloat16>(y, approx, out, g, src, scale, s);
+    return launch_rec<__nv_bfloat16>(y, approx, out, n, k, t, left, bit, taps,
+                                     src, scale, s);
+  if (dtype == 2)
+    return launch_rec<double>(y, approx, out, n, k, t, left, bit, taps, src,
+                              scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

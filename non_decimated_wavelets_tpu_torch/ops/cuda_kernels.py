@@ -27,8 +27,20 @@ A 3D level whose filters are too long for the per-level kernels' tile
 kernels too, with one lane axis: ``dec_levels``/``rec_levels`` pick the
 route from the taps (``stage_route``).
 
+``csrc/nddwt_1d.cu`` holds the two kernels of a 1D level
+(``non_decimated_wavelets_tpu/ops/pallas_padded.py``):
+
+* ``nddwt_dec1_level`` for ``_dec1_level``, ``nddwt_rec1_level`` for
+  ``_rec1_level``.
+
 ``csrc/nddwt_elemwise.cu`` holds the solvers' elementwise kernels, bound in
 ``ops/elemwise.py``.
+
+Every kernel takes float32 and bfloat16 arrays, computing in float32, and
+float64 arrays, computing in float64 with float64 taps: the float64
+instantiations of ``nddwt_dec_level``/``nddwt_rec_level`` replace the TPU's
+float64-accurate levels (``pallas_df32._dec_level_df``/``_rec_level_df``).
+A launch's taps and its shared-memory words are in the compute type.
 
 Each wrapper launches its kernel for a CUDA tensor and raises if the
 launch fails; for a CPU tensor it runs the kernel's plain version
@@ -57,7 +69,7 @@ from .level4_ref import lane_adj_ref, lane_dec_ref, lead_adj_ref, lead_dec_ref
 from .level_ref import dec_level_ref, rec_level_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("nddwt_level", "nddwt_elemwise", "nddwt_4d")  # csrc/<name>.cu, one library each
+SOURCES = ("nddwt_level", "nddwt_elemwise", "nddwt_4d", "nddwt_1d")  # csrc/<name>.cu
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -71,7 +83,7 @@ _SMEM_BUDGET = 100 * 1024
 # tiles at (128, 128, 128, 32) db4 on an H100 (PERF.md).
 _STAGE_SMEM_BUDGET = {"lane": 32 * 1024, "lead": 64 * 1024}
 _THREADS = 256  # kThreads in the sources
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 launch_counts = {
     "nddwt_dec_level": 0,
@@ -82,6 +94,8 @@ launch_counts = {
     "nddwt_lead_dec": 0,
     "nddwt_lead_adj": 0,
     "nddwt_lane_adj": 0,
+    "nddwt_dec1_level": 0,
+    "nddwt_rec1_level": 0,
 }
 
 
@@ -160,14 +174,13 @@ def load() -> ctypes.CDLL:
     """The per-level kernel library with its signatures declared."""
     lib = library("nddwt_level")
     ip = ctypes.POINTER(ctypes.c_int)
-    fp = ctypes.POINTER(ctypes.c_float)
     vp = ctypes.c_void_p
-    geom = [ctypes.c_int, ip, ip, ip, ip, ip, fp]
+    geom = [ctypes.c_int, ip, ip, ip, ip, ip, vp]
     lib.nddwt_dec_level.argtypes = [vp, vp, vp] + geom + [
-        ctypes.c_longlong, ctypes.c_float, vp]
+        ctypes.c_longlong, ctypes.c_double, vp]
     lib.nddwt_dec_level.restype = ctypes.c_int
     lib.nddwt_rec_level.argtypes = [vp, vp, vp] + geom + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp]
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, vp]
     lib.nddwt_rec_level.restype = ctypes.c_int
     return _check_level_library(lib)
 
@@ -188,9 +201,8 @@ def load4() -> ctypes.CDLL:
     """The 4D stage kernel library with its signatures declared."""
     lib = library("nddwt_4d")
     ip = ctypes.POINTER(ctypes.c_int)
-    fp = ctypes.POINTER(ctypes.c_float)
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    geom = [i, ip, ip, ip, ip, fp]  # dtype, n, k, t, left, taps
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    geom = [i, ip, ip, ip, ip, vp]  # dtype, n, k, t, left, taps
     lib.nddwt_lane_dec.argtypes = [vp, vp] + geom + [vp]
     lib.nddwt_lead_dec.argtypes = [vp, vp, vp] + geom + [
         i, ctypes.c_longlong, f, vp]
@@ -202,10 +214,34 @@ def load4() -> ctypes.CDLL:
     return _check_level_library(lib)
 
 
-def _tiles(n, k, rec: bool):
+@functools.lru_cache(maxsize=None)
+def load1() -> ctypes.CDLL:
+    """The 1D level kernel library with its signatures declared."""
+    lib = library("nddwt_1d")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in ("nddwt_dec1_level", "nddwt_rec1_level"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, i, ll, i, i, vp, ctypes.c_double, vp]
+        fn.restype = ctypes.c_int
+    return _check_level_library(lib)
+
+
+def _compute_dtype(dtype: torch.dtype):
+    """The NumPy compute type of a storage dtype: float64 for float64,
+    float32 for float32 and bfloat16."""
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def _word(dtype: torch.dtype) -> int:
+    """Bytes of one shared-memory word of a launch on ``dtype`` arrays."""
+    return np.dtype(_compute_dtype(dtype)).itemsize
+
+
+def _tiles(n, k, rec: bool, word: int = 4):
     """Output tile per slot: (8, 8, 32) for 3D, (1, 32, 128) for 2D, capped
     by the extents and halved on the largest axis until the shared-memory
-    tile plan fits the budget; None if no tile fits."""
+    tile plan (``word`` bytes a word) fits the budget; None if no tile
+    fits."""
     base = (8, 8, 32) if k[0] > 1 else (1, 32, 128)
     t = [min(b, m) for b, m in zip(base, n)]
 
@@ -214,7 +250,7 @@ def _tiles(n, k, rec: bool):
         w = e[0] * e[1] * e[2] + t[0] * e[1] * e[2] + t[0] * t[1] * e[2]
         return w + (t[0] * t[1] * t[2] if rec else 0)
 
-    while 4 * words(t) > _SMEM_BUDGET:
+    while word * words(t) > _SMEM_BUDGET:
         a = max(range(3), key=lambda i: t[i])
         if t[a] == 1:
             return None
@@ -222,11 +258,12 @@ def _tiles(n, k, rec: bool):
     return t
 
 
-def _geometry(shape, taps, rec: bool):
-    """ctypes arguments describing one level: extents, tap counts, tile,
-    left halo and band bit per slot (a 2D array is (1, n0, n1)), and the
-    taps as float32 — reversed for the synthesis, whose adjoint reads the
-    mirrored halo (K//2 left instead of K//2 - 1)."""
+def _geometry(shape, taps, rec: bool, dtype=torch.float32):
+    """ctypes arguments describing one level on ``dtype`` arrays: extents,
+    tap counts, tile, left halo and band bit per slot (a 2D array is
+    (1, n0, n1)), and the taps in the compute type — reversed for the
+    synthesis, whose adjoint reads the mirrored halo (K//2 left instead of
+    K//2 - 1)."""
     pad = 3 - len(shape)
     n = [1] * pad + [int(s) for s in shape]
     k = [1] * pad + [int(np.shape(t)[1]) for t in taps]
@@ -234,7 +271,7 @@ def _geometry(shape, taps, rec: bool):
         raise NotImplementedError(f"filters longer than {_MAX_TAPS} taps")
     left = [0] * pad + [K // 2 if rec else K // 2 - 1 for K in k[pad:]]
     bit = [0] * pad + list(range(len(shape)))
-    tiles = _tiles(n, k, rec)
+    tiles = _tiles(n, k, rec, _word(dtype))
     if tiles is None:
         raise NotImplementedError(
             f"filters of lengths {k} are too long for the shared-memory tile "
@@ -242,18 +279,19 @@ def _geometry(shape, taps, rec: bool):
             "kernels: stage_route)"
         )
     return (_ints(n), _ints(k), _ints(tiles), _ints(left), _ints(bit),
-            _tap_array([None] * pad + list(taps), rec))
+            _tap_array([None] * pad + list(taps), rec, _compute_dtype(dtype)))
 
 
 def _ints(v):
     return (ctypes.c_int * 3)(*v)
 
 
-def _tap_array(slot_taps, rec: bool) -> np.ndarray:
-    """The (3, 2, kMaxTaps) float32 taps of a launch: one (2, K) array per
-    slot, reversed for a synthesis, whose adjoint reads the mirrored halo;
-    ``None`` marks a pass-through slot, one tap of 1.0."""
-    arr = np.zeros((3, 2, _MAX_TAPS), np.float32)
+def _tap_array(slot_taps, rec: bool, dtype=np.float32) -> np.ndarray:
+    """The (slots, 2, kMaxTaps) taps of a launch in the compute type
+    ``dtype``: one (2, K) array per slot, reversed for a synthesis, whose
+    adjoint reads the mirrored halo; ``None`` marks a pass-through slot,
+    one tap of 1.0."""
+    arr = np.zeros((len(slot_taps), 2, _MAX_TAPS), dtype)
     for a, t in enumerate(slot_taps):
         if t is None:
             arr[a, :, 0] = 1.0
@@ -264,15 +302,16 @@ def _tap_array(slot_taps, rec: bool) -> np.ndarray:
 
 
 def _taps_ptr(arr):
-    """A ``float *`` to the (3, 2, kMaxTaps) float32 tap array."""
-    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    """A ``float *`` or ``double *`` to a tap array of that type."""
+    ctype = ctypes.c_double if arr.dtype == np.float64 else ctypes.c_float
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
 
 
 def check_array(name, t, ref=None):
     if t.dtype not in DTYPE_CODE:
         raise NotImplementedError(
-            f"{name}: the CUDA kernels take float32 and bfloat16, got "
-            f"{t.dtype} (float64 kernels: ROADMAP.md queue 2 items 19-20)"
+            f"{name}: the CUDA kernels take float32, bfloat16 and float64, "
+            f"got {t.dtype}"
         )
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
@@ -299,7 +338,7 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False):
     if approx.ndim not in (2, 3) or len(taps) != approx.ndim:
         raise NotImplementedError(
             f"the per-level CUDA kernels take 2D and 3D arrays, got "
-            f"{approx.ndim}D (ROADMAP.md queue 2)"
+            f"{approx.ndim}D (1D: dec1_level; 4D: the stage kernels)"
         )
     check_array("approx", approx)
     check_array("big", big, approx)
@@ -310,7 +349,7 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False):
             f"bands of {tuple(approx.shape)} at offset {band_off}"
         )
     out = big[0] if final else torch.empty_like(approx)
-    n, k, t, left, bit, arr = _geometry(approx.shape, taps, rec=False)
+    n, k, t, left, bit, arr = _geometry(approx.shape, taps, False, approx.dtype)
     lib = load()
     with torch.cuda.device(approx.device):
         err = lib.nddwt_dec_level(
@@ -352,7 +391,7 @@ def rec_level(y, approx, band_src, taps, scale):
     if len(shape) not in (2, 3) or len(taps) != len(shape):
         raise NotImplementedError(
             f"the per-level CUDA kernels take 2D and 3D arrays, got "
-            f"{len(shape)}D (ROADMAP.md queue 2)"
+            f"{len(shape)}D (1D: rec1_level; 4D: the stage kernels)"
         )
     check_array("y", y)
     nb = 2 ** len(shape)
@@ -362,7 +401,7 @@ def rec_level(y, approx, band_src, taps, scale):
     else:
         approx = y
     out = torch.empty(shape, dtype=y.dtype, device=y.device)
-    n, k, t, left, bit, arr = _geometry(shape, taps, rec=True)
+    n, k, t, left, bit, arr = _geometry(shape, taps, True, y.dtype)
     lib = load()
     with torch.cuda.device(y.device):
         err = lib.nddwt_rec_level(
@@ -406,9 +445,10 @@ def _stage_words(t, k, halo, adj: bool) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _stage_tiles(n: tuple, k: tuple, lane: bool, adj: bool) -> tuple:
+def _stage_tiles(n: tuple, k: tuple, lane: bool, adj: bool, word: int = 4) -> tuple:
     """The stage's output tile: over power-of-two tiles (capped by the
-    extents) of at most 8192 outputs whose shared memory fits the budget,
+    extents) of at most 8192 outputs whose shared memory (``word`` bytes a
+    word) fits the budget,
     the fewest 32-byte sectors of window loaded per output (rows run along
     the last slot of extent > 1); at equal cost the smaller tile of at least
     one output per thread. (1, 1, 1) always fits up to kMaxTaps, so there is
@@ -419,7 +459,7 @@ def _stage_tiles(n: tuple, k: tuple, lane: bool, adj: bool) -> tuple:
     for t in itertools.product(*sizes):
         out = t[0] * t[1] * t[2]
         words = _stage_words(t, k, halo, adj)
-        if out > 8192 or 4 * words > _STAGE_SMEM_BUDGET["lane" if lane else "lead"]:
+        if out > 8192 or word * words > _STAGE_SMEM_BUDGET["lane" if lane else "lead"]:
             continue
         e = [t[a] + k[a] - 1 for a in range(3)]
         rows, run = (e[0], e[1]) if n[2] == 1 else (e[0] * e[1], e[2])
@@ -429,10 +469,11 @@ def _stage_tiles(n: tuple, k: tuple, lane: bool, adj: bool) -> tuple:
     return best[1]
 
 
-def _stage_geometry(shape, taps, lane: bool, adj: bool):
-    """ctypes arguments of one stage launch: view extents, taps, tile and
-    left halo per slot, and the taps (reversed for an adjoint, whose halo is
-    mirrored: K//2 left instead of K//2 - 1)."""
+def _stage_geometry(shape, taps, lane: bool, adj: bool, dtype=torch.float32):
+    """ctypes arguments of one stage launch on ``dtype`` arrays: view
+    extents, taps, tile and left halo per slot, and the taps in the compute
+    type (reversed for an adjoint, whose halo is mirrored: K//2 left instead
+    of K//2 - 1)."""
     n, slot_taps = _stage_slots(shape, taps, lane)
     k = [1 if t is None else int(np.shape(t)[1]) for t in slot_taps]
     if max(k) > _MAX_TAPS:
@@ -441,20 +482,22 @@ def _stage_geometry(shape, taps, lane: bool, adj: bool):
         raise ValueError(f"filters of lengths {k} are longer than the axes {n}")
     left = [0 if t is None else (K // 2 if adj else K // 2 - 1)
             for K, t in zip(k, slot_taps)]
-    t = _stage_tiles(tuple(n), tuple(k), lane, adj)
-    return _ints(n), _ints(k), _ints(t), _ints(left), _tap_array(slot_taps, adj)
+    t = _stage_tiles(tuple(n), tuple(k), lane, adj, _word(dtype))
+    return (_ints(n), _ints(k), _ints(t), _ints(left),
+            _tap_array(slot_taps, adj, _compute_dtype(dtype)))
 
 
-def stage_route(shape, taps) -> bool:
+def stage_route(shape, taps, dtype=torch.float32) -> bool:
     """Whether a level of this shape runs on the stage kernels: every 4D
     level, and a 3D level whose filters do not fit the per-level kernels'
-    tile (the synthesis's, the larger; both directions go together)."""
+    tile (the synthesis's, the larger; both directions go together) at the
+    word size of ``dtype``."""
     if len(shape) == 4:
         return True
     if len(shape) != 3:
         return False
     k = [int(np.shape(t)[1]) for t in taps]
-    return _tiles([int(m) for m in shape], k, rec=True) is None
+    return _tiles([int(m) for m in shape], k, True, _word(dtype)) is None
 
 
 def _check_stage_array(name, t, taps, lead: int = 0):
@@ -476,7 +519,7 @@ def lane_dec(x, taps):
     check_array("x", x)
     temp = torch.empty((2 ** (x.ndim - 2),) + tuple(x.shape), dtype=x.dtype,
                        device=x.device)
-    n, k, t, left, arr = _stage_geometry(x.shape, taps, lane=True, adj=False)
+    n, k, t, left, arr = _stage_geometry(x.shape, taps, True, False, x.dtype)
     lib = load4()
     with torch.cuda.device(x.device):
         err = lib.nddwt_lane_dec(
@@ -506,7 +549,7 @@ def lead_dec(temp, big, band_off, taps, lam=0.0, final=False):
     check_array("big", big, temp)
     out = big[0] if final else torch.empty(shape, dtype=temp.dtype,
                                            device=temp.device)
-    n, k, t, left, arr = _stage_geometry(shape, taps, lane=False, adj=False)
+    n, k, t, left, arr = _stage_geometry(shape, taps, False, False, temp.dtype)
     lib = load4()
     with torch.cuda.device(temp.device):
         err = lib.nddwt_lead_dec(
@@ -536,7 +579,7 @@ def lead_adj(y, approx, band_src, taps):
         approx = y
     nl = 2 ** (len(shape) - 2)
     partial = torch.empty((nl,) + shape, dtype=y.dtype, device=y.device)
-    n, k, t, left, arr = _stage_geometry(shape, taps, lane=False, adj=True)
+    n, k, t, left, arr = _stage_geometry(shape, taps, False, True, y.dtype)
     lib = load4()
     with torch.cuda.device(y.device):
         err = lib.nddwt_lead_adj(
@@ -562,7 +605,7 @@ def lane_adj(partial, taps, scale):
         return lane_adj_ref(partial, taps, scale)
     check_array("partial", partial)
     out = torch.empty(shape, dtype=partial.dtype, device=partial.device)
-    n, k, t, left, arr = _stage_geometry(shape, taps, lane=True, adj=True)
+    n, k, t, left, arr = _stage_geometry(shape, taps, True, True, partial.dtype)
     lib = load4()
     with torch.cuda.device(partial.device):
         err = lib.nddwt_lane_adj(
@@ -575,12 +618,89 @@ def lane_adj(partial, taps, scale):
     return out
 
 
+# ---------------------------------------------------------------------- 1D
+
+
+def _check_1d(name, t, taps, lead: int):
+    if t.ndim != 1 + lead or len(taps) != 1:
+        raise NotImplementedError(
+            f"the 1D level kernels take 1D arrays with one filter, got {name} "
+            f"of shape {tuple(t.shape)} with {len(taps)} filters"
+        )
+
+
+def _geometry1(taps, rec: bool, dtype):
+    """The tap count and the (1, 2, kMaxTaps) taps of a 1D launch on
+    ``dtype`` arrays (reversed for a synthesis)."""
+    K = int(np.shape(taps[0])[1])
+    if K > _MAX_TAPS:
+        raise NotImplementedError(f"filters longer than {_MAX_TAPS} taps")
+    return K, _tap_array(taps, rec, _compute_dtype(dtype))
+
+
+def dec1_level(approx, big, band_off, taps, lam=0.0, final=False):
+    """One 1D analysis level (contract of ``level_ref.dec_level_ref``):
+    the detail into ``big[band_off]``, shrunk by ``lam``; the approximation
+    into ``big[0]`` when ``final``, else returned."""
+    _check_1d("approx", approx, taps, 0)
+    if not approx.is_cuda:
+        return dec_level_ref(approx, big, band_off, taps, lam, final)
+    check_array("approx", approx)
+    check_array("big", big, approx)
+    n = approx.shape[0]
+    if tuple(big.shape[1:]) != (n,) or not 1 <= band_off < big.shape[0]:
+        raise ValueError(
+            f"band array {tuple(big.shape)} cannot take the detail band of "
+            f"{(n,)} at offset {band_off}"
+        )
+    out = big[0] if final else torch.empty_like(approx)
+    K, arr = _geometry1(taps, False, approx.dtype)
+    lib = load1()
+    with torch.cuda.device(approx.device):
+        err = lib.nddwt_dec1_level(
+            approx.data_ptr(), big[band_off].data_ptr(), out.data_ptr(),
+            DTYPE_CODE[approx.dtype], n, K, K // 2 - 1, _taps_ptr(arr),
+            float(lam), torch.cuda.current_stream().cuda_stream,
+        )
+    raise_on(lib, err, "nddwt_dec1_level")
+    launch_counts["nddwt_dec1_level"] += 1
+    return None if final else out
+
+
+def rec1_level(y, approx, band_src, taps, scale):
+    """One 1D synthesis level (contract of ``level_ref.rec_level_ref``):
+    the two bands named by ``band_src`` (``("y", i)`` is ``y[i]``,
+    ``("a", 0)`` is ``approx``); returns ``scale *`` the adjoint, ``(N,)``."""
+    _check_1d("y", y, taps, 1)
+    shape = tuple(y.shape[1:])
+    idx = _band_indices(band_src, 2, y, approx, shape)
+    if not y.is_cuda:
+        return rec_level_ref(y, approx, band_src, taps, scale)
+    check_array("y", y)
+    if -1 in idx:
+        check_array("approx", approx, y)
+    a, d = (approx if i < 0 else y[i] for i in idx)
+    out = torch.empty(shape, dtype=y.dtype, device=y.device)
+    K, arr = _geometry1(taps, True, y.dtype)
+    lib = load1()
+    with torch.cuda.device(y.device):
+        err = lib.nddwt_rec1_level(
+            a.data_ptr(), d.data_ptr(), out.data_ptr(), DTYPE_CODE[y.dtype],
+            shape[0], K, K // 2, _taps_ptr(arr), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    raise_on(lib, err, "nddwt_rec1_level")
+    launch_counts["nddwt_rec1_level"] += 1
+    return out
+
+
 # ------------------------------------------------------------------ levels
 
 
 def dec_levels(x, taps, level: int, lam: float = 0.0, out=None):
     """Multilevel analysis, ``(B, *s)``, written into ``out`` when given:
-    per level one ``dec_level`` launch, or a lane and a lead stage launch
+    per level one ``dec1_level`` launch in 1D (``pallas_padded.dec_padded1``),
+    one ``dec_level`` launch in 2D and 3D, or a lane and a lead stage launch
     where ``stage_route`` says so (``pallas_4d.dec4``). Level ``l`` writes
     its details at ``B - (2^d - 1)(l + 1)`` (the tail of
     ``pallas_kernels._dec_dispatch``), the last one its approximation into
@@ -589,30 +709,33 @@ def dec_levels(x, taps, level: int, lam: float = 0.0, out=None):
     B = num_bands(x.ndim, level)
     big = out if out is not None else torch.empty(
         (B,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-    stages = stage_route(x.shape, taps)
+    one_level = dec1_level if x.ndim == 1 else dec_level
+    stages = stage_route(x.shape, taps, x.dtype)
     approx = x
     for lvl in range(level):
         off, final = B - (nb - 1) * (lvl + 1), lvl == level - 1
         if stages:
             approx = lead_dec(lane_dec(approx, taps), big, off, taps, lam, final)
         else:
-            approx = dec_level(approx, big, off, taps, lam, final)
+            approx = one_level(approx, big, off, taps, lam, final)
     return big
 
 
 def rec_levels(y, taps, level: int, preserve_l2: bool):
-    """Multilevel synthesis, per level one ``rec_level`` launch or a lead
-    and a lane stage adjoint (``pallas_4d.rec4``): band 0 comes from the
-    previous level's output, the details from ``y[pos + b - 1]`` (the tail
-    of ``pallas_kernels._rec_dispatch``)."""
+    """Multilevel synthesis, per level one ``rec1_level`` launch in 1D
+    (``pallas_padded.rec_padded1``), one ``rec_level`` launch in 2D and 3D,
+    or a lead and a lane stage adjoint (``pallas_4d.rec4``): band 0 comes
+    from the previous level's output, the details from ``y[pos + b - 1]``
+    (the tail of ``pallas_kernels._rec_dispatch``)."""
     nb = 2 ** (y.ndim - 1)
     scale = 1.0 if preserve_l2 else 1.0 / nb
-    stages = stage_route(y.shape[1:], taps)
+    stages = stage_route(y.shape[1:], taps, y.dtype)
+    level_kernel = rec1_level if y.ndim == 2 else rec_level
 
     def one_level(acc, src):
         if stages:
             return lane_adj(lead_adj(y, acc, src, taps), taps, scale)
-        return rec_level(y, acc, src, taps, scale)
+        return level_kernel(y, acc, src, taps, scale)
 
     acc = one_level(None, [("y", b) for b in range(nb)])
     pos = nb

@@ -9,7 +9,8 @@ module's names:
 * ``fista_step`` (``nddwt_fista_step``): the momentum and data-term glue of
   a FISTA iterate, one pass.
 
-They take any element count (the TPU versions only multiples of 1024).
+They take any element count (the TPU versions only multiples of 1024), and
+float32, bfloat16 and float64 arrays (float64 computes in float64).
 Each wrapper launches its kernel for a CUDA tensor and raises if the launch
 fails; for a CPU tensor it runs the plain version (``ops/elemwise_ref.py``).
 Launches are counted in ``cuda_kernels.launch_counts``.
@@ -30,7 +31,7 @@ from .elemwise_ref import fista_step_ref, mag_shrink_pair_ref
 def load() -> ctypes.CDLL:
     """The elementwise kernel library with its signatures declared."""
     lib = cuda_kernels.library("nddwt_elemwise")
-    vp, ll, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+    vp, ll, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double
     lib.nddwt_mag_shrink_pair.argtypes = [vp, vp, ctypes.c_int, ll, ll, f, vp]
     lib.nddwt_mag_shrink_pair.restype = ctypes.c_int
     lib.nddwt_fista_step.argtypes = [vp] * 5 + [

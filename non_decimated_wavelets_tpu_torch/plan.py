@@ -10,24 +10,27 @@ for ``device="cpu"``.
 
 Dispatch:
 
-* a CUDA tensor, 2D to 4D, float32 or bfloat16: the hand-written level
-  kernels (``ops/cuda_kernels.py``): per level and direction one launch in
-  2D and 3D, two (a lane and a lead stage) in 4D and for 3D filters too
-  long for the one-launch tile; the shrink of ``dec_rec`` fused into the
-  analysis. Complex
-  data (complex64) and split re/im pairs run each component through its
-  own level chain (the filters are real); their shrink is the joint-
-  magnitude ``mag_shrink_pair`` kernel (``ops/elemwise.py``);
+* a CUDA tensor, 1D to 4D, float32, bfloat16 or float64: the hand-written
+  level kernels (``ops/cuda_kernels.py``): per level and direction one
+  launch in 1D, 2D and 3D, two (a lane and a lead stage) in 4D and for 3D
+  filters too long for the one-launch tile; the shrink of ``dec_rec`` fused
+  into the analysis. float64 computes in float64 (the TPU package's
+  double-f32 kernels, ``pallas_df32``, exist only because the TPU has no
+  float64 units). Complex data (complex64, complex128) and split re/im
+  pairs run each component through its own level chain (the filters are
+  real); their shrink is the joint-magnitude ``mag_shrink_pair`` kernel
+  (``ops/elemwise.py``);
 * a CPU tensor: the torch direct path (``ops/direct_path.py``), complex
   data included;
-* anything else on CUDA raises ``NotImplementedError`` naming the
-  ``ROADMAP.md`` item that will bring it; nothing runs silently on torch ops.
+* 5D and up on CUDA raises ``NotImplementedError``; nothing runs silently
+  on torch ops.
 
 ``path`` picks the route as in the JAX plan: ``'auto'`` as above;
 ``'direct'`` the torch direct path on any device; ``'pallas'`` the kernels
-only (a tensor they cannot take raises); ``'fft'`` is not ported and
-raises. A tensor must already lie on the plan's ``device``: the plan never
-copies one between devices, so work on the card cannot end up on the host.
+only (a tensor they cannot take raises); ``'fft'`` the FFT path
+(``ops/fft_path.py``, cuFFT on the card) on any device. A tensor must
+already lie on the plan's ``device``: the plan never copies one between
+devices, so work on the card cannot end up on the host.
 
 Autograd: ``dec`` and ``rec`` are ``torch.autograd.Function`` s whose
 backward is the exact adjoint, as the JAX package's ``linear_call`` rules
@@ -36,7 +39,9 @@ synthesis with ``preserve_l2=True`` on the same taps, and the adjoint of
 ``rec`` is ``dec`` with the per-level ``1/2^d`` redistributed onto the band
 groups when not ``preserve_l2``. ``dec_rec`` with a threshold on CUDA is
 non-linear and has no adjoint, as in JAX; nor do the split transforms on
-CUDA.
+CUDA. The same rules serve 1D, float64 and the FFT path (the JAX package's
+``dec64``/``rec64`` carry the same ``linear_call`` rules,
+``ops/pallas_df32.py:548-610``).
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ import torch
 from . import filters as _filters
 from . import oracle as _oracle
 from .models.denoise import soft_threshold, soft_threshold_mag_pair
-from .ops import cuda_kernels, direct_path, elemwise
+from .ops import cuda_kernels, direct_path, elemwise, fft_path
 
 _VALID_PATHS = ("auto", "fft", "direct", "pallas")
 _REAL_DTYPES = {
@@ -162,6 +167,7 @@ class NDDWT:
     ndim: int = dataclasses.field(init=False)
     real_dtype: torch.dtype = dataclasses.field(init=False)
     complex_dtype: torch.dtype = dataclasses.field(init=False)
+    resp: tuple = dataclasses.field(init=False, repr=False)
     taps: tuple = dataclasses.field(init=False, repr=False)
     taps_hp: tuple = dataclasses.field(init=False, repr=False)
     filter_lengths: tuple = dataclasses.field(init=False)
@@ -186,9 +192,12 @@ class NDDWT:
         object.__setattr__(self, "device", torch.device(self.device))
 
         scale = 1.0 / np.sqrt(2.0) if self.preserve_l2 else 1.0
-        taps, taps_hp, flens = [], [], []
+        resp, taps, taps_hp, flens = [], [], [], []
+        np_cdt = np.complex128 if rdt == torch.float64 else np.complex64
         for w, n in zip(wavelets, shape):
-            _filters.frequency_response(w, n)  # validates K <= n
+            F = _filters.frequency_response(w, n)  # validates K <= n
+            # The FFT path's (2, N) response per axis, scale folded in.
+            resp.append(np.asarray(scale * F, dtype=np_cdt))
             lo, hi = _filters.correlation_taps(w)
             flens.append(len(lo))
             hp = np.asarray(scale * np.stack([lo, hi]), dtype=np.float64)
@@ -198,38 +207,42 @@ class NDDWT:
             # 3-digit taps (plan.py:132-140 of the JAX package).
             taps.append(torch.from_numpy(hp).to(rdt))
             taps_hp.append(hp)
+        object.__setattr__(self, "resp", tuple(resp))
         object.__setattr__(self, "taps", tuple(taps))
         object.__setattr__(self, "taps_hp", tuple(taps_hp))
         object.__setattr__(self, "filter_lengths", tuple(flens))
 
     # ------------------------------------------------------------ dispatch
-    def _uses_kernels(self, x: torch.Tensor) -> bool:
-        """True when ``x`` goes to the CUDA kernels, False for the CPU
-        direct path; raises for what the port does not serve yet."""
-        if self.path == "fft":
-            raise NotImplementedError(
-                "path='fft' is not ported yet (ROADMAP.md queue 1 item 8)"
-            )
-        if self.path == "direct":
-            return False
+    def _route(self, x: torch.Tensor) -> str:
+        """``'kernels'`` when ``x`` goes to the CUDA kernels, ``'direct'``
+        for the torch direct path, ``'fft'`` for the FFT path; raises for
+        what the port does not serve yet."""
+        if self.path in ("fft", "direct"):
+            return self.path
         if not _is_cuda(x):
             if self.path == "pallas":
                 raise ValueError(
                     "path='pallas' runs the CUDA kernels only, and this "
                     f"tensor lies on {x.device}; use path='auto' or 'direct'"
                 )
-            return False
-        if self.ndim not in (2, 3, 4):
+            return "direct"
+        if self.ndim > 4:
             raise NotImplementedError(
-                f"{self.ndim}D transforms on CUDA are not ported yet "
-                "(ROADMAP.md queue 1 items 10 and 12)"
+                f"{self.ndim}D transforms on CUDA are not ported yet: no kernel "
+                "takes them (the TPU's flat kernels, ROADMAP.md queue 2 item "
+                "12, serve any ndim at small sizes)"
             )
-        if self.real_dtype == torch.float64:
-            raise NotImplementedError(
-                "float64 on CUDA is not ported yet (ROADMAP.md queue 1 "
-                "item 13)"
-            )
-        return True
+        return "kernels"
+
+    def _uses_kernels(self, x: torch.Tensor) -> bool:
+        return self._route(x) == "kernels"
+
+    def _resp(self, device) -> tuple:
+        """The FFT path's per-axis responses on ``device``."""
+        return tuple(torch.from_numpy(F).to(device) for F in self.resp)
+
+    def _dtype_of(self, x: torch.Tensor) -> torch.dtype:
+        return self.complex_dtype if x.is_complex() else self.real_dtype
 
     def _as_input(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -243,7 +256,7 @@ class NDDWT:
                 )
         else:
             x = torch.as_tensor(x, device=self.device)
-        return x.to(dtype=self.complex_dtype if x.is_complex() else self.real_dtype)
+        return x.to(dtype=self._dtype_of(x))
 
     def _as_pair(self, x_pair) -> torch.Tensor:
         """A split re/im pair ``(2, *shape)``, real, on the plan's device."""
@@ -262,7 +275,12 @@ class NDDWT:
 
     def _dec_bands(self, x, level):
         """Band-first analysis, no autograd."""
-        if not self._uses_kernels(x):
+        route = self._route(x)
+        if route == "fft":
+            y = fft_path.dec_fft(x, self._resp(x.device), level,
+                                 real_out=not x.is_complex())
+            return y.to(self._dtype_of(x))
+        if route == "direct":
             return direct_path.dec_direct(x, self.taps, level)
         if x.is_complex():
             return _join(self._dec_pair(_parts(x), level))
@@ -270,7 +288,12 @@ class NDDWT:
 
     def _rec_bands(self, y, level, preserve_l2):
         """Band-first synthesis, no autograd."""
-        if not self._uses_kernels(y):
+        route = self._route(y)
+        if route == "fft":
+            x = fft_path.rec_fft(y, self._resp(y.device), level, preserve_l2,
+                                 real_out=not y.is_complex())
+            return x.to(self._dtype_of(y))
+        if route == "direct":
             return direct_path.rec_direct(y, self.taps, level, preserve_l2)
         if y.is_complex():
             return _join(self._rec_pair(_parts(y), level, preserve_l2))
@@ -281,7 +304,10 @@ class NDDWT:
     def _dec_pair(self, xp, level):
         """``(2, *s)`` real components -> ``(2, B, *s)``: the filters are
         real, so each component runs its own analysis chain."""
-        if not self._uses_kernels(xp):
+        route = self._route(xp)
+        if route == "fft":
+            return torch.stack([self._dec_bands(xp[c], level) for c in range(2)])
+        if route == "direct":
             return direct_path.dec_direct(xp, self.taps, level).transpose(0, 1)
         _no_adjoint_on_kernels(xp, "the split analysis")
         out = torch.empty((2, self.num_bands(level)) + self.shape,
@@ -293,7 +319,11 @@ class NDDWT:
 
     def _rec_pair(self, yp, level, preserve_l2):
         """``(2, B, *s)`` -> ``(2, *s)``, one synthesis chain per component."""
-        if not self._uses_kernels(yp):
+        route = self._route(yp)
+        if route == "fft":
+            return torch.stack([self._rec_bands(yp[c], level, preserve_l2)
+                                for c in range(2)])
+        if route == "direct":
             return direct_path.rec_direct(yp.transpose(0, 1), self.taps, level,
                                           preserve_l2)
         _no_adjoint_on_kernels(yp, "the split synthesis")

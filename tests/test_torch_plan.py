@@ -180,14 +180,33 @@ def test_config_round_trip_and_plan_from_jax():
         ((8, 8, 8), "float32", "fft", "fft"),
     ],
 )
-def test_unported_cuda_cases_raise(as_cuda, shape, dtype, path, match, rng):
+def test_unported_cuda_cases_raise(as_cuda, monkeypatch, shape, dtype, path, match, rng):
+    """5D on CUDA still raises. 1D, float64 and ``path='fft'``, which raised
+    before they were ported, now take the 1D kernels, the float64 level
+    kernels and the FFT path, and give the CPU direct path's numbers."""
     plan = tw.NDDWT("db2", shape, dtype=dtype, path=path, device="cpu")
+    ref = tw.NDDWT("db2", shape, dtype=dtype, path="direct", device="cpu")
     x = rng.standard_normal(shape)
-    for call in (lambda: plan.dec(x, 1), lambda: plan.dec_rec(x, 1, 0.1),
-                 lambda: plan.dec(x + 1j * x, 1),
-                 lambda: plan.dec_split(np.stack([x, x]), 1)):
-        with pytest.raises(NotImplementedError, match=match):
-            call()
+    calls = [lambda p: p.dec(x, 1), lambda p: p.dec_rec(x, 1, 0.1)[1],
+             lambda p: p.dec(x + 1j * x, 1), lambda p: p.dec_split(np.stack([x, x]), 1)]
+    if match == "5D":
+        for call in calls:
+            with pytest.raises(NotImplementedError, match=match):
+                call(plan)
+        return
+    routes = []
+    for module, name in ((tplan.cuda_kernels, "dec1_level"), (tplan.cuda_kernels, "dec_level"),
+                         (tplan.fft_path, "dec_fft")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name,
+                            lambda *a, _f=real, _n=name, **k: routes.append(_n) or _f(*a, **k))
+    want = {"1D": "dec1_level", "float64": "dec_level", "fft": "dec_fft"}[match]
+    for call in calls:
+        routes.clear()
+        got = call(plan)
+        assert routes and set(routes) == {want}
+        tol = 1e-12 if dtype == "float64" else 1e-5
+        np.testing.assert_allclose(got.numpy(), call(ref).numpy(), atol=tol)
 
 
 def test_plans_default_to_the_card():
