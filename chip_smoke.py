@@ -14,8 +14,15 @@ through the lane and lead stage kernels. The class paths run the six
 reference-style classes (``api.py``) at their default double precision on
 complex data at the reference's own test configurations, through the 1D
 kernels and the float64 level and stage kernels; then the 256^3 db4 L3
-float64 transform and step, and 1D float32 signals of 1M and 2^23
-samples. Phases:
+float64 transform and step, and 1D signals of 1M and 2^23 samples. The
+one-launch paths run a whole solve or chain in one launch of
+``nddwt_flat_iter`` (``fista_inpaint`` and ``fista_inpaint_split`` at
+256^2, 100 iterations; ``dec_rec_n`` at 264^2, 20 sweeps) and a whole
+transform in one ``nddwt_flat_pair`` (``dec_rec`` at 256^2, its main
+path; ``dec_rec_split`` at 128^2; 5D plans). The older paths' launch checks run with the flat kernel switched
+off, held to their per-level counts, and again on the plan's own route,
+held to the flat counts, where their shapes fall within the flat kernel's
+size (``ops/flat.py``). Phases:
 
 1. the card's name and power limit; build every CUDA kernel from this
    checkout's sources (one ``nvcc`` per source, all at once);
@@ -24,6 +31,9 @@ samples. Phases:
    stage kernels also at odd Z/T, T > 128 and on a 3D db20 plan (the
    long-filter route); every kernel in float64 too, and the 1D kernels at
    1M, 54321, 8 (N = K) and 2^23 samples in float32, bfloat16 and float64;
+   the two flat kernels in every mode, with and without the split pair,
+   at the JAX flat tests' shapes, two 5D shapes, N = K and the one-launch
+   paths' shapes, in float32, bfloat16 and float64;
 3. the main path at 256^3 (both normalizations) against the plain path on
    the card, the threshold-0 round trip, and the 64^3 flagship step of
    ``__graft_entry__.entry`` against the float64 NumPy oracle; the kernels'
@@ -39,7 +49,14 @@ samples. Phases:
    the float64 oracle (bands within 1e-12 max, round trip 1e-11, energy
    1e-12 with ``pres_l2_norm``) with exact launch counts; the 256^3 float64
    pair and step against the plain path on the card and a 64^3 float64
-   step against the oracle; 1D float32 at 1M and 2^23 samples;
+   step against the oracle; 1D float32 at 1M and 2^23 samples and float64
+   at 2^23; then the one-launch paths, each against the same call on a
+   ``path='direct'`` plan on the card, each whole solve, chain or transform
+   exactly one launch. 100 float32 FISTA iterations are held to the
+   solver gate, 1e-4 max; if they drift past it (rounding compounds over
+   the iterations, and the two routes sum in other orders), the drift is
+   printed and the float64 solve is held to float64 direct within 1e-10
+   instead: the algorithm, not float32 rounding, is what the gate tests;
 4. timings with CUDA events: each kernel per call, the dec+rec pair, the
    fused dec_rec step and one iteration of each solver, each beside its
    plain version, in 3D and 4D; for the level kernels also one cuDNN
@@ -47,16 +64,22 @@ samples. Phases:
    PyTorch has no 4D convolution, so the stage kernels have none); the 1D
    kernels at 2^23 db6 and the float64 level kernels at 256^3 db4 the same
    way (``F.conv1d``, ``F.conv3d`` in float64), and the float64 and 1D
-   pairs and steps.
+   pairs and steps; the flat kernels beside the per-level route (no
+   PyTorch call computes a multilevel transform), the whole solve per
+   iteration beside one stepped iteration, ``dec_rec_n`` per sweep beside
+   one per-level ``dec_rec``, the 128^3 db20 step on the stage and the
+   flat kernels, and the crossover tables of ``chip_flat_crossover.py``.
 
 It exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
 before it a JSON list of the kernels with their launches, errors, times and
-bounds (the float64 instantiations of the per-level and 1D kernels, which
-the class paths run, in a ``float64`` entry each); the line before that
-the card's name and power limit.
+bounds (the float64 instantiations of the per-level and 1D kernels in a
+``float64`` entry each, the flat kernels' per-level route time in
+``per_level_route_ms``); the line before that the card's name and power
+limit.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -80,6 +103,12 @@ SHAPE4 = (128, 128, 128, 32)  # a dynamic volume: 128^3 frames, 32 time points
 CS_SHAPE4 = (128, 128, 64, 32)  # 4D CS-MRI k-t data
 STAGE_KERNELS = ("nddwt_lane_dec", "nddwt_lead_dec", "nddwt_lead_adj",
                  "nddwt_lane_adj")
+FLAT_KERNELS = ("nddwt_flat_pair", "nddwt_flat_iter")
+FLAT_SOURCE = "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_flat.cu"
+SOLVE_SHAPE, SOLVE_ITERS = (256, 256), 100  # the one-launch FISTA solves
+CHAIN_SHAPE, CHAIN_WV, CHAIN_SWEEPS = (264, 264), ("db1", "db3"), 20  # nd_dwt_2D's
+SPLIT_SHAPE = (128, 128)  # the one-launch dec_rec_split
+FIVE_D = (((12, 10, 8, 6, 5), "db1", 2), ((8, 8, 8, 8, 8), "db2", 1))
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nddwt_dec_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_level.cu",
                         "non_decimated_wavelets_tpu/ops/pallas_kernels.py:519"),
@@ -98,6 +127,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                          "non_decimated_wavelets_tpu/ops/pallas_padded.py:501"),
     "nddwt_rec1_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_1d.cu",
                          "non_decimated_wavelets_tpu/ops/pallas_padded.py:572"),
+    "nddwt_flat_pair": (FLAT_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_flat.py:269; "
+                        "non_decimated_wavelets_tpu/ops/pallas_resident.py:84,269,350"),
+    "nddwt_flat_iter": (FLAT_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_flat.py:495"),
 }
 # The float64 instantiations of the per-level kernels replace the TPU's
 # float64-accurate (double-f32) levels.
@@ -118,9 +150,11 @@ CLASS_CONFIGS = [
 failures = []
 
 
-def check(what, err, tol):
+def check(what, err, tol, show=True):
+    """Hold ``err`` to ``tol``; print the check (a failure always)."""
     ok = err <= tol
-    print(f"  {what}: max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+    if show or not ok:
+        print(f"  {what}: max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(what)
     return err
@@ -234,9 +268,12 @@ def main() -> int:
     from non_decimated_wavelets_tpu_torch import oracle
     from non_decimated_wavelets_tpu_torch.models import (
         fista_cs_mri, fista_inpaint, fista_inpaint_split, soft_threshold)
+    from non_decimated_wavelets_tpu_torch.models.cs_recon import _fista_schedule
     from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
     from non_decimated_wavelets_tpu_torch.ops import (
-        direct_path, elemwise, elemwise_ref, level4_ref, level_ref)
+        direct_path, elemwise, elemwise_ref, flat, flat_ref, level4_ref, level_ref)
+
+    import chip_flat_crossover as xover
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -255,6 +292,7 @@ def main() -> int:
     ck.load4()
     ck.load1()
     elemwise.load()
+    flat.load()
     print(f"  built and loaded {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -466,8 +504,87 @@ def main() -> int:
             del x, y, bk, br, ak, ar, k, r
     torch.cuda.empty_cache()
 
+    # The one-launch kernels: every mode, with and without the split pair,
+    # at the JAX flat tests' shapes (tests/test_pallas.py:284-291), two 5D
+    # shapes, N = K and the one-launch paths' shapes; one line per case.
+    flat_cases = [
+        ((64, 64), "db2", 2), ((54,), "db4", 3), ((26, 26), ("db1", "db3"), 2),
+        ((24, 18, 10), ("db2", "db3", "db2"), 2), ((264, 264), "db4", 1),
+        ((14, 10, 6, 6), "db1", 2), *FIVE_D, ((8,), "db4", 3), ((8, 8), "db4", 2),
+        (SOLVE_SHAPE, "db4", LEVEL), (CHAIN_SHAPE, CHAIN_WV, LEVEL),
+        (SPLIT_SHAPE, "db4", LEVEL),
+    ]
+    lams3, moms3 = [0.3, 0.12, 0.05], [0.0, 0.28, 0.43]
+    for seed, (shape, wv, lvl) in enumerate(flat_cases):
+        # The tight frame's taps: the iterates (preserve_l2) keep their scale.
+        taps = tw.NDDWT(wv, shape, preserve_l2=True, device=dev).taps_hp
+        for dt in (torch.float32, torch.bfloat16, torch.float64):
+            for batch in (0, 2):
+                gen.manual_seed(50 + seed)
+                lead = (2,) if batch else ()
+                tag = f"{lead + shape} {wv} L{lvl} {str(dt).removeprefix('torch.')}"
+                errs = dict.fromkeys(FLAT_KERNELS, 0.0)
+                x = randn(lead + shape, dt)
+                runs = []  # (kernel, what, kernel's result, plain result)
+                for lam in (0.0, THRESHOLD):
+                    k = flat._call("pair", x, taps, lvl, lam > 0, lam, shape, batch)
+                    r = flat_ref.flat_pair_ref("pair", x, taps, lvl, lam > 0, lam, batch)
+                    runs += [("nddwt_flat_pair", f"pair lam={lam} bands", k[0], r[0]),
+                             ("nddwt_flat_pair", f"pair lam={lam} reconstruction",
+                              k[1], r[1])]
+                runs.append(("nddwt_flat_pair", "dec",
+                             flat._call("dec", x, taps, lvl, False, 0.0, shape, batch),
+                             flat_ref.flat_pair_ref("dec", x, taps, lvl, batch=batch)))
+                runs.append(("nddwt_flat_pair", "rec",
+                             flat._call("rec", r[0], taps, lvl, False, 0.0, shape, batch),
+                             flat_ref.flat_pair_ref("rec", r[0], taps, lvl, batch=batch)))
+                mask = (torch.rand(shape, generator=gen, device=dev) < SAMPLING).to(dt)
+                b = (mask * x).to(dt)
+                runs.append(("nddwt_flat_iter", "chain",
+                             flat._call_iter("chain", x, None, taps, lvl, True, lams3,
+                                             None, 0.0, shape, batch),
+                             flat_ref.flat_iter_ref("chain", x, None, taps, lvl, True,
+                                                    lams3, None, 0.0, batch)))
+                runs.append(("nddwt_flat_iter", "fista",
+                             flat._call_iter("fista", b, mask, taps, lvl, True, lams3,
+                                             moms3, 1.0, shape, batch),
+                             flat_ref.flat_iter_ref("fista", b, mask, taps, lvl, True,
+                                                    lams3, moms3, 1.0, batch)))
+                torch.cuda.synchronize()
+                for name, what, k, r in runs:
+                    errs[name] = max(errs[name], check(f"{name} {what} {tag}", max_err(k, r),
+                                                       rel_tol(r, dt), show=False))
+                print(f"  flat kernels {tag}: {len(runs)} checks, max_abs_err "
+                      + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+                if (shape, dt, batch) == (SOLVE_SHAPE, torch.float32, 0):  # the main path's
+                    main_err.update(errs)
+                del x, mask, b, runs, k, r
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- phase 3
     print(f"phase 3: the main path, NDDWT.dec_rec at {SHAPE} db4 L{LEVEL} f32")
+    to_flat = []  # older launch checks whose shapes also take the flat kernel
+
+    def routes(what, plan, dtype, batch, per_level, on_flat, run):
+        """``run()`` on the per-level route (the flat kernel switched off),
+        held to the launches ``per_level``; and, where ``plan``'s shape
+        (with a pair when ``batch`` is 2) is within the flat kernel's size,
+        again on the plan's own route, held to ``on_flat``. Returns (route,
+        result) for each run; the counts are set to 0 just before each."""
+        ways = [("per-level route", lambda: xover.limits(0, 0), per_level)]
+        if flat.flat_supported(plan.shape, dtype, batch, taps=plan.taps_hp):
+            to_flat.append(what)
+            ways.append(("flat route", contextlib.nullcontext, on_flat))
+        out = []
+        for route, switch, want in ways:
+            with switch():
+                ck.reset_launch_counts()
+                result = run()
+                torch.cuda.synchronize()
+                check_launches(f"{what}, {route}", dict(ck.launch_counts), want)
+            out.append((route, result))
+        return out
+
     gen.manual_seed(100)
     x = torch.randn(SHAPE, generator=gen, device=dev)
     per_level = dict.fromkeys(("nddwt_dec_level", "nddwt_rec_level"), LEVEL)
@@ -495,19 +612,28 @@ def main() -> int:
               F32_TOL * xp.abs().max().item())
         check(f"threshold-0 round trip, preserve_l2={pl2}", max_err(xr0, x), 1e-4)
         del y, xr, xr0, yp, xp
-    # __graft_entry__.entry's step: 64^3 db4 L3, details soft-thresholded at 0.1.
+    def step_of(plan, x):
+        """__graft_entry__.entry's step: dec, soft-threshold the details at
+        0.1, rec; on the host."""
+        y = plan.dec(x, LEVEL, band_axis=0)
+        y = torch.cat([y[:1], soft_threshold(y[1:], THRESHOLD)])
+        return plan.rec(y, band_axis=0).cpu().numpy()
+
+    def oracle_step(x):
+        yo = oracle.dec(x.astype(np.float64), "db4", LEVEL)
+        d = yo[..., 1:]
+        yo[..., 1:] = d * np.maximum(np.abs(d) - THRESHOLD, 0) / np.maximum(np.abs(d), 1e-30)
+        return oracle.rec(yo, "db4")
+
+    # __graft_entry__.entry's step: 64^3 db4 L3 float32.
     x64 = np.random.default_rng(0).standard_normal((64, 64, 64)).astype(np.float32)
     plan64 = tw.NDDWT("db4", (64, 64, 64), device=dev)
-    ck.reset_launch_counts()
-    y64 = plan64.dec(x64, LEVEL, band_axis=0)
-    y64 = torch.cat([y64[:1], soft_threshold(y64[1:], THRESHOLD)])
-    step = plan64.rec(y64, band_axis=0).cpu().numpy()
-    check_launches("64^3 flagship step", dict(ck.launch_counts), per_level)
-    yo = oracle.dec(x64.astype(np.float64), "db4", LEVEL)
-    d = yo[..., 1:]
-    yo[..., 1:] = d * np.maximum(np.abs(d) - THRESHOLD, 0) / np.maximum(np.abs(d), 1e-30)
-    check("64^3 flagship step vs float64 oracle",
-          float(np.abs(step - oracle.rec(yo, "db4")).max()), 1e-4)
+    gold = oracle_step(x64)
+    for route, step in routes("64^3 flagship step", plan64, torch.float32, 0,
+                              per_level, {"nddwt_flat_pair": 2},
+                              lambda: step_of(plan64, x64)):
+        check(f"64^3 flagship step vs float64 oracle, {route}",
+              float(np.abs(step - gold).max()), 1e-4)
 
     print(f"phase 3: the solver paths at {SHAPE} db4 L{LEVEL} f32, preserve_l2, "
           f"{ITERS} iterations, lam {LAM}, {SAMPLING:.0%} sampling")
@@ -592,17 +718,18 @@ def main() -> int:
     # runs on the stage kernels (one lane axis, 8 bands).
     plan20 = tw.NDDWT("db20", (128, 128, 128), device=dev)
     x20 = torch.randn(plan20.shape, generator=gen, device=dev)
-    ck.reset_launch_counts()
-    y, xr = plan20.dec_rec(x20, 2, threshold=THRESHOLD, band_axis=0)
-    check_launches("3D db20 L2, the long-filter route", dict(ck.launch_counts),
-                   dict.fromkeys(STAGE_KERNELS, 2))
     yp = direct_path.dec_direct(x20, plan20.taps, 2)
     yp = torch.cat([yp[:1], soft_threshold(yp[1:], THRESHOLD)])
     xp = direct_path.rec_direct(yp, plan20.taps, 2, False)
-    check("3D db20 bands vs plain path", max_err(y, yp), F32_TOL * yp.abs().max().item())
-    check("3D db20 reconstruction vs plain path", max_err(xr, xp),
-          F32_TOL * xp.abs().max().item())
-    del x20, y, xr, yp, xp
+    for route, (y, xr) in routes(
+            "3D db20 L2 step, the long-filter route", plan20, torch.float32, 0,
+            dict.fromkeys(STAGE_KERNELS, 2), {"nddwt_flat_pair": 1},
+            lambda: plan20.dec_rec(x20, 2, threshold=THRESHOLD, band_axis=0)):
+        check(f"3D db20 bands vs plain path, {route}", max_err(y, yp),
+              F32_TOL * yp.abs().max().item())
+        check(f"3D db20 reconstruction vs plain path, {route}", max_err(xr, xp),
+              F32_TOL * xp.abs().max().item())
+    del y, xr, yp, xp
 
     print(f"phase 3: 4D fista_cs_mri at {CS_SHAPE4} db4 L{LEVEL} f32, preserve_l2, "
           f"{ITERS} iterations, lam {LAM}, {SAMPLING:.0%} sampling")
@@ -646,32 +773,34 @@ def main() -> int:
         nd = len(sizes)
         xc = np_rng.standard_normal(sizes) + 1j * np_rng.standard_normal(sizes)
         gold = oracle.dec(xc, wv, lvl, preserve_l2=True)
-        want = dict.fromkeys(by_ndim[nd], 2 * lvl)  # two components
+        route_plan = tw.NDDWT(wv, sizes, device=dev)  # the class's shape and taps
         for compute in ("gpu", "gpu_off"):
             tag = f"{name}{sizes} {wv} L{lvl} compute={compute}"
             args = (sizes,) if name.startswith("harr") else (wv, sizes)
             t = getattr(tw, name)(*args, pres_l2_norm=True, compute=compute, device=dev)
             xin = torch.from_numpy(xc).to(dev) if compute == "gpu" else xc
-            ck.reset_launch_counts()
-            y = t.dec(xin, lvl)
-            xr = t.rec(y)
-            torch.cuda.synchronize()
-            got = check_launches(tag, dict(ck.launch_counts), want)
-            if (name, compute) == ("nd_dwt_1D", "gpu"):
-                launches1_class = {k: got[k] for k in LEVEL1}
-            if compute == "gpu":
-                if not (isinstance(y, torch.Tensor) and y.dtype == torch.complex128):
-                    failures.append(f"{tag}: bands are not complex128 on the card")
-                y, xr = y.cpu().numpy(), xr.cpu().numpy()
-            elif not (isinstance(y, np.ndarray) and isinstance(xr, np.ndarray)):
-                failures.append(f"{tag}: 'gpu_off' did not return NumPy arrays")
-            if y.shape != gold.shape or y.dtype != np.complex128:
-                failures.append(f"{tag}: bands {y.shape} {y.dtype}")
-            check(f"{tag} bands vs float64 oracle", float(np.abs(y - gold).max()),
-                  F64_TOL * float(np.abs(gold).max()))
-            check(f"{tag} round trip", float(np.abs(xr - xc).max()), 1e-11)
-            check(f"{tag} energy ratio - 1",
-                  abs(float(np.linalg.norm(y) / np.linalg.norm(xc)) - 1), 1e-12)
+
+            def dec_rec():
+                y = t.dec(xin, lvl)
+                return y, t.rec(y)
+
+            for route, (y, xr) in routes(  # two components
+                    tag, route_plan, torch.float64, 2, dict.fromkeys(by_ndim[nd], 2 * lvl),
+                    {"nddwt_flat_pair": 2}, dec_rec):
+                what = f"{tag}, {route}"
+                if compute == "gpu":
+                    if not (isinstance(y, torch.Tensor) and y.dtype == torch.complex128):
+                        failures.append(f"{what}: bands are not complex128 on the card")
+                    y, xr = y.cpu().numpy(), xr.cpu().numpy()
+                elif not (isinstance(y, np.ndarray) and isinstance(xr, np.ndarray)):
+                    failures.append(f"{what}: 'gpu_off' did not return NumPy arrays")
+                if y.shape != gold.shape or y.dtype != np.complex128:
+                    failures.append(f"{what}: bands {y.shape} {y.dtype}")
+                check(f"{what} bands vs float64 oracle", float(np.abs(y - gold).max()),
+                      F64_TOL * float(np.abs(gold).max()))
+                check(f"{what} round trip", float(np.abs(xr - xc).max()), 1e-11)
+                check(f"{what} energy ratio - 1",
+                      abs(float(np.linalg.norm(y) / np.linalg.norm(xc)) - 1), 1e-12)
             del t, y, xr, xin
         torch.cuda.empty_cache()
 
@@ -706,34 +835,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     x64 = np.random.default_rng(0).standard_normal((64, 64, 64))
     plan64s = tw.NDDWT("db4", (64, 64, 64), dtype="double", device=dev)
-    ck.reset_launch_counts()
-    y64 = plan64s.dec(x64, LEVEL, band_axis=0)
-    y64 = torch.cat([y64[:1], soft_threshold(y64[1:], THRESHOLD)])
-    step = plan64s.rec(y64, band_axis=0).cpu().numpy()
-    check_launches("64^3 f64 step", dict(ck.launch_counts), dict.fromkeys(F64_REPLACES, LEVEL))
-    yo = oracle.dec(x64, "db4", LEVEL)
-    d = yo[..., 1:]
-    yo[..., 1:] = d * np.maximum(np.abs(d) - THRESHOLD, 0) / np.maximum(np.abs(d), 1e-30)
-    check("64^3 f64 step vs float64 oracle",
-          float(np.abs(step - oracle.rec(yo, "db4")).max()), 1e-12)
+    gold = oracle_step(x64)
+    for route, step in routes("64^3 f64 step", plan64s, torch.float64, 0,
+                              dict.fromkeys(F64_REPLACES, LEVEL), {"nddwt_flat_pair": 2},
+                              lambda: step_of(plan64s, x64)):
+        check(f"64^3 f64 step vs float64 oracle, {route}",
+              float(np.abs(step - gold).max()), 1e-12)
 
     print(f"phase 3: 1D float32, {N1M} samples db4 L3 and {N1} samples db6 L4 dec_rec")
     x1 = np.random.default_rng(900).standard_normal(N1M).astype(np.float32)
     plan1 = tw.NDDWT("db4", (N1M,), device=dev)
-    ck.reset_launch_counts()
-    y1 = plan1.dec(x1, LEVEL)
-    xr1 = plan1.rec(y1)
-    check_launches(f"1D {N1M} db4 L{LEVEL}", dict(ck.launch_counts),
-                   dict.fromkeys(LEVEL1, LEVEL))
-    check(f"1D {N1M} bands vs float64 oracle",
-          float(np.abs(y1.cpu().numpy() - oracle.dec(x1.astype(np.float64), "db4", LEVEL)).max()),
-          1e-4)
-    check(f"1D {N1M} round trip", float(np.abs(xr1.cpu().numpy() - x1).max()), 1e-4)
+    gold = oracle.dec(x1.astype(np.float64), "db4", LEVEL)
+
+    def dec_rec1():
+        y = plan1.dec(x1, LEVEL)
+        return y, plan1.rec(y)
+
+    for route, (y1, xr1) in routes(f"1D {N1M} db4 L{LEVEL} dec+rec", plan1, torch.float32,
+                                   0, dict.fromkeys(LEVEL1, LEVEL), {"nddwt_flat_pair": 2},
+                                   dec_rec1):
+        check(f"1D {N1M} bands vs float64 oracle, {route}",
+              float(np.abs(y1.cpu().numpy() - gold).max()), 1e-4)
+        check(f"1D {N1M} round trip, {route}", float(np.abs(xr1.cpu().numpy() - x1).max()),
+              1e-4)
     plan1l = tw.NDDWT("db6", (N1,), device=dev)
     gen.manual_seed(901)
     xl = randn((N1,))
     ck.reset_launch_counts()
     y, xr = plan1l.dec_rec(xl, 4, threshold=THRESHOLD, band_axis=0)
+    if flat.flat_supported((N1,), torch.float32, taps=plan1l.taps_hp):
+        failures.append(f"1D {N1}: within the flat kernel's size, no path runs the 1D kernels")
     got = check_launches(f"1D {N1} db6 L4 dec_rec", dict(ck.launch_counts),
                          dict.fromkeys(LEVEL1, 4))
     launches.update({k: got[k] for k in LEVEL1})  # the 1D float32 path's own
@@ -744,6 +875,141 @@ def main() -> int:
     check(f"1D {N1} reconstruction vs plain path", max_err(xr, xp),
           F32_TOL * xp.abs().max().item())
     del y, xr, yp, xp, y1, xr1
+    # float64 at 2^23: the 1D kernels' float64 path (the 1D class at its
+    # reference length now takes the flat kernel).
+    plan1l64 = tw.NDDWT("db6", (N1,), dtype="double", device=dev)
+    xl64 = randn((N1,), torch.float64)
+    ck.reset_launch_counts()
+    y, xr = plan1l64.dec_rec(xl64, 4, threshold=THRESHOLD, band_axis=0)
+    launches1_64 = check_launches(f"1D {N1} db6 L4 f64 dec_rec", dict(ck.launch_counts),
+                                  dict.fromkeys(LEVEL1, 4))
+    yp = direct_path.dec_direct(xl64, plan1l64.taps, 4)
+    yp = torch.cat([yp[:1], soft_threshold(yp[1:], THRESHOLD)])
+    check(f"1D {N1} f64 bands vs plain path", max_err(y, yp), F64_TOL * yp.abs().max().item())
+    xp = direct_path.rec_direct(yp, plan1l64.taps, 4, False)
+    check(f"1D {N1} f64 reconstruction vs plain path", max_err(xr, xp),
+          F64_TOL * xp.abs().max().item())
+    del y, xr, yp, xp, xl64
+    torch.cuda.empty_cache()
+    print(f"  launch checks also run on the flat route: {', '.join(to_flat) or 'none'}")
+
+    print(f"phase 3: the one-launch solves, fista_inpaint and fista_inpaint_split at "
+          f"{SOLVE_SHAPE} db4 L{LEVEL} f32, preserve_l2, {SOLVE_ITERS} iterations, "
+          f"lam {LAM}, {SAMPLING:.0%} sampling")
+    gen.manual_seed(1200)
+    xs = torch.randn((2,) + SOLVE_SHAPE, generator=gen, device=dev)
+    smask = (torch.rand(SOLVE_SHAPE, generator=gen, device=dev) < SAMPLING).float()
+    one_launch = {
+        "fista_inpaint": lambda p: fista_inpaint(p, smask * xs[0], smask, LAM, LEVEL,
+                                                 SOLVE_ITERS),
+        "fista_inpaint_split": lambda p: fista_inpaint_split(p, smask * xs, smask, LAM,
+                                                             LEVEL, SOLVE_ITERS),
+    }
+
+    def solver_plans(dtype):
+        return (tw.NDDWT("db4", SOLVE_SHAPE, preserve_l2=True, dtype=dtype, device=dev),
+                tw.NDDWT("db4", SOLVE_SHAPE, preserve_l2=True, dtype=dtype, path="direct",
+                         device=dev))
+
+    fplan, fdirect = solver_plans("float32")
+    # The flat pair's main path: one dec_rec step at the solves' shape.
+    ck.reset_launch_counts()
+    y, xr = fplan.dec_rec(xs[0], LEVEL, threshold=THRESHOLD, band_axis=0)
+    got = check_launches(f"dec_rec at {SOLVE_SHAPE}, one launch", dict(ck.launch_counts),
+                         {"nddwt_flat_pair": 1})
+    launches["nddwt_flat_pair"] = got["nddwt_flat_pair"]
+    yr, xrr = fdirect.dec_rec(xs[0], LEVEL, threshold=THRESHOLD, band_axis=0)
+    check(f"dec_rec at {SOLVE_SHAPE} bands vs the plain route", max_err(y, yr),
+          F32_TOL * yr.abs().max().item())
+    check(f"dec_rec at {SOLVE_SHAPE} reconstruction vs the plain route", max_err(xr, xrr),
+          F32_TOL * xrr.abs().max().item())
+    for name, run in one_launch.items():
+        ck.reset_launch_counts()
+        out = run(fplan)
+        got = check_launches(f"{name}, one whole solve", dict(ck.launch_counts),
+                             {"nddwt_flat_iter": 1})
+        launches["nddwt_flat_iter"] = got["nddwt_flat_iter"]
+        ref = run(fdirect)
+        torch.cuda.synchronize()
+        want_shape = (2,) + SOLVE_SHAPE if name.endswith("split") else SOLVE_SHAPE
+        if tuple(out.shape) != want_shape or not torch.isfinite(out).all():
+            failures.append(f"{name}: shape {tuple(out.shape)} or non-finite values")
+        drift, gate = max_err(out, ref), SOLVER_TOL * ref.abs().max().item()
+        if drift <= gate:
+            check(f"{name} vs the plain route", drift, gate)
+            continue
+        print(f"  {name}: float32 drift {drift:.3e} past the solver gate {gate:.3e} "
+              f"after {SOLVE_ITERS} iterations; holding the float64 solve instead")
+        p64, d64 = solver_plans("float64")
+        ck.reset_launch_counts()
+        out = run(p64)
+        check_launches(f"{name} f64, one whole solve", dict(ck.launch_counts),
+                       {"nddwt_flat_iter": 1})
+        ref = run(d64)
+        check(f"{name} f64 vs the plain route f64", max_err(out, ref),
+              1e-10 * ref.abs().max().item())
+    del out, ref
+
+    lams_n = [0.2 * 0.1 ** (i / (CHAIN_SWEEPS - 1)) for i in range(CHAIN_SWEEPS)]
+    print(f"phase 3: dec_rec_n at {CHAIN_SHAPE} {CHAIN_WV} L{LEVEL} f32, {CHAIN_SWEEPS} "
+          f"sweeps, thresholds {lams_n[0]:.2f} -> {lams_n[-1]:.2f} geometric")
+    cplan = tw.NDDWT(CHAIN_WV, CHAIN_SHAPE, device=dev)
+    cdirect = tw.NDDWT(CHAIN_WV, CHAIN_SHAPE, path="direct", device=dev)
+    xc = torch.randn(CHAIN_SHAPE, generator=gen, device=dev)
+    ck.reset_launch_counts()
+    out = cplan.dec_rec_n(xc, LEVEL, lams_n)
+    check_launches(f"dec_rec_n, {CHAIN_SWEEPS} sweeps", dict(ck.launch_counts),
+                   {"nddwt_flat_iter": 1})
+    ref = xc
+    for lam in lams_n:
+        _, ref = cdirect.dec_rec(ref, LEVEL, threshold=lam, band_axis=0)
+    if tuple(out.shape) != CHAIN_SHAPE or not torch.isfinite(out).all():
+        failures.append(f"dec_rec_n: shape {tuple(out.shape)} or non-finite values")
+    check("dec_rec_n vs a loop of dec_rec on the plain route", max_err(out, ref),
+          SOLVER_TOL * ref.abs().max().item())
+
+    split_shape = SPLIT_SHAPE
+    while not flat.flat_supported(split_shape, torch.float32, 2,
+                                  taps=tw.NDDWT("db4", split_shape, device=dev).taps_hp):
+        split_shape = tuple(n // 2 for n in split_shape)
+    if split_shape != SPLIT_SHAPE:
+        print(f"  the flat kernel's limit is below 2 * {SPLIT_SHAPE}: the split "
+              f"iterate runs at {split_shape}, the largest square within it")
+    print(f"phase 3: dec_rec_split at {split_shape} db4 L{LEVEL} f32, threshold {THRESHOLD}")
+    pplan = tw.NDDWT("db4", split_shape, preserve_l2=True, device=dev)
+    pdirect = tw.NDDWT("db4", split_shape, preserve_l2=True, path="direct", device=dev)
+    xp2 = torch.randn((2,) + split_shape, generator=gen, device=dev)
+    ck.reset_launch_counts()
+    y, xr = pplan.dec_rec_split(xp2, LEVEL, THRESHOLD)
+    check_launches("dec_rec_split, one launch", dict(ck.launch_counts),
+                   {"nddwt_flat_pair": 1})
+    yr, xrr = pdirect.dec_rec_split(xp2, LEVEL, THRESHOLD)
+    check("dec_rec_split bands vs the plain route", max_err(y, yr),
+          F32_TOL * yr.abs().max().item())
+    check("dec_rec_split reconstruction vs the plain route", max_err(xr, xrr),
+          F32_TOL * xrr.abs().max().item())
+
+    for shape5, wv5, lvl5 in FIVE_D:
+        for dt in (torch.float32, torch.float64):
+            tag = f"5D {shape5} {wv5} L{lvl5} {str(dt).removeprefix('torch.')}"
+            p5 = tw.NDDWT(wv5, shape5, dtype=dt, device=dev)
+            d5 = tw.NDDWT(wv5, shape5, dtype=dt, path="direct", device=dev)
+            x5 = randn(shape5, dt)
+            ck.reset_launch_counts()
+            y5 = p5.dec(x5, lvl5, band_axis=0)
+            xr5 = p5.rec(y5, band_axis=0)
+            yb5, xb5 = p5.dec_rec(x5, lvl5, threshold=THRESHOLD, band_axis=0)
+            check_launches(f"{tag} dec, rec, dec_rec", dict(ck.launch_counts),
+                           {"nddwt_flat_pair": 3})
+            yd5 = d5.dec(x5, lvl5, band_axis=0)
+            ybd, xbd = d5.dec_rec(x5, lvl5, threshold=THRESHOLD, band_axis=0)
+            tol = F64_TOL if dt == torch.float64 else F32_TOL
+            check(f"{tag} bands vs plain path", max_err(y5, yd5), tol * yd5.abs().max().item())
+            check(f"{tag} round trip", max_err(xr5, x5),
+                  1e-12 if dt == torch.float64 else 1e-4)
+            check(f"{tag} dec_rec vs plain path", max(max_err(yb5, ybd), max_err(xb5, xbd)),
+                  tol * ybd.abs().max().item())
+    del y, xr, yr, xrr, xp2
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 4
@@ -1043,13 +1309,80 @@ def main() -> int:
         print(f"  {what} ({N1},) db6 L4 f32: kernels {k:.4f} ms "
               f"({N1 / k / 1e3:.1f} Msamples/s), plain {p:.4f} ms "
               f"({N1 / p / 1e3:.1f} Msamples/s) {card}")
+    # The one-launch kernels at the one-launch solves' shape, beside the
+    # per-level route: no PyTorch call computes a multilevel transform.
+    taps_s = fplan.taps_hp
+    x0, b0 = xs[0], smask * xs[0]
+    lams_s, moms_s = _fista_schedule(SOLVE_ITERS, LAM, 1.0)
+    ms["nddwt_flat_pair"] = (
+        timed(lambda: flat.pair_flat(x0, taps_s, LEVEL, True, THRESHOLD), 50),
+        timed(lambda: flat_ref.flat_pair_ref("pair", x0, taps_s, LEVEL, True, THRESHOLD), 10))
+    ms["nddwt_flat_iter"] = (
+        timed(lambda: flat.fista_flat(b0, smask, taps_s, LEVEL, True, lams_s, moms_s, 1.0), 5),
+        timed(lambda: flat_ref.flat_iter_ref("fista", b0, smask, taps_s, LEVEL, True, lams_s,
+                                             moms_s, 1.0), 1, warm=1))
+    with xover.limits(0, 0):  # the per-level route at the same shapes
+        per_level_route = {
+            "nddwt_flat_pair": timed(
+                lambda: fplan.dec_rec(x0, LEVEL, threshold=THRESHOLD, band_axis=0), 50),
+            "nddwt_flat_iter": timed(
+                lambda: fista_inpaint(fplan, b0, smask, LAM, LEVEL, 10), 2, warm=1)
+            * SOLVE_ITERS / 10,
+        }
+        split_stepped = timed(lambda: one_launch["fista_inpaint_split"](fplan), 1, warm=1)
+        chain_stepped = timed(
+            lambda: cplan.dec_rec(xc, LEVEL, threshold=lams_n[0], band_axis=0), 20)
+    split_one = timed(lambda: one_launch["fista_inpaint_split"](fplan), 3)
+    chain_one = timed(lambda: cplan.dec_rec_n(xc, LEVEL, lams_n), 10)
+    nsp = int(np.prod(SOLVE_SHAPE))
+    # Multiply-adds (2 flops each) of one analysis and one synthesis: per
+    # level and axis a, K_a taps for each of the 2^(a+1) bands at that depth.
+    flops_pair = 2 * 2 * LEVEL * nsp * sum(
+        len(t[0]) * 2 ** (a + 1) for a, t in enumerate(taps_s))
+    bound.update({
+        # x in; the B bands and x out
+        "nddwt_flat_pair": bound_ms((1 + fplan.num_bands(LEVEL) + 1) * nsp * f32, flops_pair),
+        # b and the mask in, x out; the bands are scratch
+        "nddwt_flat_iter": bound_ms(3 * nsp * f32, SOLVE_ITERS * flops_pair),
+    })
+    library.update(dict.fromkeys(FLAT_KERNELS))
+    for name, what in (("nddwt_flat_pair", f"one dec_rec pair, threshold {THRESHOLD}"),
+                       ("nddwt_flat_iter", f"one {SOLVE_ITERS}-iteration fista_inpaint")):
+        k, p = ms[name]
+        print(f"  {name} {SOLVE_SHAPE} db4 L{LEVEL} f32 per call ({what}): kernel {k:.4f} ms, "
+              f"plain {p:.4f} ms, per-level route {per_level_route[name]:.4f} ms, library "
+              f"none, bound {bound[name][0]:.4f} ms ({bound[name][1]}) {card}")
+    print(f"  fista_inpaint {SOLVE_SHAPE} per iteration: one launch "
+          f"{ms['nddwt_flat_iter'][0] / SOLVE_ITERS:.4f} ms, per-level stepped "
+          f"{per_level_route['nddwt_flat_iter'] / SOLVE_ITERS:.4f} ms {card}")
+    print(f"  fista_inpaint_split {SOLVE_SHAPE} per iteration: one launch "
+          f"{split_one / SOLVE_ITERS:.4f} ms, per-level stepped "
+          f"{split_stepped / SOLVE_ITERS:.4f} ms {card}")
+    print(f"  dec_rec_n {CHAIN_SHAPE} {CHAIN_WV} L{LEVEL} per sweep: one launch "
+          f"{chain_one / CHAIN_SWEEPS:.4f} ms, one per-level dec_rec {chain_stepped:.4f} ms "
+          f"{card}")
+    # The long-filter step on both routes, whichever the plan takes.
+    step20 = lambda: plan20.dec_rec(x20, 2, threshold=THRESHOLD, band_axis=0)  # noqa: E731
+    t20 = {}
+    for route, cap in (("stage kernels", 0), ("flat kernel", 2**62), ("flat kernel", 2**62),
+                       ("stage kernels", 0)):
+        with xover.limits(cap, cap):
+            t20.setdefault(route, []).append(timed(step20, 10))
+    own = flat.flat_supported(plan20.shape, torch.float32, taps=plan20.taps_hp)
+    print(f"  dec_rec {plan20.shape} db20 L2 f32 per call: stage kernels "
+          f"{sum(t20['stage kernels']) / 2:.4f} ms, flat kernel {sum(t20['flat kernel']) / 2:.4f} "
+          f"ms (the plan takes the {'flat' if own else 'stage'} route) {card}")
+    print(f"  crossover, one launch against the per-level route ({xover.__name__}.py) {card}:")
+    table = xover.measure(log=lambda line: print(f"    {line}"), max_reps=20)
+    print("    " + json.dumps({k: table[k] for k in (
+        "flat_no_slower_up_to", "one_launch_solve_no_slower_up_to")}))
     ms.update(ms1[torch.float32])
     bound.update(bound1[torch.float32])
     library.update(library1[torch.float32])
     f64_entry = {  # name: (replaces, launches, error, times, bound, library)
         **{name: (F64_REPLACES[name], launches64[name], main_err64[name], ms64[name],
                   bound64[name], library64[name]) for name in F64_REPLACES},
-        **{name: (KERNELS[name][1], launches1_class[name], main_err64[name],
+        **{name: (KERNELS[name][1], launches1_64[name], main_err64[name],
                   ms1[torch.float64][name], bound1[torch.float64][name],
                   library1[torch.float64][name]) for name in LEVEL1},
     }
@@ -1071,8 +1404,10 @@ def main() -> int:
         k = {"name": name, "route": "cuda", "source": source,
              **entry(where, launches[name], main_err[name], ms[name], bound[name],
                      library[name])}
-        if name in f64_entry:  # the float64 instantiation, on the class paths
+        if name in f64_entry:  # the float64 instantiation
             k["float64"] = entry(*f64_entry[name])
+        if name in per_level_route:  # in place of a library call
+            k["per_level_route_ms"] = per_level_route[name]
         kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,12 +11,14 @@ transform applied hundreds of times (``README.md:2``).
 
 ``transform`` is a single-device ``NDDWT``; sharded transforms are not
 ported yet and raise ``TypeError`` (``ROADMAP.md`` queue 1 item 14). The
-momentum schedule is computed on the host (``_fista_schedule``). With a
-scalar ``lam`` on a plan whose tensors go to the CUDA kernels, the
-inpainting solvers take the stepped routes: every iterate is kernels end
-to end (the transforms, the shrink, and one ``fista_step`` pass of glue).
-A tensor ``lam``, or a plan on the CPU, takes the generic loop. The JAX
-package's one-launch whole-solve route (``_fista_fused``) is not ported.
+schedule (per-iteration thresholds and momenta) is computed on the host
+(``_fista_schedule``). With a scalar ``lam`` on a plan whose tensors go to
+the CUDA kernels, the inpainting solvers try the routes in the JAX
+package's order: the one-launch whole solve (``NDDWT._fista_fused``, one
+``nddwt_flat_iter`` launch up to ``ITER_MAX_NUMEL`` elements), then the
+stepped routes, where every iterate is kernels end to end (the transforms,
+the shrink, and one ``fista_step`` pass of glue). A tensor ``lam``, or a
+plan on the CPU, takes the generic loop.
 """
 
 from __future__ import annotations
@@ -79,17 +81,16 @@ def _prox_split(transform, v_pair, lam, level):
     return transform.rec_split(soft_threshold_mag_pair(y, lam))
 
 
-def _fista_schedule(iters):
-    """The FISTA momentum coefficients ``(t_k - 1) / t_{k+1}``, ``t_1 = 1``,
-    computed on the host. (The JAX package's schedule also lists the
-    per-iteration threshold, ``lam * step`` every time, for its one-launch
-    solve, which is not ported.)"""
+def _fista_schedule(iters, lam, step):
+    """The FISTA schedule, computed on the host (JAX ``cs_recon.py:98-108``):
+    the per-iteration shrink thresholds ``lam * step`` (the prox scaling)
+    and momentum coefficients ``(t_k - 1) / t_{k+1}``, ``t_1 = 1``."""
     t, moms = 1.0, []
     for _ in range(iters):
         t_next = 0.5 * (1.0 + float(np.sqrt(1.0 + 4.0 * t * t)))
         moms.append((t - 1.0) / t_next)
         t = t_next
-    return moms
+    return [float(lam) * float(step)] * iters, moms
 
 
 def _fwd(x, mask):
@@ -121,7 +122,7 @@ def fista_cs_mri(transform, b, mask, lam, level=2, iters=20, step=1.0):
     mask = _mask_input(transform, mask, b.real.dtype)
     x = _adj(b, mask)
     z = x
-    for mom in _fista_schedule(iters):
+    for mom in _fista_schedule(iters, lam, step)[1]:
         x_new = ista_step(transform, z, b, mask, lam, step, level)
         z = x_new + mom * (x_new - x)
         x = x_new
@@ -144,16 +145,16 @@ def _fista_stepped(transform, b, mask, lam, level, moms, step):
 
 
 def _fista_stepped_split(transform, b_pair, mask, lam, level, moms, step):
-    """Split-complex FISTA with every iterate on kernels: per-component
-    analysis chains, one ``mag_shrink_pair`` pass over both components'
-    details, per-component synthesis chains, one ``fista_step`` pass (the
-    mask read once per re/im pair)."""
+    """Split-complex FISTA with every iterate on kernels: the split
+    ``dec_rec_split`` iterate (one flat launch, or per-component analysis
+    chains, one ``mag_shrink_pair`` pass over both components' details and
+    per-component synthesis chains), one ``fista_step`` pass (the mask read
+    once per re/im pair)."""
     x = mask * b_pair
     v = x - step * (mask * (mask * x - b_pair))
     thr = float(lam) * float(step)
     for mom in moms:
-        y = elemwise.mag_shrink_pair(transform.dec_split(v, level), thr)
-        x_new = transform.rec_split(y)
+        _, x_new = transform.dec_rec_split(v, level, threshold=thr)
         v = elemwise.fista_step(x_new, x, mask, b_pair, mom, float(step))
         x = x_new
     return x
@@ -163,7 +164,7 @@ def _fista_loop(prox, b, mask, iters, step):
     """The generic FISTA loop for a masked image-domain data term."""
     x = mask * b
     z = x
-    for mom in _fista_schedule(iters):
+    for mom in _fista_schedule(iters, 0.0, step)[1]:
         x_new = prox(z - step * (mask * (mask * z - b)))
         z = x_new + mom * (x_new - x)
         x = x_new
@@ -173,14 +174,19 @@ def _fista_loop(prox, b, mask, iters, step):
 def fista_inpaint(transform, b, mask, lam, level=2, iters=20, step=1.0):
     """FISTA for image-domain masked observation (inpainting):
     ``min_x 0.5 ||M ⊙ x - b||^2 + lam ||W x||_1``. ``b`` may be complex
-    (generic loop, joint-magnitude shrink)."""
+    (generic loop, joint-magnitude shrink). On the card with a scalar
+    ``lam`` the whole solve is one launch where ``_fista_fused`` serves it,
+    else the stepped route."""
     _check_transform(transform)
     b = transform._as_input(b)
     mask = _mask_input(transform, mask, b.real.dtype)
-    if (not hasattr(lam, "shape") and not b.is_complex()
-            and transform._uses_kernels(b)):
-        return _fista_stepped(transform, b, mask, lam, level,
-                              _fista_schedule(iters), step)
+    if not hasattr(lam, "shape"):
+        lams, moms = _fista_schedule(iters, lam, step)
+        xr = transform._fista_fused(b, mask, level, lams, moms, step)
+        if xr is not None:
+            return xr
+        if not b.is_complex() and transform._uses_kernels(b):
+            return _fista_stepped(transform, b, mask, lam, level, moms, step)
     return _fista_loop(lambda v: _prox(transform, v, lam * step, level),
                        b, mask, iters, step)
 
@@ -190,12 +196,20 @@ def fista_inpaint_split(transform, b_pair, mask, lam, level=2, iters=20,
     """FISTA for image-domain masked observation of complex data carried as
     a split re/im pair ``(2, *shape)``: ``min_x 0.5 ||M ⊙ x - b||^2 +
     lam ||W x||_{1,c}`` with the complex l1 norm (joint re/im magnitude).
-    ``mask`` is real with the plan's shape."""
+    ``mask`` is real with the plan's shape. On the card with a scalar
+    ``lam`` the whole solve is one launch where ``_fista_fused`` serves it,
+    else the stepped route."""
     _check_transform(transform)
     b_pair = transform._as_pair(b_pair)
     mask = _mask_input(transform, mask, b_pair.dtype)
-    if not hasattr(lam, "shape") and transform._uses_kernels(b_pair):
-        return _fista_stepped_split(transform, b_pair, mask, lam, level,
-                                    _fista_schedule(iters), step)
+    if not hasattr(lam, "shape"):
+        lams, moms = _fista_schedule(iters, lam, step)
+        xr = transform._fista_fused(b_pair, mask, level, lams, moms, step,
+                                    split=True)
+        if xr is not None:
+            return xr
+        if transform._uses_kernels(b_pair):
+            return _fista_stepped_split(transform, b_pair, mask, lam, level,
+                                        moms, step)
     return _fista_loop(lambda v: _prox_split(transform, v, lam * step, level),
                        b_pair, mask, iters, step)

@@ -34,7 +34,9 @@ route from the taps (``stage_route``).
   ``_rec1_level``.
 
 ``csrc/nddwt_elemwise.cu`` holds the solvers' elementwise kernels, bound in
-``ops/elemwise.py``.
+``ops/elemwise.py``; ``csrc/nddwt_flat.cu`` the one-launch whole-transform
+and whole-solve kernels of small arrays of any ndim, bound in
+``ops/flat.py``.
 
 Every kernel takes float32 and bfloat16 arrays, computing in float32, and
 float64 arrays, computing in float64 with float64 taps: the float64
@@ -69,7 +71,8 @@ from .level4_ref import lane_adj_ref, lane_dec_ref, lead_adj_ref, lead_dec_ref
 from .level_ref import dec_level_ref, rec_level_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("nddwt_level", "nddwt_elemwise", "nddwt_4d", "nddwt_1d")  # csrc/<name>.cu
+SOURCES = ("nddwt_level", "nddwt_elemwise", "nddwt_4d", "nddwt_1d",
+           "nddwt_flat")  # csrc/<name>.cu
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -96,6 +99,8 @@ launch_counts = {
     "nddwt_lane_adj": 0,
     "nddwt_dec1_level": 0,
     "nddwt_rec1_level": 0,
+    "nddwt_flat_pair": 0,
+    "nddwt_flat_iter": 0,
 }
 
 

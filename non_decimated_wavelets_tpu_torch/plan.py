@@ -10,20 +10,29 @@ for ``device="cpu"``.
 
 Dispatch:
 
-* a CUDA tensor, 1D to 4D, float32, bfloat16 or float64: the hand-written
-  level kernels (``ops/cuda_kernels.py``): per level and direction one
-  launch in 1D, 2D and 3D, two (a lane and a lead stage) in 4D and for 3D
-  filters too long for the one-launch tile; the shrink of ``dec_rec`` fused
-  into the analysis. float64 computes in float64 (the TPU package's
+* a CUDA tensor of at most ``ops/flat.py``'s ``FLAT_MAX_NUMEL`` elements
+  for the per-level route it would take (a complex array's or a split
+  pair's two components counted), any ndim up to 8, float32, bfloat16 or
+  float64: the one-launch flat kernel
+  (``nddwt_flat_pair``): ``dec``, ``rec``, ``dec_rec`` and their split and
+  complex forms are one launch each, complex data as a re/im pair whose
+  shrink is the joint magnitude. ``dec_rec_n`` and the solvers' fused
+  route (``_fista_fused``) run a whole chain or solve in one
+  ``nddwt_flat_iter`` launch up to ``ITER_MAX_NUMEL``;
+* a larger CUDA tensor, 1D to 4D: the hand-written level kernels
+  (``ops/cuda_kernels.py``): per level and direction one launch in 1D, 2D
+  and 3D, two (a lane and a lead stage) in 4D and for 3D filters too long
+  for the one-launch tile; the shrink of ``dec_rec`` fused into the
+  analysis. Complex data (complex64, complex128) and split re/im pairs run
+  each component through its own level chain (the filters are real);
+  their shrink is the joint-magnitude ``mag_shrink_pair`` kernel
+  (``ops/elemwise.py``). A larger 5D+ tensor raises
+  ``NotImplementedError``; nothing runs silently on torch ops;
+* float64 computes in float64 on every kernel (the TPU package's
   double-f32 kernels, ``pallas_df32``, exist only because the TPU has no
-  float64 units). Complex data (complex64, complex128) and split re/im
-  pairs run each component through its own level chain (the filters are
-  real); their shrink is the joint-magnitude ``mag_shrink_pair`` kernel
-  (``ops/elemwise.py``);
+  float64 units);
 * a CPU tensor: the torch direct path (``ops/direct_path.py``), complex
-  data included;
-* 5D and up on CUDA raises ``NotImplementedError``; nothing runs silently
-  on torch ops.
+  data included.
 
 ``path`` picks the route as in the JAX plan: ``'auto'`` as above;
 ``'direct'`` the torch direct path on any device; ``'pallas'`` the kernels
@@ -37,11 +46,13 @@ backward is the exact adjoint, as the JAX package's ``linear_call`` rules
 (``ops/pallas_kernels.py:898-902,1703-1713``): the adjoint of ``dec`` is the
 synthesis with ``preserve_l2=True`` on the same taps, and the adjoint of
 ``rec`` is ``dec`` with the per-level ``1/2^d`` redistributed onto the band
-groups when not ``preserve_l2``. ``dec_rec`` with a threshold on CUDA is
-non-linear and has no adjoint, as in JAX; nor do the split transforms on
-CUDA. The same rules serve 1D, float64 and the FFT path (the JAX package's
-``dec64``/``rec64`` carry the same ``linear_call`` rules,
-``ops/pallas_df32.py:548-610``).
+groups when not ``preserve_l2``, on the flat and the per-level kernels
+alike. ``dec_rec`` with a threshold on CUDA is non-linear and has no
+adjoint, as in JAX; nor do the split transforms, ``dec_rec_n`` and the
+fused solve on CUDA; a ``dec_rec`` without threshold whose input needs a
+gradient runs as ``dec`` and ``rec``. The same rules serve 1D, float64
+and the FFT path (the JAX package's ``dec64``/``rec64`` carry the same
+``linear_call`` rules, ``ops/pallas_df32.py:548-610``).
 """
 
 from __future__ import annotations
@@ -54,7 +65,7 @@ import torch
 from . import filters as _filters
 from . import oracle as _oracle
 from .models.denoise import soft_threshold, soft_threshold_mag_pair
-from .ops import cuda_kernels, direct_path, elemwise, fft_path
+from .ops import cuda_kernels, direct_path, elemwise, fft_path, flat
 
 _VALID_PATHS = ("auto", "fft", "direct", "pallas")
 _REAL_DTYPES = {
@@ -96,8 +107,18 @@ def _join(pair: torch.Tensor) -> torch.Tensor:
     return torch.complex(pair[0], pair[1])
 
 
+def _real_dtype_of(t: torch.Tensor) -> torch.dtype:
+    """The dtype of ``t``'s real and imaginary parts (``t``'s own if real)."""
+    return {torch.complex64: torch.float32,
+            torch.complex128: torch.float64}.get(t.dtype, t.dtype)
+
+
+def _needs_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
 def _no_adjoint_on_kernels(t: torch.Tensor, what: str) -> None:
-    if torch.is_grad_enabled() and t.requires_grad:
+    if _needs_grad(t):
         raise RuntimeError(f"{what} has no adjoint on the CUDA kernels")
 
 
@@ -226,13 +247,23 @@ class NDDWT:
                     f"tensor lies on {x.device}; use path='auto' or 'direct'"
                 )
             return "direct"
+        return "kernels"
+
+    def _on_flat(self, dtype: torch.dtype, batch: int = 0) -> bool:
+        """Whether a kernel-route call on ``dtype`` components (a re/im pair
+        when ``batch`` is 2) takes the one-launch flat kernel; a 5D+ plan
+        that it does not take raises."""
+        if flat.flat_supported(self.shape, dtype, batch, taps=self.taps_hp):
+            return True
         if self.ndim > 4:
             raise NotImplementedError(
-                f"{self.ndim}D transforms on CUDA are not ported yet: no kernel "
-                "takes them (the TPU's flat kernels, ROADMAP.md queue 2 item "
-                "12, serve any ndim at small sizes)"
+                f"{self.ndim}D transforms on CUDA run on the one-launch flat "
+                "kernel only, up to "
+                f"{flat.flat_limit(self.shape, self.taps_hp, dtype)} elements (a "
+                "pair's two components counted); larger ones are not ported yet "
+                "(ROADMAP.md queue 1 item 16)"
             )
-        return "kernels"
+        return False
 
     def _uses_kernels(self, x: torch.Tensor) -> bool:
         return self._route(x) == "kernels"
@@ -284,6 +315,8 @@ class NDDWT:
             return direct_path.dec_direct(x, self.taps, level)
         if x.is_complex():
             return _join(self._dec_pair(_parts(x), level))
+        if self._on_flat(x.dtype):
+            return flat.dec_flat(x.contiguous(), self.taps_hp, level)
         return cuda_kernels.dec_levels(x.contiguous(), self.taps_hp, level)
 
     def _rec_bands(self, y, level, preserve_l2):
@@ -297,6 +330,8 @@ class NDDWT:
             return direct_path.rec_direct(y, self.taps, level, preserve_l2)
         if y.is_complex():
             return _join(self._rec_pair(_parts(y), level, preserve_l2))
+        if self._on_flat(y.dtype):
+            return flat.rec_flat(y.contiguous(), self.taps_hp, level, preserve_l2)
         return cuda_kernels.rec_levels(
             y.contiguous(), self.taps_hp, level, preserve_l2
         )
@@ -310,6 +345,8 @@ class NDDWT:
         if route == "direct":
             return direct_path.dec_direct(xp, self.taps, level).transpose(0, 1)
         _no_adjoint_on_kernels(xp, "the split analysis")
+        if self._on_flat(xp.dtype, 2):
+            return flat.dec_split_flat(xp.contiguous(), self.taps_hp, level)
         out = torch.empty((2, self.num_bands(level)) + self.shape,
                           dtype=xp.dtype, device=xp.device)
         for c in range(2):
@@ -327,16 +364,24 @@ class NDDWT:
             return direct_path.rec_direct(yp.transpose(0, 1), self.taps, level,
                                           preserve_l2)
         _no_adjoint_on_kernels(yp, "the split synthesis")
+        if self._on_flat(yp.dtype, 2):
+            return flat.rec_split_flat(yp.contiguous(), self.taps_hp, level,
+                                       preserve_l2)
         return torch.stack([
             cuda_kernels.rec_levels(yp[c].contiguous(), self.taps_hp, level,
                                     preserve_l2)
             for c in range(2)
         ])
 
-    @staticmethod
-    def _check_band_axis(band_axis):
-        if band_axis not in (0, -1):
-            raise ValueError("band_axis must be 0 or -1")
+    def _bands_last(self, band_axis) -> bool:
+        """Whether ``band_axis`` names the band-last layout: ``-1`` or its
+        positive index ``ndim`` (JAX ``plan.py:368``); ``0`` is band-first,
+        anything else raises."""
+        if band_axis in (-1, self.ndim):
+            return True
+        if band_axis != 0:
+            raise ValueError(f"band_axis must be 0, -1 or {self.ndim}")
+        return False
 
     def _check_level(self, level) -> int:
         level = int(level)
@@ -353,25 +398,26 @@ class NDDWT:
 
     # ------------------------------------------------------------- public
     def dec(self, x, level: int, band_axis: int = -1):
-        """Multilevel analysis. ``band_axis=-1`` gives the reference layout
-        ``[n1..nd, B]`` (a view); ``0`` the band-first ``(B, *shape)``."""
+        """Multilevel analysis. ``band_axis=-1`` (or ``ndim``) gives the
+        reference layout ``[n1..nd, B]`` (a view); ``0`` the band-first
+        ``(B, *shape)``."""
         level = self._check_level(level)
-        self._check_band_axis(band_axis)
+        last = self._bands_last(band_axis)
         x = self._as_input(x)
         self._check_shape(x)
         y = _Dec.apply(x, self, level)
-        return y.movedim(0, -1) if band_axis == -1 else y
+        return y.movedim(0, -1) if last else y
 
     def rec(self, y, band_axis: int = -1):
         """Multilevel synthesis; level inferred from the band count
         (``Functions/nd_dwt_3D.m:217``)."""
-        self._check_band_axis(band_axis)
+        last = self._bands_last(band_axis)
         y = self._as_input(y)
         if y.ndim != self.ndim + 1:
             raise ValueError(
                 f"expected {self.ndim + 1}-D band array, got {y.ndim}-D"
             )
-        if band_axis == -1:
+        if last:
             y = y.movedim(-1, 0)
         if tuple(y.shape[1:]) != self.shape:
             raise ValueError(
@@ -391,17 +437,31 @@ class NDDWT:
     def dec_rec(self, x, level: int, threshold: float = 0.0,
                 band_axis: int = -1):
         """One analysis -> soft-threshold(details) -> synthesis iterate;
-        returns ``(bands, reconstruction)``. On CUDA the shrink rides the
-        analysis kernel's band writes (``lam``), as on the TPU; complex data
-        takes the joint-magnitude shrink, one ``mag_shrink_pair`` launch
-        between the components' analyses and syntheses."""
+        returns ``(bands, reconstruction)``. A negative threshold raises
+        ``ValueError`` (the JAX plan takes one and grows the details). On
+        CUDA within the flat kernel's size the whole iterate is one
+        ``nddwt_flat_pair`` launch, complex data as a re/im pair with the
+        joint-magnitude shrink; beyond it the shrink rides the per-level
+        analysis kernels' band writes (``lam``), as on the TPU, and complex
+        data takes one ``mag_shrink_pair`` launch between the components'
+        analyses and syntheses."""
         level = self._check_level(level)
-        self._check_band_axis(band_axis)
+        last = self._bands_last(band_axis)
         threshold = self._check_threshold(threshold)
         x = self._as_input(x)
         self._check_shape(x)
-        if threshold and self._uses_kernels(x):
+        kernels = self._uses_kernels(x)
+        if kernels and threshold:
             _no_adjoint_on_kernels(x, "dec_rec with a threshold (non-linear)")
+        if (kernels and not _needs_grad(x)
+                and self._on_flat(_real_dtype_of(x), 2 if x.is_complex() else 0)):
+            if x.is_complex():
+                y, xr = (_join(t) for t in flat.pair_split_flat(
+                    _parts(x), self.taps_hp, level, self.preserve_l2, threshold))
+            else:
+                y, xr = flat.pair_flat(x.contiguous(), self.taps_hp, level,
+                                       self.preserve_l2, threshold)
+        elif kernels and threshold:
             if x.is_complex():
                 yp = elemwise.mag_shrink_pair(self._dec_pair(_parts(x), level),
                                               threshold)
@@ -417,7 +477,65 @@ class NDDWT:
             if threshold:
                 y = torch.cat([y[:1], soft_threshold(y[1:], threshold)])
             xr = _Rec.apply(y, self, level)
-        return (y.movedim(0, -1) if band_axis == -1 else y), xr
+        return (y.movedim(0, -1) if last else y), xr
+
+    def dec_rec_n(self, x, level: int, thresholds):
+        """``len(thresholds)`` ``dec -> soft-threshold -> rec`` sweeps, one
+        threshold each; returns the reconstruction after the last (JAX
+        ``plan.py:516-559``). Real data only (complex raises
+        ``ValueError``); at least one sweep; a negative threshold raises
+        ``ValueError``, as in ``dec_rec``. On CUDA up to ``ITER_MAX_NUMEL``
+        elements the whole chain is one ``nddwt_flat_iter`` launch;
+        elsewhere it loops ``dec_rec``."""
+        level = self._check_level(level)
+        thresholds = [self._check_threshold(t) for t in thresholds]
+        if not thresholds:
+            raise ValueError("thresholds must contain at least one sweep")
+        x = self._as_input(x)
+        self._check_shape(x)
+        if x.is_complex():
+            raise ValueError(
+                "dec_rec_n is real-only; split complex data and use the "
+                "split entry points"
+            )
+        if self._uses_kernels(x) and flat.iter_supported(self.shape, x.dtype):
+            _no_adjoint_on_kernels(x, "dec_rec_n")
+            return flat.chain_flat(x.contiguous(), self.taps_hp, level,
+                                   self.preserve_l2, thresholds)
+        for lam in thresholds:
+            _, x = self.dec_rec(x, level, threshold=lam, band_axis=0)
+        return x
+
+    def _fista_fused(self, b, mask, level, lams, moms, step, split=False):
+        """A whole FISTA inpainting solve (the image-domain masked data
+        term, schedule ``lams``/``moms``) in one ``nddwt_flat_iter``
+        launch, or ``None`` where that kernel does not serve it: a CPU or
+        complex ``b``, or more than ``ITER_MAX_NUMEL`` elements (JAX
+        ``plan.py:561-601``). ``split`` takes a ``(2, *shape)`` re/im pair
+        with the joint-magnitude shrink. Used by ``models.fista_inpaint``
+        and ``fista_inpaint_split``."""
+        b = self._as_input(b)
+        if b.is_complex():
+            return None  # the generic loop serves complex data
+        want = ((2,) + self.shape) if split else self.shape
+        if tuple(b.shape) != want:
+            raise ValueError(
+                f"input shape {tuple(b.shape)} does not match plan shape {want}"
+            )
+        mask = self._as_input(mask)
+        if tuple(mask.shape) != self.shape:
+            raise ValueError(
+                f"mask shape {tuple(mask.shape)} does not match plan shape "
+                f"{self.shape}"
+            )
+        level = self._check_level(level)
+        if not (self._uses_kernels(b)
+                and flat.iter_supported(self.shape, b.dtype, 2 if split else 0)):
+            return None
+        _no_adjoint_on_kernels(b, "the fused FISTA solve")
+        solve = flat.fista_split_flat if split else flat.fista_flat
+        return solve(b.contiguous(), mask.to(b.dtype).contiguous(), self.taps_hp,
+                     level, self.preserve_l2, lams, moms, float(step))
 
     # ------------------------------------------------------ split-complex
     def dec_split(self, x_pair, level: int):
@@ -445,9 +563,17 @@ class NDDWT:
         soft-threshold of the details (the prox of the complex l1 norm,
         ``Functions/nd_dwt_1D.m:57-61``) -> synthesis. Returns
         ``((2, B, *shape) bands, (2, *shape) reconstruction)``. On the
-        kernels: two per-component analysis chains, one ``mag_shrink_pair``
-        launch, two synthesis chains; elsewhere the torch shrink, as JAX."""
+        kernels: one ``nddwt_flat_pair`` launch within the flat kernel's
+        size, else two per-component analysis chains, one
+        ``mag_shrink_pair`` launch, two synthesis chains; elsewhere the
+        torch shrink, as JAX."""
         threshold = self._check_threshold(threshold)
+        level = self._check_level(level)
+        x_pair = self._as_pair(x_pair)
+        if self._uses_kernels(x_pair) and self._on_flat(x_pair.dtype, 2):
+            _no_adjoint_on_kernels(x_pair, "the split iterate")
+            return flat.pair_split_flat(x_pair.contiguous(), self.taps_hp,
+                                        level, self.preserve_l2, threshold)
         y = self.dec_split(x_pair, level)
         if threshold:
             shrink = (elemwise.mag_shrink_pair if self._uses_kernels(y)

@@ -33,6 +33,7 @@ from non_decimated_wavelets_tpu_torch import oracle
 from non_decimated_wavelets_tpu_torch import plan as tplan
 from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
 from non_decimated_wavelets_tpu_torch.ops import level_ref
+from non_decimated_wavelets_tpu_torch.ops import flat
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -56,6 +57,18 @@ def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device: the plan takes
     the kernel route, whose wrappers run their plain versions here."""
     monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    # The per-level route at these small shapes: tests/test_torch_flat.py
+    # holds the one-launch flat route.
+    monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
+
+
+@pytest.fixture
+def per_level(monkeypatch):
+    """Hold a plan on the card to the per-level route at a shape within the
+    one-launch flat kernel's size (tests/test_torch_flat.py holds that)."""
+    monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
 
 
 @pytest.fixture
@@ -266,7 +279,7 @@ def test_cuda_1d_kernels_match_plain_versions(N, wv, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_1d_plan_matches_cpu_plan():
+def test_cuda_1d_plan_matches_cpu_plan(per_level):
     """The 1D plan on the kernels against the plan on the CPU direct path,
     float32 and float64, with one launch of each 1D kernel per level."""
     if not torch.cuda.is_available():

@@ -36,6 +36,7 @@ from non_decimated_wavelets_tpu_torch.models import cs_recon
 from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
 from non_decimated_wavelets_tpu_torch.ops import level4_ref as r4
 from non_decimated_wavelets_tpu_torch.ops import level_ref
+from non_decimated_wavelets_tpu_torch.ops import flat
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -63,6 +64,18 @@ def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device: the plan takes
     the kernel route, whose wrappers run their plain versions here."""
     monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    # The per-level route at these small shapes: tests/test_torch_flat.py
+    # holds the one-launch flat route.
+    monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
+
+
+@pytest.fixture
+def per_level(monkeypatch):
+    """Hold a plan on the card to the per-level route at a shape within the
+    one-launch flat kernel's size (tests/test_torch_flat.py holds that)."""
+    monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
 
 
 @pytest.fixture
@@ -324,7 +337,7 @@ def test_fista_4d_match_jax_f64(jx, rng):
                                    0.02, level=level, iters=iters)
     got = tw.models.fista_inpaint(tp, mask * img, mask, 0.02, level, iters)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-10)
-    moms = cs_recon._fista_schedule(iters)
+    _, moms = cs_recon._fista_schedule(iters, 0.02, 1.0)
     got = cs_recon._fista_stepped(tp, torch.from_numpy(mask * img),
                                   torch.from_numpy(mask), 0.02, level, moms, 1.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-10)
@@ -552,7 +565,7 @@ def test_cuda_stage_kernels_match_plain_versions(shape, wv, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pl2", [False, True])
-def test_cuda_4d_plan_matches_cpu_plan(pl2):
+def test_cuda_4d_plan_matches_cpu_plan(per_level, pl2):
     """The 4D plan on the stage kernels against the plan on the CPU direct
     path: ``dec_rec`` with the fused shrink, exactly one launch of each
     stage kernel per level, and the autograd adjoints."""

@@ -31,6 +31,7 @@ import non_decimated_wavelets_tpu_torch as tw
 from non_decimated_wavelets_tpu_torch import api, oracle
 from non_decimated_wavelets_tpu_torch import plan as tplan
 from non_decimated_wavelets_tpu_torch.native import cpu_backend as tcb
+from non_decimated_wavelets_tpu_torch.ops import flat
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -50,6 +51,10 @@ def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device: the plans take
     the kernel route, whose wrappers run their plain versions here."""
     monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    # The per-level route at these small shapes: tests/test_torch_flat.py
+    # holds the one-launch flat route.
+    monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
 
 
 def _host(a):

@@ -19,7 +19,7 @@ import non_decimated_wavelets_tpu as nw
 
 import non_decimated_wavelets_tpu_torch as tw
 from non_decimated_wavelets_tpu_torch import plan as tplan
-from non_decimated_wavelets_tpu_torch.ops import elemwise
+from non_decimated_wavelets_tpu_torch.ops import elemwise, flat
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -37,6 +37,10 @@ def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device, and count the
     joint-magnitude shrinks."""
     monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    # The per-level route at these small shapes: tests/test_torch_flat.py
+    # holds the one-launch flat route.
+    monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
     calls = []
     real = elemwise.mag_shrink_pair
     monkeypatch.setattr(elemwise, "mag_shrink_pair",

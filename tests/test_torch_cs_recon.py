@@ -23,7 +23,7 @@ import non_decimated_wavelets_tpu_torch as tw
 from non_decimated_wavelets_tpu_torch import models as tm
 from non_decimated_wavelets_tpu_torch import plan as tplan
 from non_decimated_wavelets_tpu_torch.models import cs_recon
-from non_decimated_wavelets_tpu_torch.ops import cuda_kernels, elemwise
+from non_decimated_wavelets_tpu_torch.ops import cuda_kernels, elemwise, flat
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -53,6 +53,10 @@ def calls(monkeypatch):
 def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device."""
     monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    # The per-level route at these small shapes: tests/test_torch_flat.py
+    # holds the one-launch flat route.
+    monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
 
 
 def _plans(shape, wv, dtype, pl2=True):
@@ -104,7 +108,7 @@ def test_fista_inpaint_matches_jax(route, shape, wv, rng):
     if route == "generic":
         got = tm.fista_inpaint(tp, re, mask, 0.02, level=2, iters=15)
     else:
-        moms = cs_recon._fista_schedule(15)
+        _, moms = cs_recon._fista_schedule(15, 0.02, 1.0)
         got = cs_recon._fista_stepped(tp, torch.from_numpy(re),
                                       torch.from_numpy(mask), 0.02, 2, moms, 1.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-10)
@@ -124,7 +128,7 @@ def test_fista_inpaint_split_matches_jax(route, shape, wv, rng):
     if route == "generic":
         got = tm.fista_inpaint_split(tp, pair, mask, 0.02, level=2, iters=15)
     else:
-        moms = cs_recon._fista_schedule(15)
+        _, moms = cs_recon._fista_schedule(15, 0.02, 1.0)
         got = cs_recon._fista_stepped_split(tp, torch.from_numpy(pair),
                                             torch.from_numpy(mask), 0.02, 2,
                                             moms, 1.0)

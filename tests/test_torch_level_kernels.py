@@ -22,7 +22,7 @@ import pytest
 import torch
 
 import non_decimated_wavelets_tpu_torch as tw
-from non_decimated_wavelets_tpu_torch.ops import cuda_kernels, level_ref
+from non_decimated_wavelets_tpu_torch.ops import cuda_kernels, flat, level_ref
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -164,6 +164,14 @@ def test_long_filters_raise_in_3d():
         cuda_kernels._geometry(plan.shape, plan.taps_hp, False)
 
 
+@pytest.fixture
+def per_level(monkeypatch):
+    """Hold a plan on the card to the per-level route at a shape within the
+    one-launch flat kernel's size (tests/test_torch_flat.py holds that)."""
+    monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernels_match_plain_versions(dtype):
@@ -196,7 +204,7 @@ def test_cuda_kernels_match_plain_versions(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pl2", [False, True])
-def test_cuda_plan_matches_cpu_plan(pl2):
+def test_cuda_plan_matches_cpu_plan(per_level, pl2):
     """The plan on the kernels against the plan on the CPU direct path:
     ``dec_rec`` with the fused shrink, and the autograd adjoints (the
     backward passes run the kernels too). float32, atol 1e-5 / 1e-4."""

@@ -23,6 +23,7 @@ from non_decimated_wavelets_tpu.ops import pallas_kernels
 import non_decimated_wavelets_tpu_torch as tw
 from non_decimated_wavelets_tpu_torch import convert
 from non_decimated_wavelets_tpu_torch import plan as tplan
+from non_decimated_wavelets_tpu_torch.ops import flat
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -39,6 +40,10 @@ TOL = {"float32": (1e-5, 1e-4), "float64": (1e-12, 1e-12)}
 def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device."""
     monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    # The per-level route at these small shapes: tests/test_torch_flat.py
+    # holds the one-launch flat route.
+    monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
 
 
 def _check_plan_vs_jax(shape, wv, level, pl2, dtype, rng):
@@ -155,6 +160,29 @@ def test_band_axis_and_level_inference(rng):
         tw.NDDWT("db4", (4, 8), device="cpu")
 
 
+def test_band_axis_positive_index_matches_jax(rng):
+    """``band_axis=plan.ndim``, the band axis's positive index, names the
+    band-last layout in ``dec``, ``rec`` and ``dec_rec``, as in the JAX plan
+    (JAX ``plan.py:368,383,510``): (16, 16) db2 L2 f64 gives (16, 16, 7)."""
+    shape, level = (16, 16), 2
+    jp = nw.NDDWT(wavelet="db2", shape=shape, dtype="float64")
+    tp = tw.NDDWT("db2", shape, dtype="float64", device="cpu")
+    x = rng.standard_normal(shape)
+    y_j = np.asarray(jp.dec(jnp.asarray(x), level, band_axis=2))
+    y_t = tp.dec(x, level, band_axis=2)
+    assert y_t.shape == y_j.shape == (16, 16, 7)
+    np.testing.assert_allclose(y_t.numpy(), y_j, atol=1e-12)
+    np.testing.assert_allclose(tp.rec(y_t, band_axis=2).numpy(),
+                               np.asarray(jp.rec(jnp.asarray(y_j), band_axis=2)),
+                               atol=1e-12)
+    yb_j, xr_j = jp.dec_rec(jnp.asarray(x), level, threshold=0.1, band_axis=2)
+    yb_t, xr_t = tp.dec_rec(x, level, threshold=0.1, band_axis=2)
+    np.testing.assert_allclose(yb_t.numpy(), np.asarray(yb_j), atol=1e-12)
+    np.testing.assert_allclose(xr_t.numpy(), np.asarray(xr_j), atol=1e-12)
+    with pytest.raises(ValueError, match="band_axis"):
+        tp.dec(x, level, band_axis=1)
+
+
 def test_config_round_trip_and_plan_from_jax():
     jp = nw.NDDWT(wavelet=("db2", "sym4", "haar"), shape=(16, 24, 8),
                   preserve_l2=True, dtype=jnp.bfloat16)
@@ -181,7 +209,8 @@ def test_config_round_trip_and_plan_from_jax():
     ],
 )
 def test_unported_cuda_cases_raise(as_cuda, monkeypatch, shape, dtype, path, match, rng):
-    """5D on CUDA still raises. 1D, float64 and ``path='fft'``, which raised
+    """5D on CUDA beyond the flat kernel's size (here 0, ``as_cuda``) still
+    raises. 1D, float64 and ``path='fft'``, which raised
     before they were ported, now take the 1D kernels, the float64 level
     kernels and the FFT path, and give the CPU direct path's numbers."""
     plan = tw.NDDWT("db2", shape, dtype=dtype, path=path, device="cpu")
