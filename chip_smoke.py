@@ -19,10 +19,19 @@ one-launch paths run a whole solve or chain in one launch of
 ``nddwt_flat_iter`` (``fista_inpaint`` and ``fista_inpaint_split`` at
 256^2, 100 iterations; ``dec_rec_n`` at 264^2, 20 sweeps) and a whole
 transform in one ``nddwt_flat_pair`` (``dec_rec`` at 256^2, its main
-path; ``dec_rec_split`` at 128^2; 5D plans). The older paths' launch checks run with the flat kernel switched
-off, held to their per-level counts, and again on the plan's own route,
-held to the flat counts, where their shapes fall within the flat kernel's
-size (``ops/flat.py``). Phases:
+path; ``dec_rec_split`` at 128^2; 5D plans). The multilevel paths run a
+whole transform of a batch in one ``nddwt_dec_multi`` and one
+``nddwt_rec_multi`` launch: ``dec_rec`` of a real 128^3 db4 L3 volume with
+the flat kernel switched off, ``dec_batched``/``rec_batched`` of a
+multi-coil slice (8 complex64 256^2 items, their main path; real float32
+and float64 too), and a complex (128, 128, 160) ``dec_rec`` with a
+threshold (with one ``nddwt_mag_shrink_pair`` between them). The older
+paths' launch checks run with the flat and multilevel kernels switched off,
+held to their per-level counts; again on the multilevel kernels (the flat
+kernel off), held to one launch each way, where their shapes take them
+(``ops/multi.py``); and on the plan's own route, held to the flat counts,
+where their shapes fall within the flat kernel's size (``ops/flat.py``).
+Phases:
 
 1. the card's name and power limit; build every CUDA kernel from this
    checkout's sources (one ``nvcc`` per source, all at once);
@@ -33,7 +42,11 @@ size (``ops/flat.py``). Phases:
    1M, 54321, 8 (N = K) and 2^23 samples in float32, bfloat16 and float64;
    the two flat kernels in every mode, with and without the split pair,
    at the JAX flat tests' shapes, two 5D shapes, N = K and the one-launch
-   paths' shapes, in float32, bfloat16 and float64;
+   paths' shapes, in float32, bfloat16 and float64; the two multilevel
+   kernels at the JAX multilevel tests' cases (mixed wavelets, L2-L4) and
+   odd extents (37, 29, 41) and (50, 33), batches of 1, 2 and 3, lam 0 and
+   0.1, both normalizations, in float32, bfloat16 and float64, and at the
+   multi-coil batch;
 3. the main path at 256^3 (both normalizations) against the plain path on
    the card, the threshold-0 round trip, and the 64^3 flagship step of
    ``__graft_entry__.entry`` against the float64 NumPy oracle; the kernels'
@@ -52,7 +65,9 @@ size (``ops/flat.py``). Phases:
    step against the oracle; 1D float32 at 1M and 2^23 samples and float64
    at 2^23; then the one-launch paths, each against the same call on a
    ``path='direct'`` plan on the card, each whole solve, chain or transform
-   exactly one launch. 100 float32 FISTA iterations are held to the
+   exactly one launch; then the multilevel paths, each against the same
+   call on a ``path='direct'`` plan on the card, with exact launch counts.
+   100 float32 FISTA iterations are held to the
    solver gate, 1e-4 max; if they drift past it (rounding compounds over
    the iterations, and the two routes sum in other orders), the drift is
    printed and the float64 solve is held to float64 direct within 1e-10
@@ -68,15 +83,19 @@ size (``ops/flat.py``). Phases:
    PyTorch call computes a multilevel transform), the whole solve per
    iteration beside one stepped iteration, ``dec_rec_n`` per sweep beside
    one per-level ``dec_rec``, the 128^3 db20 step on the stage and the
-   flat kernels, and the crossover tables of ``chip_flat_crossover.py``.
+   flat kernels; the multilevel kernels per call at the multi-coil batch
+   (16 real 256^2 components) beside the same batch on the per-level route
+   and the flat kernel; and the crossover tables of
+   ``chip_flat_crossover.py`` (the multilevel columns and the batched table
+   among them).
 
 It exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
 before it a JSON list of the kernels with their launches, errors, times and
 bounds (the float64 instantiations of the per-level and 1D kernels in a
-``float64`` entry each, the flat kernels' per-level route time in
-``per_level_route_ms``); the line before that the card's name and power
-limit.
+``float64`` entry each, the flat and multilevel kernels' per-level route
+time in ``per_level_route_ms``, the multilevel kernels' flat-kernel time in
+``flat_route_ms``); the line before that the card's name and power limit.
 """
 
 import contextlib
@@ -105,6 +124,16 @@ STAGE_KERNELS = ("nddwt_lane_dec", "nddwt_lead_dec", "nddwt_lead_adj",
                  "nddwt_lane_adj")
 FLAT_KERNELS = ("nddwt_flat_pair", "nddwt_flat_iter")
 FLAT_SOURCE = "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_flat.cu"
+MULTI_KERNELS = ("nddwt_dec_multi", "nddwt_rec_multi")
+MULTI_SOURCE = "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_multi.cu"
+ONE_MULTI = dict.fromkeys(MULTI_KERNELS, 1)  # a dec and a rec on the multilevel kernels
+# The multilevel paths: a real 128^3 step beyond the flat route, a multi-coil
+# slice (N complex 256^2 items), a complex volume beyond the flat kernel.
+MULTI_VOLUME, COILS, COIL_SHAPE, CPLX_VOLUME = (128, 128, 128), 8, (256, 256), (128, 128, 160)
+# The JAX multilevel tests' cases (tests/test_pallas.py:45-50) and odd extents.
+MULTI_CASES = [((64, 128), "db2", 3), ((32, 16, 128), "db4", 3),
+               ((16, 16, 256), ("db1", "db3", "db2"), 2), ((24, 8, 128), ("db6", "db2", "db4"), 4),
+               ((37, 29, 41), "db4", 3), ((50, 33), ("db2", "db6"), 4)]
 SOLVE_SHAPE, SOLVE_ITERS = (256, 256), 100  # the one-launch FISTA solves
 CHAIN_SHAPE, CHAIN_WV, CHAIN_SWEEPS = (264, 264), ("db1", "db3"), 20  # nd_dwt_2D's
 SPLIT_SHAPE = (128, 128)  # the one-launch dec_rec_split
@@ -130,6 +159,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nddwt_flat_pair": (FLAT_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_flat.py:269; "
                         "non_decimated_wavelets_tpu/ops/pallas_resident.py:84,269,350"),
     "nddwt_flat_iter": (FLAT_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_flat.py:495"),
+    "nddwt_dec_multi": (MULTI_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_kernels.py:1037"),
+    "nddwt_rec_multi": (MULTI_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_kernels.py:1526"),
 }
 # The float64 instantiations of the per-level kernels replace the TPU's
 # float64-accurate (double-f32) levels.
@@ -271,7 +302,8 @@ def main() -> int:
     from non_decimated_wavelets_tpu_torch.models.cs_recon import _fista_schedule
     from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
     from non_decimated_wavelets_tpu_torch.ops import (
-        direct_path, elemwise, elemwise_ref, flat, flat_ref, level4_ref, level_ref)
+        direct_path, elemwise, elemwise_ref, flat, flat_ref, level4_ref, level_ref, multi,
+        multi_ref)
 
     import chip_flat_crossover as xover
 
@@ -293,6 +325,7 @@ def main() -> int:
     ck.load1()
     elemwise.load()
     flat.load()
+    multi.load()
     print(f"  built and loaded {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -561,17 +594,63 @@ def main() -> int:
                 del x, mask, b, runs, k, r
     torch.cuda.empty_cache()
 
+    # The multilevel kernels: the JAX multilevel tests' cases, odd extents,
+    # batches of 1-3, lam 0 and 0.1, both normalizations, every dtype; and
+    # the multi-coil path's batch (2 N real components of 256^2), its main
+    # path, in float32.
+    for seed, (shape, wv, lvl) in enumerate(
+            MULTI_CASES + [(COIL_SHAPE, "db4", LEVEL)]):
+        taps = tw.NDDWT(wv, shape, device=dev).taps_hp
+        main = shape == COIL_SHAPE
+        for dt in ((torch.float32,) if main else (torch.float32, torch.bfloat16,
+                                                  torch.float64)):
+            for batch in ((2 * COILS,) if main else (1, 2, 3)):
+                gen.manual_seed(60 + seed)
+                tag = f"{(batch,) + shape} {wv} L{lvl} {str(dt).removeprefix('torch.')}"
+                errs = dict.fromkeys(MULTI_KERNELS, 0.0)
+                x = randn((batch,) + shape, dt)
+                for lam in (0.0, THRESHOLD):
+                    k = multi.dec_multi(x, taps, lvl, lam)
+                    r = multi_ref.dec_multi_ref(x, taps, lvl, lam)
+                    torch.cuda.synchronize()
+                    errs["nddwt_dec_multi"] = max(errs["nddwt_dec_multi"], check(
+                        f"nddwt_dec_multi {tag} lam={lam}", max_err(k, r), rel_tol(r, dt),
+                        show=False))
+                for pl2 in (False, True):
+                    k = multi.rec_multi(r, taps, lvl, pl2)
+                    rr = multi_ref.rec_multi_ref(r, taps, lvl,
+                                                 1.0 if pl2 else 0.5 ** len(shape))
+                    torch.cuda.synchronize()
+                    errs["nddwt_rec_multi"] = max(errs["nddwt_rec_multi"], check(
+                        f"nddwt_rec_multi {tag} preserve_l2={pl2}", max_err(k, rr),
+                        rel_tol(rr, dt), show=False))
+                print(f"  multilevel kernels {tag}: 4 checks, max_abs_err "
+                      + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+                if main:
+                    main_err.update(errs)
+                del x, k, r, rr
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- phase 3
     print(f"phase 3: the main path, NDDWT.dec_rec at {SHAPE} db4 L{LEVEL} f32")
     to_flat = []  # older launch checks whose shapes also take the flat kernel
+    to_multi = []  # and those whose shapes take the multilevel kernels
 
-    def routes(what, plan, dtype, batch, per_level, on_flat, run):
-        """``run()`` on the per-level route (the flat kernel switched off),
-        held to the launches ``per_level``; and, where ``plan``'s shape
-        (with a pair when ``batch`` is 2) is within the flat kernel's size,
-        again on the plan's own route, held to ``on_flat``. Returns (route,
+    def routes(what, plan, dtype, batch, level, per_level, on_flat, run):
+        """``run()`` (a dec and a rec, or a dec_rec, of ``level`` levels) on
+        the per-level route (the flat and multilevel kernels switched off),
+        held to the launches ``per_level``; where ``plan``'s items take the
+        multilevel kernels, on them (the flat kernel switched off), held to
+        one launch each way, both components of a pair in one; and, where
+        ``plan``'s shape (with a pair when ``batch`` is 2) is within the flat
+        kernel's size, on the plan's own route, held to ``on_flat`` (else
+        the plan's own route is one of the first two). Returns (route,
         result) for each run; the counts are set to 0 just before each."""
-        ways = [("per-level route", lambda: xover.limits(0, 0), per_level)]
+        ways = [("per-level route", lambda: xover.limits(0, 0, 0), per_level)]
+        if multi.multi_supported(plan.shape, plan.taps_hp, dtype, level):
+            to_multi.append(what)
+            ways.append(("multilevel route",
+                         lambda: xover.limits(0, 0, multi.MULTI_MAX_NUMEL), ONE_MULTI))
         if flat.flat_supported(plan.shape, dtype, batch, taps=plan.taps_hp):
             to_flat.append(what)
             ways.append(("flat route", contextlib.nullcontext, on_flat))
@@ -629,7 +708,7 @@ def main() -> int:
     x64 = np.random.default_rng(0).standard_normal((64, 64, 64)).astype(np.float32)
     plan64 = tw.NDDWT("db4", (64, 64, 64), device=dev)
     gold = oracle_step(x64)
-    for route, step in routes("64^3 flagship step", plan64, torch.float32, 0,
+    for route, step in routes("64^3 flagship step", plan64, torch.float32, 0, LEVEL,
                               per_level, {"nddwt_flat_pair": 2},
                               lambda: step_of(plan64, x64)):
         check(f"64^3 flagship step vs float64 oracle, {route}",
@@ -722,7 +801,7 @@ def main() -> int:
     yp = torch.cat([yp[:1], soft_threshold(yp[1:], THRESHOLD)])
     xp = direct_path.rec_direct(yp, plan20.taps, 2, False)
     for route, (y, xr) in routes(
-            "3D db20 L2 step, the long-filter route", plan20, torch.float32, 0,
+            "3D db20 L2 step, the long-filter route", plan20, torch.float32, 0, 2,
             dict.fromkeys(STAGE_KERNELS, 2), {"nddwt_flat_pair": 1},
             lambda: plan20.dec_rec(x20, 2, threshold=THRESHOLD, band_axis=0)):
         check(f"3D db20 bands vs plain path, {route}", max_err(y, yp),
@@ -785,7 +864,8 @@ def main() -> int:
                 return y, t.rec(y)
 
             for route, (y, xr) in routes(  # two components
-                    tag, route_plan, torch.float64, 2, dict.fromkeys(by_ndim[nd], 2 * lvl),
+                    tag, route_plan, torch.float64, 2, lvl,
+                    dict.fromkeys(by_ndim[nd], 2 * lvl),
                     {"nddwt_flat_pair": 2}, dec_rec):
                 what = f"{tag}, {route}"
                 if compute == "gpu":
@@ -836,7 +916,7 @@ def main() -> int:
     x64 = np.random.default_rng(0).standard_normal((64, 64, 64))
     plan64s = tw.NDDWT("db4", (64, 64, 64), dtype="double", device=dev)
     gold = oracle_step(x64)
-    for route, step in routes("64^3 f64 step", plan64s, torch.float64, 0,
+    for route, step in routes("64^3 f64 step", plan64s, torch.float64, 0, LEVEL,
                               dict.fromkeys(F64_REPLACES, LEVEL), {"nddwt_flat_pair": 2},
                               lambda: step_of(plan64s, x64)):
         check(f"64^3 f64 step vs float64 oracle, {route}",
@@ -852,7 +932,8 @@ def main() -> int:
         return y, plan1.rec(y)
 
     for route, (y1, xr1) in routes(f"1D {N1M} db4 L{LEVEL} dec+rec", plan1, torch.float32,
-                                   0, dict.fromkeys(LEVEL1, LEVEL), {"nddwt_flat_pair": 2},
+                                   0, LEVEL, dict.fromkeys(LEVEL1, LEVEL),
+                                   {"nddwt_flat_pair": 2},
                                    dec_rec1):
         check(f"1D {N1M} bands vs float64 oracle, {route}",
               float(np.abs(y1.cpu().numpy() - gold).max()), 1e-4)
@@ -892,6 +973,7 @@ def main() -> int:
     del y, xr, yp, xp, xl64
     torch.cuda.empty_cache()
     print(f"  launch checks also run on the flat route: {', '.join(to_flat) or 'none'}")
+    print(f"  and on the multilevel route: {', '.join(to_multi) or 'none'}")
 
     print(f"phase 3: the one-launch solves, fista_inpaint and fista_inpaint_split at "
           f"{SOLVE_SHAPE} db4 L{LEVEL} f32, preserve_l2, {SOLVE_ITERS} iterations, "
@@ -1010,6 +1092,67 @@ def main() -> int:
             check(f"{tag} dec_rec vs plain path", max(max_err(yb5, ybd), max_err(xb5, xbd)),
                   tol * ybd.abs().max().item())
     del y, xr, yr, xrr, xp2
+    torch.cuda.empty_cache()
+
+    print(f"phase 3: the multilevel paths, db4 L{LEVEL}: a real {MULTI_VOLUME} f32 "
+          f"dec_rec beyond the flat route, a multi-coil slice ({COILS} x {COIL_SHAPE}) "
+          f"through dec_batched/rec_batched, a complex {CPLX_VOLUME} dec_rec({THRESHOLD})")
+
+    def on_card(what, want, run, ref, tol):
+        """``run()`` with the counts set to 0 just before it, held to the
+        launches ``want``; each of its results against ``ref()``'s, within
+        ``tol`` times the largest magnitude of each, and finite."""
+        ck.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        counts = check_launches(what, dict(ck.launch_counts), want)
+        for i, (g, r) in enumerate(zip(got, ref())):
+            if g.shape != r.shape or not torch.isfinite(torch.view_as_real(g) if g.is_complex()
+                                                         else g).all():
+                failures.append(f"{what}: result {i} {tuple(g.shape)} or non-finite values")
+            check(f"{what}, result {i} vs the plain route", max_err(g, r),
+                  tol * r.abs().max().item())
+        return counts
+
+    def batched_pair(p, xb):
+        y = p.dec_batched(xb, LEVEL)
+        return y, p.rec_batched(y)
+
+    gen.manual_seed(1300)
+    mplan = tw.NDDWT("db4", MULTI_VOLUME, device=dev)
+    mdirect = tw.NDDWT("db4", MULTI_VOLUME, path="direct", device=dev)
+    xm = torch.randn(MULTI_VOLUME, generator=gen, device=dev)
+    with xover.limits(0, 0, multi.MULTI_MAX_NUMEL):  # the flat route switched off
+        on_card(f"dec_rec {MULTI_VOLUME} f32, flat route off", ONE_MULTI,
+                lambda: mplan.dec_rec(xm, LEVEL, threshold=THRESHOLD, band_axis=0),
+                lambda: mdirect.dec_rec(xm, LEVEL, threshold=THRESHOLD, band_axis=0),
+                F32_TOL)
+    del xm
+    for dt in (torch.complex64, torch.float32, torch.float64):
+        real = {torch.complex64: torch.float32}.get(dt, dt)
+        coil_plan = tw.NDDWT("db4", COIL_SHAPE, dtype=real, device=dev)
+        coil_direct = tw.NDDWT("db4", COIL_SHAPE, dtype=real, path="direct", device=dev)
+        xb = torch.randn((COILS,) + COIL_SHAPE, generator=gen, device=dev, dtype=dt)
+        tag = f"{COILS} x {COIL_SHAPE} {str(dt).removeprefix('torch.')}"
+        got = on_card(f"dec_batched + rec_batched, {tag}", ONE_MULTI,
+                      lambda: batched_pair(coil_plan, xb), lambda: batched_pair(coil_direct, xb),
+                      F64_TOL if real == torch.float64 else F32_TOL)
+        if dt == torch.complex64:  # the multilevel kernels' main path
+            launches.update({k: got[k] for k in MULTI_KERNELS})
+        check(f"dec_batched + rec_batched, {tag}, round trip",
+              max_err(batched_pair(coil_plan, xb)[1], xb),
+              1e-12 if real == torch.float64 else 1e-4)
+    del xb
+    vplan = tw.NDDWT("db4", CPLX_VOLUME, device=dev)
+    vdirect = tw.NDDWT("db4", CPLX_VOLUME, path="direct", device=dev)
+    xv = torch.randn(CPLX_VOLUME, generator=gen, device=dev, dtype=torch.complex64)
+    if flat.flat_supported(CPLX_VOLUME, torch.float32, 2, taps=vplan.taps_hp):
+        failures.append(f"complex {CPLX_VOLUME}: within the flat kernel's size")
+    on_card(f"complex dec_rec({THRESHOLD}) {CPLX_VOLUME}",
+            {**ONE_MULTI, "nddwt_mag_shrink_pair": 1},
+            lambda: vplan.dec_rec(xv, LEVEL, threshold=THRESHOLD, band_axis=0),
+            lambda: vdirect.dec_rec(xv, LEVEL, threshold=THRESHOLD, band_axis=0), F32_TOL)
+    del xv
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 4
@@ -1321,7 +1464,7 @@ def main() -> int:
         timed(lambda: flat.fista_flat(b0, smask, taps_s, LEVEL, True, lams_s, moms_s, 1.0), 5),
         timed(lambda: flat_ref.flat_iter_ref("fista", b0, smask, taps_s, LEVEL, True, lams_s,
                                              moms_s, 1.0), 1, warm=1))
-    with xover.limits(0, 0):  # the per-level route at the same shapes
+    with xover.limits(0, 0, 0):  # the per-level route at the same shapes
         per_level_route = {
             "nddwt_flat_pair": timed(
                 lambda: fplan.dec_rec(x0, LEVEL, threshold=THRESHOLD, band_axis=0), 50),
@@ -1366,16 +1509,60 @@ def main() -> int:
     t20 = {}
     for route, cap in (("stage kernels", 0), ("flat kernel", 2**62), ("flat kernel", 2**62),
                        ("stage kernels", 0)):
-        with xover.limits(cap, cap):
+        with xover.limits(cap, cap, 0):
             t20.setdefault(route, []).append(timed(step20, 10))
     own = flat.flat_supported(plan20.shape, torch.float32, taps=plan20.taps_hp)
     print(f"  dec_rec {plan20.shape} db20 L2 f32 per call: stage kernels "
           f"{sum(t20['stage kernels']) / 2:.4f} ms, flat kernel {sum(t20['flat kernel']) / 2:.4f} "
           f"ms (the plan takes the {'flat' if own else 'stage'} route) {card}")
+    # The multilevel kernels at their main path's call, the multi-coil
+    # slice's 2 N real components of 256^2 db4 L3 f32, beside the same batch
+    # through dec_batched/rec_batched on the per-level route and on the flat
+    # kernel (no PyTorch call computes a multilevel transform).
+    taps_c = tw.NDDWT("db4", COIL_SHAPE, device=dev).taps_hp
+    rplan = tw.NDDWT("db4", COIL_SHAPE, device=dev)
+    gen.manual_seed(1400)
+    xbm = torch.randn((2 * COILS,) + COIL_SHAPE, generator=gen, device=dev)
+    ybm = multi.dec_multi(xbm, taps_c, LEVEL)
+    ms["nddwt_dec_multi"] = (timed(lambda: multi.dec_multi(xbm, taps_c, LEVEL), 50),
+                             timed(lambda: multi_ref.dec_multi_ref(xbm, taps_c, LEVEL), 5))
+    ms["nddwt_rec_multi"] = (
+        timed(lambda: multi.rec_multi(ybm, taps_c, LEVEL, False), 50),
+        timed(lambda: multi_ref.rec_multi_ref(ybm, taps_c, LEVEL, 0.25), 5))
+    flat_route = {}
+    nitems = 2 * COILS
+    for route, caps, per_item, store in (
+            ("per-level", (0, 0, 0), ("nddwt_dec_level", "nddwt_rec_level", LEVEL),
+             per_level_route),
+            ("flat", (2**62, 2**62, 0), ("nddwt_flat_pair", "nddwt_flat_pair", 1),
+             flat_route)):
+        with xover.limits(*caps):
+            for name, fn in (("nddwt_dec_multi", lambda: rplan.dec_batched(xbm, LEVEL)),
+                             ("nddwt_rec_multi", lambda: rplan.rec_batched(ybm))):
+                kernel = per_item[0] if name == "nddwt_dec_multi" else per_item[1]
+                got = xover.launches(fn)
+                if got != {kernel: nitems * per_item[2]}:
+                    failures.append(f"{name} on the {route} route launched {got}")
+                store[name] = timed(fn, 20)
+    nvc = nitems * int(np.prod(COIL_SHAPE))
+    flops_multi = LEVEL * nvc * sum(2 ** (a + 2) * len(t[0]) for a, t in enumerate(taps_c))
+    bytes_multi = (1 + rplan.num_bands(LEVEL)) * nvc * f32  # x and the bands, once each
+    bound.update(dict.fromkeys(MULTI_KERNELS, bound_ms(bytes_multi, flops_multi)))
+    library.update(dict.fromkeys(MULTI_KERNELS))
+    for name in MULTI_KERNELS:
+        k, p = ms[name]
+        print(f"  {name} {(nitems,) + COIL_SHAPE} db4 L{LEVEL} f32 per call: kernel {k:.4f} ms, "
+              f"plain {p:.4f} ms, per-level route {per_level_route[name]:.4f} ms, flat "
+              f"kernel {flat_route[name]:.4f} ms, library none, bound {bound[name][0]:.4f} ms "
+              f"({bound[name][1]}) {card}")
+    del xbm, ybm
+    torch.cuda.empty_cache()
     print(f"  crossover, one launch against the per-level route ({xover.__name__}.py) {card}:")
     table = xover.measure(log=lambda line: print(f"    {line}"), max_reps=20)
     print("    " + json.dumps({k: table[k] for k in (
-        "flat_no_slower_up_to", "one_launch_solve_no_slower_up_to")}))
+        "flat_no_slower_up_to", "one_launch_solve_no_slower_up_to",
+        "multi_no_slower_than_per_level_up_to", "multi_10pct_faster_than_flat_from",
+        "batched_multi_no_slower_than_per_level_up_to")}))
     ms.update(ms1[torch.float32])
     bound.update(bound1[torch.float32])
     library.update(library1[torch.float32])
@@ -1408,6 +1595,8 @@ def main() -> int:
             k["float64"] = entry(*f64_entry[name])
         if name in per_level_route:  # in place of a library call
             k["per_level_route_ms"] = per_level_route[name]
+        if name in flat_route:
+            k["flat_route_ms"] = flat_route[name]
         kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-// What the per-level kernels (nddwt_level.cu) and the 4D stage kernels
-// (nddwt_4d.cu) share: the geometry of one launch over a 3-slot view of the
-// array, the storage <-> compute conversions, the taps' copy into shared
-// memory and the tile order.
+// What the per-level kernels (nddwt_level.cu, nddwt_tile.cuh), the 4D stage
+// kernels (nddwt_4d.cu) and the multilevel kernels (nddwt_multi.cu) share:
+// the geometry of one launch over a 3-slot view of the array, the storage
+// <-> compute conversions, the taps' copy into shared memory and the tile
+// order.
 //
 // Every kernel has a storage type T and a compute type C = compute_t<T>:
 // float for float and bfloat16 storage, double for double. The taps of a
@@ -80,16 +81,21 @@ __device__ void copy_taps(C (*dst)[2][kMaxTaps], const LevelT<C>& g) {
     (&dst[0][0][0])[i] = (&g.taps[0][0][0])[i];
 }
 
-// Tile origin of this CTA (tiles flattened, slot 2 fastest).
+// Origin of tile `id` (tiles flattened, slot 2 fastest).
 template <typename C>
-__device__ void tile_origin(const LevelT<C>& g, int* b) {
-  int id = blockIdx.x;
+__device__ void tile_origin(const LevelT<C>& g, unsigned int id, int* b) {
   const int n2 = (g.n[2] + g.t[2] - 1) / g.t[2];
   const int n1 = (g.n[1] + g.t[1] - 1) / g.t[1];
   b[2] = (id % n2) * g.t[2];
   id /= n2;
   b[1] = (id % n1) * g.t[1];
   b[0] = (id / n1) * g.t[0];
+}
+
+// Tile origin of this CTA: one tile per CTA.
+template <typename C>
+__device__ void tile_origin(const LevelT<C>& g, int* b) {
+  tile_origin(g, blockIdx.x, b);
 }
 
 template <typename C>
@@ -111,7 +117,7 @@ LevelT<C> make_level(const int* n, const int* k, const int* t, const int* left,
 }
 
 template <typename C>
-unsigned int num_tiles(const LevelT<C>& g) {
+__host__ __device__ unsigned int num_tiles(const LevelT<C>& g) {
   unsigned int c = 1;
   for (int a = 0; a < 3; ++a) c *= (g.n[a] + g.t[a] - 1) / g.t[a];
   return c;

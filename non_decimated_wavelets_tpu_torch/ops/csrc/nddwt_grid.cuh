@@ -47,29 +47,37 @@ __host__ __device__ __forceinline__ int rec_band_index(int nb, int lvl, int b) {
   return lvl == 0 ? b : nb + (nb - 1) * (lvl - 1) + b - 1;
 }
 
-// Launch `kernel(args)` on a cooperative grid of `threads`-thread CTAs:
-// as many as fit the device at once, capped at what `max_items` work items
-// need. Returns the launch's cudaError_t (0 on success).
+// Launch `kernel(args)` on a cooperative grid of `threads`-thread CTAs with
+// `smem` bytes of dynamic shared memory each: as many as fit the device at
+// once, capped at what `max_items` work items need, `per_cta` of them to a
+// CTA (a thread's worth, `threads`, unless given: the flat kernels; one
+// tile, 1: the multilevel kernels). Returns the launch's cudaError_t (0 on
+// success): a shared-memory size or grid the device refuses is an error,
+// never a smaller launch.
 template <typename Args>
 int launch_cooperative(void (*kernel)(Args), const Args& args,
                        long long max_items, int threads,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, size_t smem = 0,
+                       int per_cta = 0) {
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                      0);
+                                                      smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  long long want = (max_items + threads - 1) / threads;
+  if (per_cta < 1) per_cta = threads;
+  long long want = (max_items + per_cta - 1) / per_cta;
   if (want < 1) want = 1;
   const long long most = (long long)per_sm * sms;
   const int grid = (int)(want < most ? want : most);
   void* params[] = {const_cast<Args*>(&args)};
   e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                  dim3(threads), params, 0, stream);
+                                  dim3(threads), params, smem, stream);
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }

@@ -36,7 +36,11 @@ route from the taps (``stage_route``).
 ``csrc/nddwt_elemwise.cu`` holds the solvers' elementwise kernels, bound in
 ``ops/elemwise.py``; ``csrc/nddwt_flat.cu`` the one-launch whole-transform
 and whole-solve kernels of small arrays of any ndim, bound in
-``ops/flat.py``.
+``ops/flat.py``; ``csrc/nddwt_multi.cu`` the one-launch multilevel kernels
+of batches of 2D and 3D arrays, bound in ``ops/multi.py``, which run the
+per-level kernels' tiles (``csrc/nddwt_tile.cuh``) for every level in one
+launch: ``dec_levels``/``rec_levels`` take them where
+``multi.multi_supported`` holds.
 
 Every kernel takes float32 and bfloat16 arrays, computing in float32, and
 float64 arrays, computing in float64 with float64 taps: the float64
@@ -72,7 +76,7 @@ from .level_ref import dec_level_ref, rec_level_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("nddwt_level", "nddwt_elemwise", "nddwt_4d", "nddwt_1d",
-           "nddwt_flat")  # csrc/<name>.cu
+           "nddwt_flat", "nddwt_multi")  # csrc/<name>.cu
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -101,6 +105,8 @@ launch_counts = {
     "nddwt_rec1_level": 0,
     "nddwt_flat_pair": 0,
     "nddwt_flat_iter": 0,
+    "nddwt_dec_multi": 0,
+    "nddwt_rec_multi": 0,
 }
 
 
@@ -704,12 +710,19 @@ def rec1_level(y, approx, band_src, taps, scale):
 
 def dec_levels(x, taps, level: int, lam: float = 0.0, out=None):
     """Multilevel analysis, ``(B, *s)``, written into ``out`` when given:
-    per level one ``dec1_level`` launch in 1D (``pallas_padded.dec_padded1``),
-    one ``dec_level`` launch in 2D and 3D, or a lane and a lead stage launch
-    where ``stage_route`` says so (``pallas_4d.dec4``). Level ``l`` writes
-    its details at ``B - (2^d - 1)(l + 1)`` (the tail of
-    ``pallas_kernels._dec_dispatch``), the last one its approximation into
-    band 0."""
+    one ``nddwt_dec_multi`` launch for all levels where
+    ``multi.multi_supported`` holds (the multi branch of
+    ``pallas_kernels._dec_dispatch``); else per level one ``dec1_level``
+    launch in 1D (``pallas_padded.dec_padded1``), one ``dec_level`` launch
+    in 2D and 3D, or a lane and a lead stage launch where ``stage_route``
+    says so (``pallas_4d.dec4``). Level ``l`` writes its details at ``B -
+    (2^d - 1)(l + 1)`` (the tail of ``pallas_kernels._dec_dispatch``), the
+    last one its approximation into band 0."""
+    from . import multi  # which imports this module
+
+    if multi.multi_supported(x.shape, taps, x.dtype, level):
+        return multi.dec_multi(x[None], taps, level, lam,
+                               None if out is None else out[None])[0]
     nb = 2**x.ndim
     B = num_bands(x.ndim, level)
     big = out if out is not None else torch.empty(
@@ -727,11 +740,16 @@ def dec_levels(x, taps, level: int, lam: float = 0.0, out=None):
 
 
 def rec_levels(y, taps, level: int, preserve_l2: bool):
-    """Multilevel synthesis, per level one ``rec1_level`` launch in 1D
-    (``pallas_padded.rec_padded1``), one ``rec_level`` launch in 2D and 3D,
-    or a lead and a lane stage adjoint (``pallas_4d.rec4``): band 0 comes
-    from the previous level's output, the details from ``y[pos + b - 1]``
-    (the tail of ``pallas_kernels._rec_dispatch``)."""
+    """Multilevel synthesis: one ``nddwt_rec_multi`` launch where
+    ``multi.multi_supported`` holds; else per level one ``rec1_level``
+    launch in 1D (``pallas_padded.rec_padded1``), one ``rec_level`` launch
+    in 2D and 3D, or a lead and a lane stage adjoint (``pallas_4d.rec4``):
+    band 0 comes from the previous level's output, the details from
+    ``y[pos + b - 1]`` (the tail of ``pallas_kernels._rec_dispatch``)."""
+    from . import multi  # which imports this module
+
+    if multi.multi_supported(y.shape[1:], taps, y.dtype, level):
+        return multi.rec_multi(y[None], taps, level, preserve_l2)[0]
     nb = 2 ** (y.ndim - 1)
     scale = 1.0 if preserve_l2 else 1.0 / nb
     stages = stage_route(y.shape[1:], taps, y.dtype)

@@ -1,0 +1,152 @@
+"""The one-launch multilevel CUDA kernels: bind and launch, gate the route.
+
+``csrc/nddwt_multi.cu`` holds the two hand-written Hopper kernels that
+replace ``non_decimated_wavelets_tpu/ops/pallas_kernels.py``'s one-launch
+multilevel cascade over a batch of 2D or 3D arrays:
+
+* ``nddwt_dec_multi`` for ``_fused_dec_multi`` / ``_make_dec_multi_kernel``
+  (``dec_multi``);
+* ``nddwt_rec_multi`` for ``_fused_rec_multi`` / ``_make_rec_multi_kernel``
+  (``rec_multi``).
+
+Each runs every level of a whole batch in one cooperative launch, its CTAs
+claiming the per-level kernels' tiles from a per-level counter, with a grid
+barrier between levels. They take float32, bfloat16 (float32 compute) and float64 arrays.
+``multi_supported`` is the counterpart of ``multi_feasible``: where it holds,
+the level loops (``cuda_kernels.dec_levels``/``rec_levels``), the plan's
+complex and split pairs and ``NDDWT.dec_batched``/``rec_batched`` take one
+launch per direction. ``MULTI_MAX_NUMEL`` is the largest item, in elements,
+up to which a batch of 2 (a complex array's or split pair's parts) and of
+8 items on these kernels was no slower than the same batch item by item on
+the per-level route, in 2D and 3D db4 L3 float32 on an H100
+(``chip_flat_crossover.py``, ``PERF.md``): those are the calls they take,
+since the flat kernel takes every single 2D or 3D array of that size. It is
+the largest count measured, 2^22 (the JAX package's limit is 4,000,000).
+
+Each wrapper launches its kernel for a CUDA tensor and raises if the launch
+fails; for a CPU tensor it runs the plain version (``ops/multi_ref.py``).
+Launches are counted in ``cuda_kernels.launch_counts``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..oracle import num_bands
+from . import cuda_kernels as ck
+from .multi_ref import dec_multi_ref, rec_multi_ref
+
+MULTI_MAX_NUMEL = 2**22
+
+
+def _slots(shape, taps):
+    """Extents and tap counts per slot (a 2D array is (1, n0, n1))."""
+    pad = 3 - len(shape)
+    return ([1] * pad + [int(s) for s in shape],
+            [1] * pad + [int(np.shape(t)[1]) for t in taps])
+
+
+def multi_supported(shape, taps, dtype, level) -> bool:
+    """Whether a ``level``-level transform of ``dtype`` items of ``shape``,
+    one filter of ``taps`` per axis, takes the multilevel kernels: 2 or 3
+    axes, at least two levels, a shared-memory tile for both directions (3D
+    filters of db15 and up take the stage kernels instead,
+    ``cuda_kernels.stage_route``), and at most ``MULTI_MAX_NUMEL`` elements
+    an item."""
+    shape = tuple(int(s) for s in shape)
+    if (len(shape) not in (2, 3) or len(taps) != len(shape) or int(level) < 2
+            or dtype not in ck.DTYPE_CODE
+            or int(np.prod(shape)) > MULTI_MAX_NUMEL):
+        return False
+    n, k = _slots(shape, taps)
+    word = ck._word(dtype)
+    return max(k) <= ck._MAX_TAPS and all(
+        ck._tiles(n, k, rec, word) is not None for rec in (False, True))
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The multilevel kernel library with its signatures declared."""
+    lib = ck.library("nddwt_multi")
+    ip = ctypes.POINTER(ctypes.c_int)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    for name in ("nddwt_dec_multi", "nddwt_rec_multi"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, ip, ip, ip, ip, ip, vp,
+                       ctypes.c_double, vp]
+        fn.restype = ctypes.c_int
+    return ck._check_level_library(lib)
+
+
+def _check(shape, taps, level, items):
+    if len(shape) not in (2, 3) or len(taps) != len(shape):
+        raise NotImplementedError(
+            f"the multilevel CUDA kernels take 2D and 3D items with one filter "
+            f"per axis, got items of shape {shape} with {len(taps)} filters"
+        )
+    if int(level) < 1:
+        raise ValueError(f"level must be >= 1, got {level}")
+    if items < 1:
+        raise ValueError("a batch needs at least one item")
+
+
+def _launch(name, src, dst, shape, taps, level, rec, coef):
+    """One launch of ``name`` over ``src`` -> ``dst``, with the ping slots
+    and the per-level work counters it needs; raises if the launch
+    fails."""
+    items = src.shape[0]
+    ping = torch.empty((min(level - 1, 2) * items,) + shape, dtype=src.dtype,
+                       device=src.device)
+    counters = torch.zeros(level, dtype=torch.int64, device=src.device)
+    n, k, t, left, bit, arr = ck._geometry(shape, taps, rec, src.dtype)
+    lib = load()
+    with torch.cuda.device(src.device):
+        err = getattr(lib, name)(
+            src.data_ptr(), dst.data_ptr(), ping.data_ptr() if ping.numel() else None,
+            counters.data_ptr(), ck.DTYPE_CODE[src.dtype], len(shape), items,
+            int(level), n, k, t, left, bit, ck._taps_ptr(arr), float(coef),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    ck.raise_on(lib, err, name)
+    ck.launch_counts[name] += 1
+
+
+def dec_multi(x, taps, level: int, lam: float = 0.0, out=None):
+    """``x`` ``(N, *s)`` -> bands ``(N, B, *s)`` (into ``out`` when given),
+    the details soft-thresholded by ``lam``: one ``nddwt_dec_multi``
+    launch for the whole batch (contract of ``multi_ref.dec_multi_ref``)."""
+    shape = tuple(x.shape[1:])
+    _check(shape, taps, level, x.shape[0])
+    want = (x.shape[0], num_bands(len(shape), level)) + shape
+    if out is not None and tuple(out.shape) != want:
+        raise ValueError(f"out must be {want}, got {tuple(out.shape)}")
+    if not x.is_cuda:
+        return dec_multi_ref(x, taps, level, lam, out)
+    ck.check_array("x", x)
+    big = out if out is not None else torch.empty(want, dtype=x.dtype,
+                                                  device=x.device)
+    ck.check_array("out", big, x)
+    _launch("nddwt_dec_multi", x, big, shape, taps, level, False, lam)
+    return big
+
+
+def rec_multi(y, taps, level: int, preserve_l2: bool):
+    """Bands ``y`` ``(N, B, *s)`` -> ``(N, *s)``: one ``nddwt_rec_multi``
+    launch for the whole batch (contract of ``multi_ref.rec_multi_ref``,
+    scale 1 with ``preserve_l2``, else ``1/2^d`` per level)."""
+    shape = tuple(y.shape[2:])
+    _check(shape, taps, level, y.shape[0])
+    if y.shape[1] != num_bands(len(shape), level):
+        raise ValueError(f"{y.shape[1]} bands are not {level} levels of a "
+                         f"{len(shape)}D transform")
+    scale = 1.0 if preserve_l2 else 1.0 / 2 ** len(shape)
+    if not y.is_cuda:
+        return rec_multi_ref(y, taps, level, scale)
+    ck.check_array("y", y)
+    out = torch.empty((y.shape[0],) + shape, dtype=y.dtype, device=y.device)
+    _launch("nddwt_rec_multi", y, out, shape, taps, level, True, scale)
+    return out

@@ -2,11 +2,12 @@
 
 Port of ``non_decimated_wavelets_tpu/plan.py`` (``NDDWT`` core: ``dec``,
 ``rec``, ``dec_rec``, complex data, the split-complex ``dec_split``,
-``rec_split``, ``dec_rec_split``, band layouts, level inference, config
-round trip). The plan builds the per-axis correlation taps once, as the
-reference's constructors do (``Functions/nd_dwt_2D.m:1-4``), and names the
-device its transforms run on: the card (``"cuda"``) unless the caller asks
-for ``device="cpu"``.
+``rec_split``, ``dec_rec_split``, the batched ``dec_batched`` and
+``rec_batched``, band layouts, level inference, config round trip). The
+plan builds the per-axis correlation taps once, as the reference's
+constructors do (``Functions/nd_dwt_2D.m:1-4``), and names the device its
+transforms run on: the card (``"cuda"``) unless the caller asks for
+``device="cpu"``.
 
 Dispatch:
 
@@ -19,7 +20,14 @@ Dispatch:
   shrink is the joint magnitude. ``dec_rec_n`` and the solvers' fused
   route (``_fista_fused``) run a whole chain or solve in one
   ``nddwt_flat_iter`` launch up to ``ITER_MAX_NUMEL``;
-* a larger CUDA tensor, 1D to 4D: the hand-written level kernels
+* a larger CUDA tensor, 2D or 3D, with at least two levels and at most
+  ``ops/multi.py``'s ``MULTI_MAX_NUMEL`` elements a component, whose
+  filters fit the per-level kernels' tile: the one-launch multilevel
+  kernels (``nddwt_dec_multi``, ``nddwt_rec_multi``), one launch per
+  direction for all levels and both components of a complex array or a
+  split pair (a batch of 2); a thresholded complex ``dec_rec`` is
+  ``dec_multi`` -> ``mag_shrink_pair`` -> ``rec_multi``;
+* any other larger CUDA tensor, 1D to 4D: the hand-written level kernels
   (``ops/cuda_kernels.py``): per level and direction one launch in 1D, 2D
   and 3D, two (a lane and a lead stage) in 4D and for 3D filters too long
   for the one-launch tile; the shrink of ``dec_rec`` fused into the
@@ -28,18 +36,24 @@ Dispatch:
   their shrink is the joint-magnitude ``mag_shrink_pair`` kernel
   (``ops/elemwise.py``). A larger 5D+ tensor raises
   ``NotImplementedError``; nothing runs silently on torch ops;
+* a CUDA batch (``dec_batched``, ``rec_batched``) whose items the
+  multilevel kernels take (as above, by the size of one item): one launch
+  per direction for the whole batch, complex items as a batch of 2N real
+  components; any other CUDA batch runs item by item on ``dec``'s and
+  ``rec``'s own route;
 * float64 computes in float64 on every kernel (the TPU package's
   double-f32 kernels, ``pallas_df32``, exist only because the TPU has no
   float64 units);
 * a CPU tensor: the torch direct path (``ops/direct_path.py``), complex
-  data included.
+  data and batches included.
 
 ``path`` picks the route as in the JAX plan: ``'auto'`` as above;
-``'direct'`` the torch direct path on any device; ``'pallas'`` the kernels
-only (a tensor they cannot take raises); ``'fft'`` the FFT path
-(``ops/fft_path.py``, cuFFT on the card) on any device. A tensor must
-already lie on the plan's ``device``: the plan never copies one between
-devices, so work on the card cannot end up on the host.
+``'direct'`` the torch direct path on any device (batch-native for a
+batch); ``'pallas'`` the kernels only (a tensor they cannot take raises);
+``'fft'`` the FFT path (``ops/fft_path.py``, cuFFT on the card) on any
+device, item by item for a batch. A tensor must already lie on the plan's
+``device``: the plan never copies one between devices, so work on the card
+cannot end up on the host.
 
 Autograd: ``dec`` and ``rec`` are ``torch.autograd.Function`` s whose
 backward is the exact adjoint, as the JAX package's ``linear_call`` rules
@@ -47,10 +61,11 @@ backward is the exact adjoint, as the JAX package's ``linear_call`` rules
 synthesis with ``preserve_l2=True`` on the same taps, and the adjoint of
 ``rec`` is ``dec`` with the per-level ``1/2^d`` redistributed onto the band
 groups when not ``preserve_l2``, on the flat and the per-level kernels
-alike. ``dec_rec`` with a threshold on CUDA is non-linear and has no
-adjoint, as in JAX; nor do the split transforms, ``dec_rec_n`` and the
-fused solve on CUDA; a ``dec_rec`` without threshold whose input needs a
-gradient runs as ``dec`` and ``rec``. The same rules serve 1D, float64
+alike, and for a batch (``dec_batched``, ``rec_batched``) the batched
+adjoint by the same rules. ``dec_rec`` with a threshold on CUDA is
+non-linear and has no adjoint, as in JAX; nor do the split transforms,
+``dec_rec_n`` and the fused solve on CUDA; a ``dec_rec`` without threshold
+whose input needs a gradient runs as ``dec`` and ``rec``. The same rules serve 1D, float64
 and the FFT path (the JAX package's ``dec64``/``rec64`` carry the same
 ``linear_call`` rules, ``ops/pallas_df32.py:548-610``).
 """
@@ -65,7 +80,7 @@ import torch
 from . import filters as _filters
 from . import oracle as _oracle
 from .models.denoise import soft_threshold, soft_threshold_mag_pair
-from .ops import cuda_kernels, direct_path, elemwise, fft_path, flat
+from .ops import cuda_kernels, direct_path, elemwise, fft_path, flat, multi
 
 _VALID_PATHS = ("auto", "fft", "direct", "pallas")
 _REAL_DTYPES = {
@@ -138,30 +153,38 @@ def _rec_transpose_scales(ndim: int, level: int) -> np.ndarray:
 
 
 class _Dec(torch.autograd.Function):
+    """``dec`` (``batched``: ``dec_batched``); the backward is the synthesis
+    with ``preserve_l2=True``."""
+
     @staticmethod
-    def forward(ctx, x, plan, level):
-        ctx.plan, ctx.level = plan, level
-        return plan._dec_bands(x, level)
+    def forward(ctx, x, plan, level, batched=False):
+        ctx.plan, ctx.level, ctx.batched = plan, level, batched
+        return plan._dec_bands(x, level, batched)
 
     @staticmethod
     def backward(ctx, gy):
-        return ctx.plan._rec_bands(gy, ctx.level, True), None, None
+        return (ctx.plan._rec_bands(gy, ctx.level, True, ctx.batched),
+                None, None, None)
 
 
 class _Rec(torch.autograd.Function):
+    """``rec`` (``batched``: ``rec_batched``); the backward is the analysis,
+    the per-level ``1/2^d`` redistributed onto the band groups when not
+    ``preserve_l2``."""
+
     @staticmethod
-    def forward(ctx, y, plan, level):
-        ctx.plan, ctx.level = plan, level
-        return plan._rec_bands(y, level, plan.preserve_l2)
+    def forward(ctx, y, plan, level, batched=False):
+        ctx.plan, ctx.level, ctx.batched = plan, level, batched
+        return plan._rec_bands(y, level, plan.preserve_l2, batched)
 
     @staticmethod
     def backward(ctx, gx):
         plan, level = ctx.plan, ctx.level
-        z = plan._dec_bands(gx, level)
+        z = plan._dec_bands(gx, level, ctx.batched)
         if not plan.preserve_l2:
             s = torch.as_tensor(_rec_transpose_scales(plan.ndim, level))
             z = z * s.to(z.dtype).to(z.device).view((-1,) + (1,) * plan.ndim)
-        return z, None, None
+        return z, None, None, None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -304,8 +327,16 @@ class NDDWT:
             )
         return x_pair
 
-    def _dec_bands(self, x, level):
-        """Band-first analysis, no autograd."""
+    def _on_multi(self, dtype, level) -> bool:
+        """Whether a kernel-route call on ``dtype`` components takes the
+        one-launch multilevel kernels (one item's size counted)."""
+        return multi.multi_supported(self.shape, self.taps_hp, dtype, level)
+
+    def _dec_bands(self, x, level, batched=False):
+        """Band-first analysis, no autograd; ``batched``: ``(N, *s)`` ->
+        ``(N, B, *s)``."""
+        if batched:
+            return self._dec_batch(x, level)
         route = self._route(x)
         if route == "fft":
             y = fft_path.dec_fft(x, self._resp(x.device), level,
@@ -319,8 +350,11 @@ class NDDWT:
             return flat.dec_flat(x.contiguous(), self.taps_hp, level)
         return cuda_kernels.dec_levels(x.contiguous(), self.taps_hp, level)
 
-    def _rec_bands(self, y, level, preserve_l2):
-        """Band-first synthesis, no autograd."""
+    def _rec_bands(self, y, level, preserve_l2, batched=False):
+        """Band-first synthesis, no autograd; ``batched``: ``(N, B, *s)`` ->
+        ``(N, *s)``."""
+        if batched:
+            return self._rec_batch(y, level, preserve_l2)
         route = self._route(y)
         if route == "fft":
             x = fft_path.rec_fft(y, self._resp(y.device), level, preserve_l2,
@@ -338,7 +372,8 @@ class NDDWT:
 
     def _dec_pair(self, xp, level):
         """``(2, *s)`` real components -> ``(2, B, *s)``: the filters are
-        real, so each component runs its own analysis chain."""
+        real, so the components are a batch of two (one multilevel launch)
+        or each runs its own analysis chain."""
         route = self._route(xp)
         if route == "fft":
             return torch.stack([self._dec_bands(xp[c], level) for c in range(2)])
@@ -347,6 +382,8 @@ class NDDWT:
         _no_adjoint_on_kernels(xp, "the split analysis")
         if self._on_flat(xp.dtype, 2):
             return flat.dec_split_flat(xp.contiguous(), self.taps_hp, level)
+        if self._on_multi(xp.dtype, level):
+            return multi.dec_multi(xp.contiguous(), self.taps_hp, level)
         out = torch.empty((2, self.num_bands(level)) + self.shape,
                           dtype=xp.dtype, device=xp.device)
         for c in range(2):
@@ -355,7 +392,8 @@ class NDDWT:
         return out
 
     def _rec_pair(self, yp, level, preserve_l2):
-        """``(2, B, *s)`` -> ``(2, *s)``, one synthesis chain per component."""
+        """``(2, B, *s)`` -> ``(2, *s)``: one multilevel launch for both
+        components, or one synthesis chain each."""
         route = self._route(yp)
         if route == "fft":
             return torch.stack([self._rec_bands(yp[c], level, preserve_l2)
@@ -367,11 +405,45 @@ class NDDWT:
         if self._on_flat(yp.dtype, 2):
             return flat.rec_split_flat(yp.contiguous(), self.taps_hp, level,
                                        preserve_l2)
+        if self._on_multi(yp.dtype, level):
+            return multi.rec_multi(yp.contiguous(), self.taps_hp, level,
+                                   preserve_l2)
         return torch.stack([
             cuda_kernels.rec_levels(yp[c].contiguous(), self.taps_hp, level,
                                     preserve_l2)
             for c in range(2)
         ])
+
+    def _dec_batch(self, x, level):
+        """``(N, *s)`` -> ``(N, B, *s)``, no autograd (JAX ``plan.py:604-643``):
+        the direct path batch-native; on the kernels one multilevel launch
+        for the whole batch where its items take it, complex items as 2N
+        real components; otherwise item by item on ``dec``'s route."""
+        route = self._route(x)
+        if route == "direct":
+            return direct_path.dec_direct(x, self.taps, level).transpose(0, 1)
+        if route == "kernels" and self._on_multi(_real_dtype_of(x), level):
+            if not x.is_complex():
+                return multi.dec_multi(x.contiguous(), self.taps_hp, level)
+            y = multi.dec_multi(torch.cat([x.real, x.imag]), self.taps_hp, level)
+            return torch.complex(y[: x.shape[0]], y[x.shape[0]:])
+        return torch.stack([self._dec_bands(v, level) for v in x])
+
+    def _rec_batch(self, y, level, preserve_l2):
+        """``(N, B, *s)`` -> ``(N, *s)``, no autograd, by the rules of
+        ``_dec_batch``."""
+        route = self._route(y)
+        if route == "direct":
+            return direct_path.rec_direct(y.transpose(0, 1), self.taps, level,
+                                          preserve_l2)
+        if route == "kernels" and self._on_multi(_real_dtype_of(y), level):
+            if not y.is_complex():
+                return multi.rec_multi(y.contiguous(), self.taps_hp, level,
+                                       preserve_l2)
+            x = multi.rec_multi(torch.cat([y.real, y.imag]), self.taps_hp,
+                                level, preserve_l2)
+            return torch.complex(x[: y.shape[0]], x[y.shape[0]:])
+        return torch.stack([self._rec_bands(v, level, preserve_l2) for v in y])
 
     def _bands_last(self, band_axis) -> bool:
         """Whether ``band_axis`` names the band-last layout: ``-1`` or its
@@ -441,10 +513,11 @@ class NDDWT:
         ``ValueError`` (the JAX plan takes one and grows the details). On
         CUDA within the flat kernel's size the whole iterate is one
         ``nddwt_flat_pair`` launch, complex data as a re/im pair with the
-        joint-magnitude shrink; beyond it the shrink rides the per-level
-        analysis kernels' band writes (``lam``), as on the TPU, and complex
-        data takes one ``mag_shrink_pair`` launch between the components'
-        analyses and syntheses."""
+        joint-magnitude shrink; beyond it the shrink rides the multilevel or
+        per-level analysis kernels' band writes (``lam``), as on the TPU,
+        and complex data takes one ``mag_shrink_pair`` launch between the
+        components' analyses and syntheses (one multilevel launch each,
+        where the multilevel kernels take the shape)."""
         level = self._check_level(level)
         last = self._bands_last(band_axis)
         threshold = self._check_threshold(threshold)
@@ -537,6 +610,36 @@ class NDDWT:
         return solve(b.contiguous(), mask.to(b.dtype).contiguous(), self.taps_hp,
                      level, self.preserve_l2, lams, moms, float(step))
 
+    # ------------------------------------------------------------ batched
+    def dec_batched(self, x, level: int):
+        """Analysis of a batch of arrays: ``(N, *shape) -> (N, B, *shape)``,
+        band-first per item (multi-coil MRI, cycle spinning). On CUDA a
+        batch of 2D or 3D items that the multilevel kernels take is one
+        ``nddwt_dec_multi`` launch (complex items as 2N real components);
+        other batches run item by item on ``dec``'s route. Differentiable
+        as ``dec``."""
+        level = self._check_level(level)
+        x = self._as_input(x)
+        if x.ndim != self.ndim + 1 or tuple(x.shape[1:]) != self.shape or x.shape[0] < 1:
+            raise ValueError(
+                f"expected (N, *{self.shape}) batch with N >= 1, got "
+                f"{tuple(x.shape)}"
+            )
+        return _Dec.apply(x, self, level, True)
+
+    def rec_batched(self, y):
+        """Synthesis of a batch: ``(N, B, *shape) -> (N, *shape)``, the level
+        inferred from ``B``; one ``nddwt_rec_multi`` launch where
+        ``dec_batched`` takes one ``nddwt_dec_multi``."""
+        y = self._as_input(y)
+        if y.ndim != self.ndim + 2 or tuple(y.shape[2:]) != self.shape or y.shape[0] < 1:
+            raise ValueError(
+                f"expected (N, B, *{self.shape}) batch of band arrays with "
+                f"N >= 1, got {tuple(y.shape)}"
+            )
+        level = _oracle.level_from_bands(self.ndim, y.shape[1])
+        return _Rec.apply(y, self, level, True)
+
     # ------------------------------------------------------ split-complex
     def dec_split(self, x_pair, level: int):
         """Analysis of complex data in split re/im form: ``(2, *shape)``
@@ -564,9 +667,9 @@ class NDDWT:
         ``Functions/nd_dwt_1D.m:57-61``) -> synthesis. Returns
         ``((2, B, *shape) bands, (2, *shape) reconstruction)``. On the
         kernels: one ``nddwt_flat_pair`` launch within the flat kernel's
-        size, else two per-component analysis chains, one
-        ``mag_shrink_pair`` launch, two synthesis chains; elsewhere the
-        torch shrink, as JAX."""
+        size, else one multilevel analysis launch (or two per-component
+        chains), one ``mag_shrink_pair`` launch and one synthesis launch
+        (or two chains); elsewhere the torch shrink, as JAX."""
         threshold = self._check_threshold(threshold)
         level = self._check_level(level)
         x_pair = self._as_pair(x_pair)

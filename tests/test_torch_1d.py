@@ -33,7 +33,7 @@ from non_decimated_wavelets_tpu_torch import oracle
 from non_decimated_wavelets_tpu_torch import plan as tplan
 from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
 from non_decimated_wavelets_tpu_torch.ops import level_ref
-from non_decimated_wavelets_tpu_torch.ops import flat
+from non_decimated_wavelets_tpu_torch.ops import flat, multi
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -58,16 +58,20 @@ def as_cuda(monkeypatch):
     the kernel route, whose wrappers run their plain versions here."""
     monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
     # The per-level route at these small shapes: tests/test_torch_flat.py
-    # holds the one-launch flat route.
+    # holds the one-launch flat route, tests/test_torch_multi.py the
+    # multilevel one.
     monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(multi, "MULTI_MAX_NUMEL", 0)
     monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
 
 
 @pytest.fixture
 def per_level(monkeypatch):
     """Hold a plan on the card to the per-level route at a shape within the
-    one-launch flat kernel's size (tests/test_torch_flat.py holds that)."""
+    one-launch flat and multilevel kernels' sizes (tests/test_torch_flat.py
+    and tests/test_torch_multi.py hold those)."""
     monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(multi, "MULTI_MAX_NUMEL", 0)
     monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
 
 

@@ -31,7 +31,7 @@ import non_decimated_wavelets_tpu_torch as tw
 from non_decimated_wavelets_tpu_torch import api, oracle
 from non_decimated_wavelets_tpu_torch import plan as tplan
 from non_decimated_wavelets_tpu_torch.native import cpu_backend as tcb
-from non_decimated_wavelets_tpu_torch.ops import flat
+from non_decimated_wavelets_tpu_torch.ops import flat, multi
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -52,8 +52,10 @@ def as_cuda(monkeypatch):
     the kernel route, whose wrappers run their plain versions here."""
     monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
     # The per-level route at these small shapes: tests/test_torch_flat.py
-    # holds the one-launch flat route.
+    # holds the one-launch flat route, tests/test_torch_multi.py the
+    # multilevel one.
     monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(multi, "MULTI_MAX_NUMEL", 0)
     monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
 
 

@@ -23,7 +23,7 @@ import non_decimated_wavelets_tpu_torch as tw
 from non_decimated_wavelets_tpu_torch import models as tm
 from non_decimated_wavelets_tpu_torch import plan as tplan
 from non_decimated_wavelets_tpu_torch.models import cs_recon
-from non_decimated_wavelets_tpu_torch.ops import cuda_kernels, elemwise, flat
+from non_decimated_wavelets_tpu_torch.ops import cuda_kernels, elemwise, flat, multi
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -54,8 +54,10 @@ def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device."""
     monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
     # The per-level route at these small shapes: tests/test_torch_flat.py
-    # holds the one-launch flat route.
+    # holds the one-launch flat route, tests/test_torch_multi.py the
+    # multilevel one.
     monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(multi, "MULTI_MAX_NUMEL", 0)
     monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
 
 

@@ -37,7 +37,7 @@ from non_decimated_wavelets_tpu_torch import plan as tplan
 from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
 from non_decimated_wavelets_tpu_torch.ops import elemwise, elemwise_ref, level4_ref
 from non_decimated_wavelets_tpu_torch.ops import level_ref
-from non_decimated_wavelets_tpu_torch.ops import flat
+from non_decimated_wavelets_tpu_torch.ops import flat, multi
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -66,8 +66,10 @@ def as_cuda(monkeypatch):
     the kernel route, whose wrappers run their plain versions here."""
     monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
     # The per-level route at these small shapes: tests/test_torch_flat.py
-    # holds the one-launch flat route.
+    # holds the one-launch flat route, tests/test_torch_multi.py the
+    # multilevel one.
     monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(multi, "MULTI_MAX_NUMEL", 0)
     monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
 
 
@@ -177,12 +179,15 @@ def test_fft_path_matches_jax(jx, as_cuda, calls, shape, wv, dtype, tol, rec_tol
 @pytest.mark.parametrize("shape,wv,level", [((41, 16, 10), "db2", 2), ((19, 257), "db4", 1),
                                             ((20, 12, 10), ("db1", "db2", "db3"), 2),
                                             ((10, 6, 4, 6), "db2", 2)])
-def test_levels_serve_the_ragged_shapes(jx, calls, shape, wv, level, rng):
+def test_levels_serve_the_ragged_shapes(jx, calls, monkeypatch, shape, wv, level, rng):
     """The TPU's ragged kernels exist for odd mid-size 2D/3D shapes
     (``pallas_ragged``, the cases of ``tests/test_ragged.py``); the port's
     per-level kernels (stage kernels in 4D) wrap every index and serve the
     same class: their level loops match ``dec_ragged`` (with the fused
-    shrink) and ``rec_ragged`` in interpret mode."""
+    shrink) and ``rec_ragged`` in interpret mode. (The multilevel kernels,
+    which run the same tiles, are switched off here and held in
+    tests/test_torch_multi.py.)"""
+    monkeypatch.setattr(multi, "MULTI_MAX_NUMEL", 0)
     jp = jx.nw.NDDWT(wavelet=wv, shape=shape, dtype=jx.jnp.float32)
     taps = tuple(np.asarray(t) for t in jp.taps_hp)
     x = rng.standard_normal(shape).astype(np.float32)

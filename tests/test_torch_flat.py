@@ -39,7 +39,7 @@ from non_decimated_wavelets_tpu_torch import convert
 from non_decimated_wavelets_tpu_torch import plan as tplan
 from non_decimated_wavelets_tpu_torch.models import cs_recon
 from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
-from non_decimated_wavelets_tpu_torch.ops import elemwise, flat, flat_ref
+from non_decimated_wavelets_tpu_torch.ops import elemwise, flat, flat_ref, multi
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -341,11 +341,13 @@ def test_plan_5d(jx, as_cuda, calls, monkeypatch, dtype, tol, rng):
 
 def test_per_level_route_beyond_the_limit(as_cuda, calls, monkeypatch, rng):
     """Beyond ``FLAT_MAX_NUMEL`` (a pair counts twice) the per-level route
-    runs as before; the autograd adjoint of the flat route is the same."""
+    runs as before (the multilevel route switched off; tests/test_torch_multi.py
+    holds it); the autograd adjoint of the flat route is the same."""
     tp = tw.NDDWT("db2", (16, 16), preserve_l2=True, dtype="double",
                   device="cpu")
     x = torch.from_numpy(rng.standard_normal((16, 16)))
     monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 256})
+    monkeypatch.setattr(multi, "MULTI_MAX_NUMEL", 0)
     tp.dec_rec(x, 2, threshold=0.1)
     assert calls == {"pair": 1, "iter": 0, "levels": 0, "elemwise": 0}
     tp.dec_rec(x + 1j * x, 2, threshold=0.1)  # 512 elements: per level

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 import non_decimated_wavelets_tpu_torch as tw
-from non_decimated_wavelets_tpu_torch.ops import cuda_kernels, flat, level_ref
+from non_decimated_wavelets_tpu_torch.ops import cuda_kernels, flat, level_ref, multi
 
 # The suite runs in several worker processes that share the machine's
 # cores; one intra-op thread keeps torch from oversubscribing them.
@@ -167,8 +167,10 @@ def test_long_filters_raise_in_3d():
 @pytest.fixture
 def per_level(monkeypatch):
     """Hold a plan on the card to the per-level route at a shape within the
-    one-launch flat kernel's size (tests/test_torch_flat.py holds that)."""
+    one-launch flat and multilevel kernels' sizes (tests/test_torch_flat.py
+    and tests/test_torch_multi.py hold those)."""
     monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    monkeypatch.setattr(multi, "MULTI_MAX_NUMEL", 0)
     monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
 
 
