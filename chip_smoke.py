@@ -31,6 +31,12 @@ held to their per-level counts; again on the multilevel kernels (the flat
 kernel off), held to one launch each way, where their shapes take them
 (``ops/multi.py``); and on the plan's own route, held to the flat counts,
 where their shapes fall within the flat kernel's size (``ops/flat.py``).
+The sharded paths (``chip_sharded.py``) run ``parallel.ShardedNDDWT`` on
+four ranks spawned on the card in a gloo group, through the halo-padded
+mode of the level and lead-stage kernels: the 256^3 step on {"x": 2} in
+float32 and float64 and on {"x": 2, "y": 2}, the 4D step on {"x": 2}, a
+batch of two 128^3 volumes on {"data": 2, "x": 2}, ``dec_rec_split`` at
+256^2 and three ``fista_inpaint`` iterations at 256^3 on {"x": 2}.
 Phases:
 
 1. the card's name and power limit; build every CUDA kernel from this
@@ -46,7 +52,10 @@ Phases:
    kernels at the JAX multilevel tests' cases (mixed wavelets, L2-L4) and
    odd extents (37, 29, 41) and (50, 33), batches of 1, 2 and 3, lam 0 and
    0.1, both normalizations, in float32, bfloat16 and float64, and at the
-   multi-coil batch;
+   multi-coil batch; the halo-padded mode of the level and lead-stage
+   kernels on one rank's padded block cut from a global array (one and two
+   padded axes; float32, bfloat16, float64), also against the wrap mode on
+   the whole array, cut to the block;
 3. the main path at 256^3 (both normalizations) against the plain path on
    the card, the threshold-0 round trip, and the 64^3 flagship step of
    ``__graft_entry__.entry`` against the float64 NumPy oracle; the kernels'
@@ -66,7 +75,10 @@ Phases:
    at 2^23; then the one-launch paths, each against the same call on a
    ``path='direct'`` plan on the card, each whole solve, chain or transform
    exactly one launch; then the multilevel paths, each against the same
-   call on a ``path='direct'`` plan on the card, with exact launch counts.
+   call on a ``path='direct'`` plan on the card, with exact launch counts;
+   then the sharded paths, each rank's block against the single-card
+   plan's result on that block (computed on the rank from the same seed),
+   with each rank's exact launch counts (no flat or multilevel launch).
    100 float32 FISTA iterations are held to the
    solver gate, 1e-4 max; if they drift past it (rounding compounds over
    the iterations, and the two routes sum in other orders), the drift is
@@ -87,7 +99,10 @@ Phases:
    (16 real 256^2 components) beside the same batch on the per-level route
    and the flat kernel; and the crossover tables of
    ``chip_flat_crossover.py`` (the multilevel columns and the batched table
-   among them).
+   among them); the sharded 256^3 step per rank with its halo exchange
+   timed on its own, and each halo-padded kernel beside its wrap mode on
+   the same block (the 3D level kernels also beside one cuDNN ``conv3d``
+   of the padded level).
 
 It exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -95,7 +110,11 @@ before it a JSON list of the kernels with their launches, errors, times and
 bounds (the float64 instantiations of the per-level and 1D kernels in a
 ``float64`` entry each, the flat and multilevel kernels' per-level route
 time in ``per_level_route_ms``, the multilevel kernels' flat-kernel time in
-``flat_route_ms``); the line before that the card's name and power limit.
+``flat_route_ms``, the four kernels with a halo-padded mode their sharded
+path's numbers in a ``valid`` entry, with the wrap mode's time on the same
+block in ``wrap_ms`` and, for the 3D level kernels, one cuDNN ``conv3d`` of
+the padded level in ``library_ms``); the line before that the card's name and power
+limit.
 """
 
 import contextlib
@@ -285,6 +304,41 @@ def conv_pad(x, taps, rec):
     return F.pad(x[None], pads, mode="circular")
 
 
+def _stop_children() -> list:
+    """Stops every child of this process that is still there when the
+    script ends (it must leave no process running); returns their command
+    lines."""
+    import os
+    import signal
+
+    left = []
+    for pid in os.listdir("/proc") if os.path.isdir("/proc") else ():
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == os.getpid():
+            left.append((int(pid), cmd))
+    for pid, _ in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGTERM)
+    deadline = time.monotonic() + 10
+    for pid, _ in left:
+        with contextlib.suppress(ChildProcessError):
+            while os.waitpid(pid, os.WNOHANG)[0] == 0:
+                if time.monotonic() > deadline:
+                    os.kill(pid, signal.SIGKILL)
+                    os.waitpid(pid, 0)
+                    break
+                time.sleep(0.05)
+    return [cmd for _, cmd in left]
+
+
 def main() -> int:
     import torch
 
@@ -306,6 +360,7 @@ def main() -> int:
         multi_ref)
 
     import chip_flat_crossover as xover
+    import chip_sharded
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -629,6 +684,10 @@ def main() -> int:
                 if main:
                     main_err.update(errs)
                 del x, k, r, rr
+    torch.cuda.empty_cache()
+
+    # The halo-padded mode of the level and lead-stage kernels.
+    padded_err = chip_sharded.check_padded(check, card)
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 3
@@ -1155,6 +1214,11 @@ def main() -> int:
     del xv
     torch.cuda.empty_cache()
 
+    print(f"phase 3: the sharded paths, ShardedNDDWT on {chip_sharded.RANKS} spawned ranks "
+          f"sharing the card (gloo), held against the single-card plan on each block; "
+          f"this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    sharded = chip_sharded.run_sharded(check, check_launches, failures, card)
+
     # ---------------------------------------------------------- phase 4
     print(f"phase 4: timings (CUDA events) {card}")
     plan = tw.NDDWT("db4", SHAPE, device=dev)
@@ -1563,6 +1627,7 @@ def main() -> int:
         "flat_no_slower_up_to", "one_launch_solve_no_slower_up_to",
         "multi_no_slower_than_per_level_up_to", "multi_10pct_faster_than_flat_from",
         "batched_multi_no_slower_than_per_level_up_to")}))
+    padded_ms = chip_sharded.time_padded(timed, bound_ms, conv_weights, check, card)
     ms.update(ms1[torch.float32])
     bound.update(bound1[torch.float32])
     library.update(library1[torch.float32])
@@ -1597,6 +1662,14 @@ def main() -> int:
             k["per_level_route_ms"] = per_level_route[name]
         if name in flat_route:
             k["flat_route_ms"] = flat_route[name]
+        if name in padded_ms:  # the halo-padded mode, on the sharded path
+            t = padded_ms[name]
+            k["valid"] = {
+                **entry(chip_sharded.VALID_REPLACES[name],
+                        chip_sharded.valid_launches(sharded, name), padded_err[name],
+                        (t["ms"], t["plain_ms"]), (t["bound_ms"], t["bound_by"]),
+                        t["library_ms"]),
+                "wrap_ms": t["wrap_ms"]}
         kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1606,4 +1679,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stopped = _stop_children()
+        if stopped:
+            print(f"chip_smoke: stopped {len(stopped)} process(es) still running at "
+                  f"the end: {stopped}", file=sys.stderr)
+    sys.exit(code)

@@ -7,7 +7,9 @@ the 1D-4D float32/bfloat16/float64 transforms and the solvers' elementwise
 passes run on hand-written Hopper kernels (``ops/csrc/*.cu``), built by
 ``nvcc`` at first use; importing the package builds nothing. The
 reference-style classes (``nd_dwt_1D`` ... ``harr_nddwt_4D``, ``api.py``)
-run there at their default double precision.
+run there at their default double precision. ``parallel.ShardedNDDWT``
+shards a transform's spatial axes over the ranks of a ``torch.distributed``
+device mesh.
 """
 
 from .api import (

@@ -3,7 +3,10 @@
 The transform has no weights beyond its filter bank, so a JAX ``NDDWT`` is
 carried over by its ``to_config()`` and its full-precision taps; the port
 derives its own taps from the config and must reproduce the JAX plan's bit
-for bit. This module takes plain dicts and NumPy arrays and imports no JAX.
+for bit. A JAX ``ShardedNDDWT`` is carried over by its plan and its
+partitioning (``spec``, ``batch_spec``) onto a ``DeviceMesh`` with the same
+named dimensions. This module takes plain dicts and NumPy arrays and
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -30,3 +33,16 @@ def plan_from_jax(config: dict, taps_hp, device="cuda") -> NDDWT:
             f"taps derived for {config} differ from the JAX plan's taps_hp"
         )
     return plan
+
+
+def sharded_from_jax(config: dict, taps_hp, spec, batch_spec, mesh,
+                     device="cuda"):
+    """Port ``ShardedNDDWT`` from a JAX ``ShardedNDDWT``'s plan
+    (``sh.plan.to_config()`` and its ``taps_hp``, as :func:`plan_from_jax`)
+    and partitioning (``sh.spec``, ``sh.batch_spec``), on ``mesh``, a
+    ``DeviceMesh`` (``parallel.make_mesh``) whose dimensions the specs
+    name."""
+    from .parallel import ShardedNDDWT
+
+    return ShardedNDDWT(plan_from_jax(config, taps_hp, device), mesh, spec,
+                        batch_spec)

@@ -9,16 +9,18 @@ non-decimated DWT, and its image-domain variants (inpainting, real and
 split-complex). The loop the reference library was built for: the same
 transform applied hundreds of times (``README.md:2``).
 
-``transform`` is a single-device ``NDDWT``; sharded transforms are not
-ported yet and raise ``TypeError`` (``ROADMAP.md`` queue 1 item 14). The
-schedule (per-iteration thresholds and momenta) is computed on the host
+``transform`` is a single-device ``NDDWT`` or a ``ShardedNDDWT``
+(``parallel/sharded.py``; band-first blocks, every array one rank's block),
+as in the JAX package. The masked-Fourier solver needs a sharded FFT, which
+is not ported yet: ``fista_cs_mri`` and ``ista_step`` refuse a sharded
+transform (``ROADMAP.md`` queue 1 item 14). The schedule (per-iteration thresholds and momenta) is computed on the host
 (``_fista_schedule``). With a scalar ``lam`` on a plan whose tensors go to
 the CUDA kernels, the inpainting solvers try the routes in the JAX
 package's order: the one-launch whole solve (``NDDWT._fista_fused``, one
-``nddwt_flat_iter`` launch up to ``ITER_MAX_NUMEL`` elements), then the
-stepped routes, where every iterate is kernels end to end (the transforms,
-the shrink, and one ``fista_step`` pass of glue). A tensor ``lam``, or a
-plan on the CPU, takes the generic loop.
+``nddwt_flat_iter`` launch up to ``ITER_MAX_NUMEL`` elements; never for a
+sharded transform), then the stepped routes, where every iterate is
+kernels end to end (the transforms, the shrink, and one ``fista_step`` pass
+of glue). A tensor ``lam``, or a plan on the CPU, takes the generic loop.
 """
 
 from __future__ import annotations
@@ -30,26 +32,70 @@ from ..ops import elemwise
 from .denoise import soft_threshold, soft_threshold_mag_pair
 
 
+def _sharded(transform) -> bool:
+    from ..parallel.sharded import ShardedNDDWT
+
+    return isinstance(transform, ShardedNDDWT)
+
+
 def _check_transform(transform):
     from ..plan import NDDWT
 
-    if not isinstance(transform, NDDWT):
+    if not (isinstance(transform, NDDWT) or _sharded(transform)):
         raise TypeError(
-            f"expected an NDDWT plan, got {type(transform).__name__}; sharded "
-            "transforms (ShardedNDDWT) are not ported yet (ROADMAP.md queue 1 "
-            "item 14)"
+            "expected an NDDWT plan or a ShardedNDDWT (parallel/sharded.py, "
+            f"ROADMAP.md queue 1 item 14), got {type(transform).__name__}"
+        )
+
+
+def _check_fft(transform):
+    if _sharded(transform):
+        raise NotImplementedError(
+            "the masked-Fourier solver on a ShardedNDDWT needs a sharded FFT, "
+            "which is not ported yet (ROADMAP.md queue 1 item 14: "
+            "parallel/sharded_fft.py); fista_inpaint and fista_inpaint_split "
+            "take sharded transforms"
         )
 
 
 def _mask_input(transform, mask, dtype):
-    """The sampling mask as a tensor on the plan's device, in ``dtype``."""
+    """The sampling mask as a tensor on the plan's device, in ``dtype``:
+    the plan's shape, or this rank's block of a sharded transform."""
     mask = transform._as_input(mask)
-    if tuple(mask.shape) != transform.shape:
+    want = transform.local_shape if _sharded(transform) else transform.shape
+    if tuple(mask.shape) != want:
         raise ValueError(
-            f"mask shape {tuple(mask.shape)} does not match plan shape "
-            f"{transform.shape}"
+            f"mask shape {tuple(mask.shape)} does not match plan shape {want}"
         )
     return mask.to(dtype)
+
+
+def _dec(transform, x, level):
+    """Band-first analysis: ``ShardedNDDWT.dec`` is band-first already."""
+    if _sharded(transform):
+        return transform.dec(x, level)
+    return transform.dec(x, level, band_axis=0)
+
+
+def _rec(transform, y):
+    if _sharded(transform):
+        return transform.rec(y)
+    return transform.rec(y, band_axis=0)
+
+
+def _dec_rec(transform, x, level, threshold):
+    """The fused iterate's reconstruction, for either kind of transform."""
+    if _sharded(transform):
+        return transform.dec_rec(x, level, threshold=threshold)[1]
+    return transform.dec_rec(x, level, threshold=threshold, band_axis=0)[1]
+
+
+def _stepped(transform, t) -> bool:
+    """Whether the iterates on ``t`` run on kernels end to end (the stepped
+    route): on the card, on a sharded transform's kernel bodies."""
+    if _sharded(transform):
+        return t.is_cuda and transform.use_pallas
+    return transform._uses_kernels(t)
 
 
 def _shrink_details(y, lam):
@@ -64,10 +110,8 @@ def _prox(transform, v, lam, level):
     the fused ``dec_rec`` iterate (the shrink rides the CUDA analysis
     kernels)."""
     if not hasattr(lam, "shape"):
-        _, xr = transform.dec_rec(v, level, threshold=float(lam), band_axis=0)
-        return xr
-    y = transform.dec(v, level, band_axis=0)
-    return transform.rec(_shrink_details(y, lam), band_axis=0)
+        return _dec_rec(transform, v, level, float(lam))
+    return _rec(transform, _shrink_details(_dec(transform, v, level), lam))
 
 
 def _prox_split(transform, v_pair, lam, level):
@@ -105,6 +149,7 @@ def ista_step(transform, x, b, mask, lam, step, level):
     """One proximal-gradient step: data consistency + wavelet shrinkage.
     With ``preserve_l2`` the transform is a tight frame, so
     ``W^T soft(W v, lam)`` is the cycle-spinning surrogate of the prox."""
+    _check_fft(transform)
     grad = _adj(_fwd(x, mask) - b, mask)
     return _prox(transform, x - step * grad, lam * step, level)
 
@@ -116,6 +161,7 @@ def fista_cs_mri(transform, b, mask, lam, level=2, iters=20, step=1.0):
     ``dec_rec`` (both components' level chains and one ``mag_shrink_pair``
     launch) and torch elementwise ops for the gradient and momentum."""
     _check_transform(transform)
+    _check_fft(transform)
     b = transform._as_input(b)
     if not b.is_complex():
         b = b.to(transform.complex_dtype)
@@ -138,7 +184,7 @@ def _fista_stepped(transform, b, mask, lam, level, moms, step):
     v = x - step * (mask * (mask * x - b))  # z_0 = x_0, once before the loop
     thr = float(lam) * float(step)
     for mom in moms:
-        _, x_new = transform.dec_rec(v, level, threshold=thr, band_axis=0)
+        x_new = _dec_rec(transform, v, level, thr)
         v = elemwise.fista_step(x_new, x, mask, b, mom, float(step))
         x = x_new
     return x
@@ -176,16 +222,19 @@ def fista_inpaint(transform, b, mask, lam, level=2, iters=20, step=1.0):
     ``min_x 0.5 ||M ⊙ x - b||^2 + lam ||W x||_1``. ``b`` may be complex
     (generic loop, joint-magnitude shrink). On the card with a scalar
     ``lam`` the whole solve is one launch where ``_fista_fused`` serves it,
-    else the stepped route."""
+    else the stepped route. With a ``ShardedNDDWT``, ``b`` and ``mask`` are
+    this rank's blocks and so is the result; every iterate exchanges halos
+    (the stepped route on the kernel bodies on the card)."""
     _check_transform(transform)
     b = transform._as_input(b)
     mask = _mask_input(transform, mask, b.real.dtype)
     if not hasattr(lam, "shape"):
         lams, moms = _fista_schedule(iters, lam, step)
-        xr = transform._fista_fused(b, mask, level, lams, moms, step)
-        if xr is not None:
-            return xr
-        if not b.is_complex() and transform._uses_kernels(b):
+        if not _sharded(transform):  # no one-launch solve across ranks
+            xr = transform._fista_fused(b, mask, level, lams, moms, step)
+            if xr is not None:
+                return xr
+        if not b.is_complex() and _stepped(transform, b):
             return _fista_stepped(transform, b, mask, lam, level, moms, step)
     return _fista_loop(lambda v: _prox(transform, v, lam * step, level),
                        b, mask, iters, step)
@@ -198,17 +247,19 @@ def fista_inpaint_split(transform, b_pair, mask, lam, level=2, iters=20,
     lam ||W x||_{1,c}`` with the complex l1 norm (joint re/im magnitude).
     ``mask`` is real with the plan's shape. On the card with a scalar
     ``lam`` the whole solve is one launch where ``_fista_fused`` serves it,
-    else the stepped route."""
+    else the stepped route. With a ``ShardedNDDWT`` the arrays are this
+    rank's blocks, as in ``fista_inpaint``."""
     _check_transform(transform)
     b_pair = transform._as_pair(b_pair)
     mask = _mask_input(transform, mask, b_pair.dtype)
     if not hasattr(lam, "shape"):
         lams, moms = _fista_schedule(iters, lam, step)
-        xr = transform._fista_fused(b_pair, mask, level, lams, moms, step,
-                                    split=True)
-        if xr is not None:
-            return xr
-        if transform._uses_kernels(b_pair):
+        if not _sharded(transform):
+            xr = transform._fista_fused(b_pair, mask, level, lams, moms, step,
+                                        split=True)
+            if xr is not None:
+                return xr
+        if _stepped(transform, b_pair):
             return _fista_stepped_split(transform, b_pair, mask, lam, level,
                                         moms, step)
     return _fista_loop(lambda v: _prox_split(transform, v, lam * step, level),

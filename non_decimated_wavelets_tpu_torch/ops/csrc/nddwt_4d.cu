@@ -44,6 +44,19 @@
 // wraps periodically, so any extent >= K runs: odd Z and T, T > 128.
 // TMA, wgmma and warp specialisation are left for later work.
 //
+// The halo-padded ("valid") mode of the lead stage: nddwt_lead_dec and
+// nddwt_lead_adj take a `pad` flag on slots 0 and 1 (X and Y of the
+// (X, Y, Z*T) view). A padded slot's input is one rank's block of an axis
+// sharded across ranks with its ring neighbours' rows around it (K/2 - 1 in
+// front and K/2 behind for the analysis, K/2 and K/2 - 1 for the adjoint),
+// read without wrapping; the outputs keep the block's extent. It computes
+// what the TPU lead stage's concat and slab "valid" modes compute (TPU
+// kernel table row 23): _lead_dec_call and _lead_adj_call with
+// shape_xy=/padded= or slab_axes=/slabs= (pallas_4d.py:592,882) and the lane
+// stage's emitted edges (_lane_edge_copies, pallas_4d.py:432), called by
+// non_decimated_wavelets_tpu/parallel/sharded.py:440,512. The lane stages
+// stay local: Z and T are never sharded.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (ops/cuda_kernels.py does this at first use).
 
@@ -91,26 +104,38 @@ struct Split3 {
 };
 
 // i mod n for -n <= i < 3n: the wrapper keeps every tile inside its extent
-// and every filter no longer than its axis, so window indices stay there.
+// and every filter no longer than an unpadded axis, so window indices stay
+// there.
 __device__ __forceinline__ int wrap3(int i, int n) {
   if (i < 0) return i + n;
   if (i >= n) i -= n;
   return i >= n ? i - n : i;
 }
 
-// The CTA's (e0, e1, e2) input window, wrapped periodically. Each thread
+// Input row of window position p on slot a: wrapped, or on a halo-padded
+// slot p + left, inside the padded extent.
+template <typename C>
+__device__ __forceinline__ int in_row3(const LevelT<C>& g, int a, int p) {
+  return g.pad[a] ? p + g.left[a] : wrap3(p, g.n[a]);
+}
+
+// The CTA's (e0, e1, e2) input window, wrapped periodically; kPad: some
+// slot may be halo-padded (its window shifted into the halo; kPad = false
+// compiles the wrap-only load). Each thread
 // issues BATCH loads before it stores any. The lead stage's window is short
 // rows in tile + K - 1 planes of X that every pass waits on at a barrier:
 // 8 loads in flight per thread take a quarter off the lead adjoint. The lane
 // stage's rows are long, and there the registers cost more than they hide
 // (both measured on an H100 in a sweep of batches and tiles).
-template <int BATCH, typename T, typename C>
+template <int BATCH, bool kPad, typename T, typename C>
 __device__ void load_window(C* __restrict__ s, const T* __restrict__ src,
                             const LevelT<C>& g, const int* b, int e0, int e1,
                             int e2) {
   const int o0 = b[0] - g.left[0], o1 = b[1] - g.left[1],
             o2 = b[2] - g.left[2];
   const int total = e0 * e1 * e2;
+  const long long m1 = kPad ? in_extent(g, 1) : g.n[1];
+  const long long m2 = kPad ? in_extent(g, 2) : g.n[2];
   const Split3 split(e1, e2);
   for (int base = threadIdx.x; base < total; base += BATCH * blockDim.x) {
     C v[BATCH];
@@ -120,10 +145,12 @@ __device__ void load_window(C* __restrict__ s, const T* __restrict__ src,
       if (i < total) {
         int l0, l1, l2;
         split(i, l0, l1, l2);
-        const long long g0 = wrap3(o0 + l0, g.n[0]);
-        const long long g1 = wrap3(o1 + l1, g.n[1]);
-        const int g2 = wrap3(o2 + l2, g.n[2]);
-        v[u] = to_f(src[(g0 * g.n[1] + g1) * g.n[2] + g2]);
+        const long long g0 =
+            kPad ? in_row3(g, 0, o0 + l0) : wrap3(o0 + l0, g.n[0]);
+        const long long g1 =
+            kPad ? in_row3(g, 1, o1 + l1) : wrap3(o1 + l1, g.n[1]);
+        const int g2 = kPad ? in_row3(g, 2, o2 + l2) : wrap3(o2 + l2, g.n[2]);
+        v[u] = to_f(src[(g0 * m1 + g1) * m2 + g2]);
       }
     }
 #pragma unroll
@@ -164,7 +191,7 @@ __device__ void stage_pass(C* __restrict__ out, const C* __restrict__ in,
 // apart) gives sub-band s = bitA + 2 bitB as output d = s + 4 i, written to
 // dst0 for d == 0 and to big[band_off + d - 1] otherwise, soft-thresholded
 // by lam > 0 when d > 0. smem: the window, then the HA-pass intermediate.
-template <typename T, int HA, int HB, typename C>
+template <typename T, int HA, int HB, bool kPad, typename C>
 __device__ void dec_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
                           const T* __restrict__ src, int n_in,
                           const LevelT<C>& g, T* __restrict__ dst0,
@@ -179,6 +206,7 @@ __device__ void dec_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
   C* s0 = smem;
   C* p1 = s0 + e0 * e1 * e2;
   const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
+  const long long ivox = kPad ? in_vox(g) : vox;  // one input
   const int nsA = g.k[HA] > 1 ? 2 : 1;
   const bool hiB = g.k[HB] > 1;
   const int KB = g.k[HB];
@@ -187,7 +215,7 @@ __device__ void dec_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
   const Split3 split(t1, t2);
   for (int i = 0; i < n_in; ++i) {
     __syncthreads();  // the previous input's window and intermediate are read
-    load_window<HA == 0 ? 8 : 1>(s0, src + i * vox, g, b, e0, e1, e2);
+    load_window<HA == 0 ? 8 : 1, kPad>(s0, src + i * ivox, g, b, e0, e1, e2);
     __syncthreads();
     for (int sa = 0; sa < nsA; ++sa) {
       stage_pass<HA, false>(p1, s0, e0, e1, e2, g.t[HA], taps[HA][sa],
@@ -223,7 +251,7 @@ __device__ void dec_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
 // s applied to band d = s + 4 gi, read from y[src.idx[d]] or, for -1, from
 // approx. The taps arrive reversed and the halo mirrored, so each adjoint
 // is a forward correlation. smem: window, intermediate, output tile.
-template <typename T, int HA, int HB, typename C>
+template <typename T, int HA, int HB, bool kPad, typename C>
 __device__ void adj_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
                           const T* __restrict__ y, const T* __restrict__ approx,
                           const Sources& src, int n_out, const LevelT<C>& g,
@@ -239,6 +267,7 @@ __device__ void adj_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
   C* p1 = s0 + e0 * e1 * e2;
   C* acc = p1 + d0 * d1 * d2;
   const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
+  const long long ivox = kPad ? in_vox(g) : vox;  // one input band
   const int nsA = g.k[HA] > 1 ? 2 : 1, nsB = g.k[HB] > 1 ? 2 : 1;
   const int p1n = d0 * d1 * d2, an = t0 * t1 * t2;
   const Split3 split(t1, t2);
@@ -248,9 +277,9 @@ __device__ void adj_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
       for (int i = threadIdx.x; i < p1n; i += blockDim.x) p1[i] = 0;
       for (int sa = 0; sa < nsA; ++sa) {
         const long long id = src.idx[sa + 2 * sb + 4 * gi];
-        const T* bsrc = id < 0 ? approx : y + id * vox;
+        const T* bsrc = id < 0 ? approx : y + id * ivox;
         __syncthreads();  // the previous band's window is consumed
-        load_window<HA == 0 ? 8 : 1>(s0, bsrc, g, b, e0, e1, e2);
+        load_window<HA == 0 ? 8 : 1, kPad>(s0, bsrc, g, b, e0, e1, e2);
         __syncthreads();
         stage_pass<HA, true>(p1, s0, e0, e1, e2, g.t[HA], taps[HA][sa],
                              g.k[HA]);
@@ -277,30 +306,33 @@ __global__ void __launch_bounds__(kThreads)
     lane_dec_kernel(const T* __restrict__ x, T* __restrict__ temp,
                     const __grid_constant__ LevelT<C> g) {
   __shared__ C taps[3][2][kMaxTaps];
-  dec_stage<T, 1, 2>(shared_words<C>(), taps, x, 1, g, temp, temp, 1, C(0));
+  dec_stage<T, 1, 2, false>(shared_words<C>(), taps, x, 1, g, temp, temp, 1,
+                            C(0));
 }
 
-// Lead analysis: temp (n_in, X, Y, Z*T) -> 16 bands (8 for a 3D array).
-template <typename T, typename C = compute_t<T>>
+// Lead analysis: temp (n_in, X, Y, Z*T) -> 16 bands (8 for a 3D array);
+// kPad: the halo-padded instantiation.
+template <typename T, bool kPad, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads)
     lead_dec_kernel(const T* __restrict__ temp, T* __restrict__ big,
                     T* __restrict__ approx_out,
                     const __grid_constant__ LevelT<C> g, int n_in,
                     long long band_off, C lam) {
   __shared__ C taps[3][2][kMaxTaps];
-  dec_stage<T, 0, 1>(shared_words<C>(), taps, temp, n_in, g, approx_out, big,
-                     band_off, lam);
+  dec_stage<T, 0, 1, kPad>(shared_words<C>(), taps, temp, n_in, g, approx_out,
+                           big, band_off, lam);
 }
 
-// Lead adjoint: 16 band sources -> partial (n_out, X, Y, Z*T).
-template <typename T, typename C = compute_t<T>>
+// Lead adjoint: 16 band sources -> partial (n_out, X, Y, Z*T); kPad: the
+// halo-padded instantiation.
+template <typename T, bool kPad, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads)
     lead_adj_kernel(const T* __restrict__ y, const T* __restrict__ approx,
                     T* __restrict__ partial, const __grid_constant__ LevelT<C> g,
                     const __grid_constant__ Sources src, int n_out) {
   __shared__ C taps[3][2][kMaxTaps];
-  adj_stage<T, 0, 1>(shared_words<C>(), taps, y, approx, src, n_out, g,
-                     partial, C(1));
+  adj_stage<T, 0, 1, kPad>(shared_words<C>(), taps, y, approx, src, n_out, g,
+                           partial, C(1));
 }
 
 // Lane adjoint: partial (4, X*Y, Z, T) -> scale * (X*Y, Z, T).
@@ -310,15 +342,15 @@ __global__ void __launch_bounds__(kThreads)
                     const __grid_constant__ LevelT<C> g,
                     const __grid_constant__ Sources src, C scale) {
   __shared__ C taps[3][2][kMaxTaps];
-  adj_stage<T, 1, 2>(shared_words<C>(), taps, partial, partial, src, 1, g, out,
-                     scale);
+  adj_stage<T, 1, 2, false>(shared_words<C>(), taps, partial, partial, src, 1,
+                            g, out, scale);
 }
 
 template <typename C>
 LevelT<C> stage_level(const int* n, const int* k, const int* t, const int* left,
-                      const void* taps) {
+                      const int* pad, const void* taps) {
   const int no_bits[3] = {0, 0, 0};  // the stage kernels fix their band bits
-  return make_level<C>(n, k, t, left, no_bits, taps);
+  return make_level<C>(n, k, t, left, no_bits, taps, pad);
 }
 
 // Dynamic shared memory: window + intermediate (+ output tile for adjoints).
@@ -342,15 +374,16 @@ int launch(void (*kernel)(KArgs...), const LevelT<C>& g, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// The view's geometry: n, k, t, left (3 ints each) and the taps.
+// The view's geometry: n, k, t, left, pad (3 ints each; pad nullptr: no
+// slot halo-padded) and the taps.
 struct Geom {
-  const int *n, *k, *t, *left;
+  const int *n, *k, *t, *left, *pad;
   const void* taps;
 };
 
 template <typename T, typename C = compute_t<T>>
 int lane_dec(const void* x, void* temp, const Geom& v, cudaStream_t s) {
-  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.taps);
+  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.pad, v.taps);
   return launch(lane_dec_kernel<T, C>, g, stage_smem(g, 1, false), s,
                 (const T*)x, (T*)temp, g);
 }
@@ -358,24 +391,27 @@ int lane_dec(const void* x, void* temp, const Geom& v, cudaStream_t s) {
 template <typename T, typename C = compute_t<T>>
 int lead_dec(const void* temp, void* big, void* approx_out, const Geom& v,
              int n_in, long long band_off, double lam, cudaStream_t s) {
-  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.taps);
-  return launch(lead_dec_kernel<T, C>, g, stage_smem(g, 0, false), s,
-                (const T*)temp, (T*)big, (T*)approx_out, g, n_in, band_off,
-                (C)lam);
+  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.pad, v.taps);
+  auto kernel = v.pad && (v.pad[0] || v.pad[1]) ? lead_dec_kernel<T, true, C>
+                                                : lead_dec_kernel<T, false, C>;
+  return launch(kernel, g, stage_smem(g, 0, false), s, (const T*)temp,
+                (T*)big, (T*)approx_out, g, n_in, band_off, (C)lam);
 }
 
 template <typename T, typename C = compute_t<T>>
 int lead_adj(const void* y, const void* approx, void* partial, const Geom& v,
              const Sources& src, int n_out, cudaStream_t s) {
-  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.taps);
-  return launch(lead_adj_kernel<T, C>, g, stage_smem(g, 0, true), s,
-                (const T*)y, (const T*)approx, (T*)partial, g, src, n_out);
+  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.pad, v.taps);
+  auto kernel = v.pad && (v.pad[0] || v.pad[1]) ? lead_adj_kernel<T, true, C>
+                                                : lead_adj_kernel<T, false, C>;
+  return launch(kernel, g, stage_smem(g, 0, true), s, (const T*)y,
+                (const T*)approx, (T*)partial, g, src, n_out);
 }
 
 template <typename T, typename C = compute_t<T>>
 int lane_adj(const void* partial, void* out, const Geom& v, const Sources& src,
              double scale, cudaStream_t s) {
-  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.taps);
+  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.pad, v.taps);
   return launch(lane_adj_kernel<T, C>, g, stage_smem(g, 1, true), s,
                 (const T*)partial, (T*)out, g, src, (C)scale);
 }
@@ -384,7 +420,10 @@ int lane_adj(const void* partial, void* out, const Geom& v, const Sources& src,
 
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
 // 2 = float64. n, k, t, left: 3 ints each, the stage's view (slot 0
-// slowest); taps: 3 * 2 * 76 of the compute type (float for dtypes 0 and 1,
+// slowest; n the output extents); pad (the lead stages, last before the
+// stream): 3 ints, 1 on a halo-padded slot, whose inputs then have extent
+// n + k - 1; taps:
+// 3 * 2 * 76 of the compute type (float for dtypes 0 and 1,
 // double for 2). The caller makes the arrays' device current. Returns the
 // cudaError_t of the launch (0 on success); the launch is asynchronous on
 // `stream`.
@@ -394,7 +433,7 @@ extern "C" int nddwt_lane_dec(const void* x, void* temp, int dtype,
                               const int* n, const int* k, const int* t,
                               const int* left, const void* taps,
                               void* stream) {
-  const Geom v{n, k, t, left, taps};
+  const Geom v{n, k, t, left, nullptr, taps};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return lane_dec<float>(x, temp, v, s);
   if (dtype == 1) return lane_dec<__nv_bfloat16>(x, temp, v, s);
@@ -406,8 +445,8 @@ extern "C" int nddwt_lead_dec(const void* temp, void* big, void* approx_out,
                               int dtype, const int* n, const int* k,
                               const int* t, const int* left, const void* taps,
                               int n_in, long long band_off, double lam,
-                              void* stream) {
-  const Geom v{n, k, t, left, taps};
+                              const int* pad, void* stream) {
+  const Geom v{n, k, t, left, pad, taps};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return lead_dec<float>(temp, big, approx_out, v, n_in, band_off, lam, s);
@@ -423,8 +462,8 @@ extern "C" int nddwt_lead_adj(const void* y, const void* approx, void* partial,
                               int dtype, const int* n, const int* k,
                               const int* t, const int* left, const void* taps,
                               const long long* band_idx, int n_out,
-                              void* stream) {
-  const Geom v{n, k, t, left, taps};
+                              const int* pad, void* stream) {
+  const Geom v{n, k, t, left, pad, taps};
   Sources src;
   for (int d = 0; d < kMaxBands; ++d) src.idx[d] = band_idx[d];
   cudaStream_t s = (cudaStream_t)stream;
@@ -439,7 +478,7 @@ extern "C" int nddwt_lane_adj(const void* partial, void* out, int dtype,
                               const int* n, const int* k, const int* t,
                               const int* left, const void* taps, double scale,
                               void* stream) {
-  const Geom v{n, k, t, left, taps};
+  const Geom v{n, k, t, left, nullptr, taps};
   Sources src;  // partial c is sub-band c
   for (int d = 0; d < kMaxBands; ++d) src.idx[d] = d;
   cudaStream_t s = (cudaStream_t)stream;

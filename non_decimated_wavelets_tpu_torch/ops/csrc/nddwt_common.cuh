@@ -10,6 +10,11 @@
 //
 // A slot with one tap (of 1.0) and no halo is a pass-through axis: a 2D
 // level runs as (1, n0, n1), and each 4D stage keeps one slot without halo.
+//
+// A halo-padded slot (pad = 1) is one rank's block of an axis sharded over
+// several ranks: its input carries the ring neighbours' rows, `left` in
+// front of output row 0 and k - 1 - left behind row n - 1 (extent
+// n + k - 1), and is read without wrapping. The outputs keep extent n.
 
 #pragma once
 
@@ -39,6 +44,7 @@ struct LevelT {
   int t[3];     // output tile extents
   int left[3];  // left halo of the loaded tile
   int bit[3];   // band-index bit of each slot (band bit k = high on axis k)
+  int pad[3];   // 1: the input is halo-padded on this slot (extent n + k - 1)
   C taps[3][2][kMaxTaps];  // [slot][lo/hi][tap], already oriented
 };
 
@@ -98,9 +104,11 @@ __device__ void tile_origin(const LevelT<C>& g, int* b) {
   tile_origin(g, blockIdx.x, b);
 }
 
+// pad == nullptr: no slot is halo-padded (every index wraps).
 template <typename C>
 LevelT<C> make_level(const int* n, const int* k, const int* t, const int* left,
-                     const int* bit, const void* taps) {
+                     const int* bit, const void* taps,
+                     const int* pad = nullptr) {
   const C* tp = static_cast<const C*>(taps);
   LevelT<C> g;
   for (int a = 0; a < 3; ++a) {
@@ -109,11 +117,24 @@ LevelT<C> make_level(const int* n, const int* k, const int* t, const int* left,
     g.t[a] = t[a];
     g.left[a] = left[a];
     g.bit[a] = bit[a];
+    g.pad[a] = pad ? pad[a] : 0;
     for (int s = 0; s < 2; ++s)
       for (int j = 0; j < kMaxTaps; ++j)
         g.taps[a][s][j] = tp[(a * 2 + s) * kMaxTaps + j];
   }
   return g;
+}
+
+// Extent of slot a of the input: n, or n + k - 1 on a halo-padded slot.
+template <typename C>
+__host__ __device__ __forceinline__ int in_extent(const LevelT<C>& g, int a) {
+  return g.pad[a] ? g.n[a] + g.k[a] - 1 : g.n[a];
+}
+
+// Elements of one input array (one band of a band array).
+template <typename C>
+__host__ __device__ __forceinline__ long long in_vox(const LevelT<C>& g) {
+  return (long long)in_extent(g, 0) * in_extent(g, 1) * in_extent(g, 2);
 }
 
 template <typename C>

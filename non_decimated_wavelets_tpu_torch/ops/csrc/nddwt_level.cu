@@ -19,6 +19,22 @@
 // A 2D array runs as (1, n0, n1): slot 0 is then a pass-through axis with
 // one tap of 1.0 and no band split.
 //
+// The halo-padded ("valid") mode: the `pad` flags mark slots whose input is
+// one rank's block of a sharded axis with its ring neighbours' rows around
+// it (K/2 - 1 in front and K/2 behind for the analysis, K/2 and K/2 - 1 for
+// the synthesis), read without wrapping (nddwt_tile.cuh). It computes what
+// the TPU kernels' concat and slab "valid" modes compute (TPU kernel table
+// row 23; the slab mode's saving of the padded copy is later work):
+//
+//   _fused_dec_level shape=/padded=, slab_axes=/slabs= (pallas_kernels.py:776)
+//   _fused_rec_level shape=/padded=, slab_axes=/slabs= (pallas_kernels.py:1468)
+//   and their kernel-emitted edges, _edge_copies (pallas_kernels.py:389),
+//
+// called by the sharded bodies (non_decimated_wavelets_tpu/parallel/
+// sharded.py:338-450); parallel/sharded.py of this package calls them the
+// same way. A padded level moves the same bytes as a wrapped one, plus the
+// halo rows.
+//
 // Each CTA owns one output tile; the tile's body is in nddwt_tile.cuh, which
 // the one-launch multilevel kernels (nddwt_multi.cu) share.
 //
@@ -38,7 +54,9 @@
 
 namespace {
 
-template <typename T, typename C = compute_t<T>>
+// kPad: the halo-padded instantiation; the wrap mode (kPad = false) runs
+// the same code as before the padded mode existed.
+template <typename T, bool kPad, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads)
     dec_level_kernel(const T* __restrict__ x, T* __restrict__ big,
                      T* __restrict__ approx_out,
@@ -46,57 +64,65 @@ __global__ void __launch_bounds__(kThreads)
                      C lam) {
   __shared__ C taps[3][2][kMaxTaps];
   copy_taps(taps, g);
-  dec_tile<false>(x, big, approx_out, g, taps, shared_words<C>(), band_off,
-                  lam, blockIdx.x);
+  dec_tile<false, kPad>(x, big, approx_out, g, taps, shared_words<C>(),
+                        band_off, lam, blockIdx.x);
 }
 
-template <typename T, typename C = compute_t<T>>
+template <typename T, bool kPad, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads)
     rec_level_kernel(const T* __restrict__ y, const T* __restrict__ approx,
                      T* __restrict__ out, const __grid_constant__ LevelT<C> g,
                      const __grid_constant__ Sources src, C scale) {
   __shared__ C taps[3][2][kMaxTaps];
   copy_taps(taps, g);
-  rec_tile<false>(y, approx, out, g, src, scale, taps, shared_words<C>(),
-                  blockIdx.x);
+  rec_tile<false, kPad>(y, approx, out, g, src, scale, taps,
+                        shared_words<C>(), blockIdx.x);
 }
+
+template <typename C, typename... KArgs, typename... Args>
+int launch(void (*kernel)(KArgs...), const LevelT<C>& g, size_t smem,
+           cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<num_tiles(g), kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+bool any_pad(const int* pad) { return pad && (pad[0] || pad[1] || pad[2]); }
 
 template <typename T, typename C = compute_t<T>>
 int launch_dec(const void* x, void* big, void* approx_out, const int* n,
                const int* k, const int* t, const int* left, const int* bit,
-               const void* taps, long long band_off, double lam,
-               cudaStream_t stream) {
-  const LevelT<C> g = make_level<C>(n, k, t, left, bit, taps);
+               const int* pad, const void* taps, long long band_off,
+               double lam, cudaStream_t stream) {
+  const LevelT<C> g = make_level<C>(n, k, t, left, bit, taps, pad);
   const size_t smem = tile_smem_bytes(g, false);
-  cudaError_t e = cudaFuncSetAttribute(
-      dec_level_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dec_level_kernel<T><<<num_tiles(g), kThreads, smem, stream>>>(
-      (const T*)x, (T*)big, (T*)approx_out, g, band_off, (C)lam);
-  return (int)cudaGetLastError();
+  auto kernel =
+      any_pad(pad) ? dec_level_kernel<T, true> : dec_level_kernel<T, false>;
+  return launch(kernel, g, smem, stream, (const T*)x, (T*)big, (T*)approx_out,
+                g, band_off, (C)lam);
 }
 
 template <typename T, typename C = compute_t<T>>
 int launch_rec(const void* y, const void* approx, void* out, const int* n,
                const int* k, const int* t, const int* left, const int* bit,
-               const void* taps, const Sources& src, double scale,
-               cudaStream_t stream) {
-  const LevelT<C> g = make_level<C>(n, k, t, left, bit, taps);
+               const int* pad, const void* taps, const Sources& src,
+               double scale, cudaStream_t stream) {
+  const LevelT<C> g = make_level<C>(n, k, t, left, bit, taps, pad);
   const size_t smem = tile_smem_bytes(g, true);
-  cudaError_t e = cudaFuncSetAttribute(
-      rec_level_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  rec_level_kernel<T><<<num_tiles(g), kThreads, smem, stream>>>(
-      (const T*)y, (const T*)approx, (T*)out, g, src, (C)scale);
-  return (int)cudaGetLastError();
+  auto kernel =
+      any_pad(pad) ? rec_level_kernel<T, true> : rec_level_kernel<T, false>;
+  return launch(kernel, g, smem, stream, (const T*)y, (const T*)approx, (T*)out,
+                g, src, (C)scale);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
-// 2 = float64. n, k, t, left, bit: 3 ints each (slot 0 slowest); taps:
+// 2 = float64. n, k, t, left, bit, pad: 3 ints each (slot 0 slowest; n the
+// output extents, pad 1 on a halo-padded slot, whose inputs then have
+// extent n + k - 1; pad comes last before the stream); taps:
 // 3 * 2 * 76 of the compute type (float for dtypes 0 and 1, double for 2).
 // The caller makes the arrays' device current. Returns the cudaError_t of
 // the launch (0 on success); the launch is asynchronous on `stream`.
@@ -106,17 +132,17 @@ extern "C" int nddwt_dec_level(const void* x, void* big, void* approx_out,
                                int dtype, const int* n, const int* k,
                                const int* t, const int* left, const int* bit,
                                const void* taps, long long band_off,
-                               double lam, void* stream) {
+                               double lam, const int* pad, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_dec<float>(x, big, approx_out, n, k, t, left, bit, taps,
-                             band_off, lam, s);
+    return launch_dec<float>(x, big, approx_out, n, k, t, left, bit, pad,
+                             taps, band_off, lam, s);
   if (dtype == 1)
     return launch_dec<__nv_bfloat16>(x, big, approx_out, n, k, t, left, bit,
-                                     taps, band_off, lam, s);
+                                     pad, taps, band_off, lam, s);
   if (dtype == 2)
-    return launch_dec<double>(x, big, approx_out, n, k, t, left, bit, taps,
-                              band_off, lam, s);
+    return launch_dec<double>(x, big, approx_out, n, k, t, left, bit, pad,
+                              taps, band_off, lam, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -124,19 +150,19 @@ extern "C" int nddwt_rec_level(const void* y, const void* approx, void* out,
                                int dtype, const int* n, const int* k,
                                const int* t, const int* left, const int* bit,
                                const void* taps, const long long* band_idx,
-                               double scale, void* stream) {
+                               double scale, const int* pad, void* stream) {
   Sources src;
   for (int b = 0; b < 8; ++b) src.idx[b] = band_idx[b];
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_rec<float>(y, approx, out, n, k, t, left, bit, taps, src,
-                             scale, s);
+    return launch_rec<float>(y, approx, out, n, k, t, left, bit, pad, taps,
+                             src, scale, s);
   if (dtype == 1)
-    return launch_rec<__nv_bfloat16>(y, approx, out, n, k, t, left, bit, taps,
-                                     src, scale, s);
+    return launch_rec<__nv_bfloat16>(y, approx, out, n, k, t, left, bit, pad,
+                                     taps, src, scale, s);
   if (dtype == 2)
-    return launch_rec<double>(y, approx, out, n, k, t, left, bit, taps, src,
-                              scale, s);
+    return launch_rec<double>(y, approx, out, n, k, t, left, bit, pad, taps,
+                              src, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

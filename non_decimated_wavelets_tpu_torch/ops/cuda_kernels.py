@@ -54,6 +54,17 @@ launch fails; for a CPU tensor it runs the kernel's plain version
 Nothing falls back from CUDA to the plain version. ``launch_counts`` counts
 the launches of every kernel, so a run can show which kernels a path went
 through.
+
+``dec_level``, ``rec_level``, ``lead_dec`` and ``lead_adj`` have a
+halo-padded mode (``padded=``, one flag per axis; the lead stages' flags
+cover axes 0 and 1): a flagged axis of the input is one rank's block of an
+axis sharded across ranks, with its ring neighbours' rows around it, by
+the widths ``halo_widths`` gives. The kernels read it without wrapping and
+the outputs keep the block's extent. It replaces the "valid" modes of the
+TPU kernels (TPU kernel table row 23), which only the sharded bodies call
+(``non_decimated_wavelets_tpu/parallel/sharded.py:338-600``;
+``parallel/sharded.py`` here). ``padded_launch_counts`` counts those
+launches a second time.
 """
 
 from __future__ import annotations
@@ -110,9 +121,21 @@ launch_counts = {
 }
 
 
+# The launches in the halo-padded mode, counted in ``launch_counts`` too.
+padded_launch_counts = dict.fromkeys(
+    ("nddwt_dec_level", "nddwt_rec_level", "nddwt_lead_dec", "nddwt_lead_adj"), 0)
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, padded_launch_counts):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(name: str, pad) -> None:
+    launch_counts[name] += 1
+    if any(pad):
+        padded_launch_counts[name] += 1
 
 
 def _nvcc() -> str:
@@ -186,12 +209,12 @@ def load() -> ctypes.CDLL:
     lib = library("nddwt_level")
     ip = ctypes.POINTER(ctypes.c_int)
     vp = ctypes.c_void_p
-    geom = [ctypes.c_int, ip, ip, ip, ip, ip, vp]
+    geom = [ctypes.c_int, ip, ip, ip, ip, ip, vp]  # dtype, n, k, t, left, bit, taps
     lib.nddwt_dec_level.argtypes = [vp, vp, vp] + geom + [
-        ctypes.c_longlong, ctypes.c_double, vp]
+        ctypes.c_longlong, ctypes.c_double, ip, vp]  # ..., pad, stream
     lib.nddwt_dec_level.restype = ctypes.c_int
     lib.nddwt_rec_level.argtypes = [vp, vp, vp] + geom + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, vp]
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, ip, vp]
     lib.nddwt_rec_level.restype = ctypes.c_int
     return _check_level_library(lib)
 
@@ -216,9 +239,9 @@ def load4() -> ctypes.CDLL:
     geom = [i, ip, ip, ip, ip, vp]  # dtype, n, k, t, left, taps
     lib.nddwt_lane_dec.argtypes = [vp, vp] + geom + [vp]
     lib.nddwt_lead_dec.argtypes = [vp, vp, vp] + geom + [
-        i, ctypes.c_longlong, f, vp]
+        i, ctypes.c_longlong, f, ip, vp]  # ..., pad, stream
     lib.nddwt_lead_adj.argtypes = [vp, vp, vp] + geom + [
-        ctypes.POINTER(ctypes.c_longlong), i, vp]
+        ctypes.POINTER(ctypes.c_longlong), i, ip, vp]
     lib.nddwt_lane_adj.argtypes = [vp, vp] + geom + [f, vp]
     for name in ("lane_dec", "lead_dec", "lead_adj", "lane_adj"):
         getattr(lib, f"nddwt_{name}").restype = ctypes.c_int
@@ -269,18 +292,31 @@ def _tiles(n, k, rec: bool, word: int = 4):
     return t
 
 
+def halo_widths(taps, rec: bool) -> tuple:
+    """The ``(left, right)`` halo of each axis of a level's window: the
+    analysis reads ``K//2 - 1`` rows in front of an output and ``K//2``
+    behind it, the synthesis (its adjoint) the mirror, ``K//2`` and
+    ``K//2 - 1``. A halo-padded input carries exactly these rows; the
+    sharded bodies exchange them (``parallel/sharded.py``)."""
+    widths = []
+    for t in taps:
+        K = int(np.shape(t)[1])
+        widths.append((K // 2, K // 2 - 1) if rec else (K // 2 - 1, K // 2))
+    return tuple(widths)
+
+
 def _geometry(shape, taps, rec: bool, dtype=torch.float32):
     """ctypes arguments describing one level on ``dtype`` arrays: extents,
-    tap counts, tile, left halo and band bit per slot (a 2D array is
-    (1, n0, n1)), and the taps in the compute type — reversed for the
-    synthesis, whose adjoint reads the mirrored halo (K//2 left instead of
-    K//2 - 1)."""
+    tap counts, tile, left halo (``halo_widths``) and band bit per slot (a
+    2D array is (1, n0, n1)), and the taps in the compute type — reversed
+    for the synthesis, whose adjoint reads the mirrored halo (K//2 left
+    instead of K//2 - 1)."""
     pad = 3 - len(shape)
     n = [1] * pad + [int(s) for s in shape]
     k = [1] * pad + [int(np.shape(t)[1]) for t in taps]
     if max(k) > _MAX_TAPS:
         raise NotImplementedError(f"filters longer than {_MAX_TAPS} taps")
-    left = [0] * pad + [K // 2 if rec else K // 2 - 1 for K in k[pad:]]
+    left = [0] * pad + [w[0] for w in halo_widths(taps, rec)]
     bit = [0] * pad + list(range(len(shape)))
     tiles = _tiles(n, k, rec, _word(dtype))
     if tiles is None:
@@ -295,6 +331,32 @@ def _geometry(shape, taps, rec: bool, dtype=torch.float32):
 
 def _ints(v):
     return (ctypes.c_int * 3)(*v)
+
+
+def _padded_flags(padded, ndim: int) -> tuple:
+    """``padded`` (None, or one flag per axis of an ``ndim``-D array) as a
+    tuple of bools of length ``ndim``."""
+    if padded is None:
+        return (False,) * ndim
+    padded = tuple(bool(p) for p in padded)
+    if len(padded) != ndim:
+        raise ValueError(f"padded needs one flag per axis ({ndim}), got {padded}")
+    return padded
+
+
+def _padded_shape(shape, taps, padded) -> tuple:
+    """The extents of a halo-padded input whose output has ``shape``."""
+    return tuple(int(n) + (int(np.shape(t)[1]) - 1 if p else 0)
+                 for n, t, p in zip(shape, taps, padded))
+
+
+def _unpadded_shape(shape, taps, padded, name) -> tuple:
+    """The output extents of a halo-padded input of extents ``shape``."""
+    out = tuple(int(n) - (int(np.shape(t)[1]) - 1 if p else 0)
+                for n, t, p in zip(shape, taps, padded))
+    if min(out) < 1:
+        raise ValueError(f"{name} {tuple(shape)} is too short for its halo padding")
+    return out
 
 
 def _tap_array(slot_taps, rec: bool, dtype=np.float32) -> np.ndarray:
@@ -340,12 +402,20 @@ def raise_on(lib, err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")
 
 
-def dec_level(approx, big, band_off, taps, lam=0.0, final=False):
+def dec_level(approx, big, band_off, taps, lam=0.0, final=False, padded=None):
     """One analysis level (contract of ``level_ref.dec_level_ref``):
     details into ``big[band_off : band_off + 2^d - 1]``, shrunk by ``lam``;
-    the approximation into ``big[0]`` when ``final``, else returned."""
+    the approximation into ``big[0]`` when ``final``, else returned.
+
+    ``padded`` (one flag per axis): the halo-padded mode, which replaces
+    the concat and slab "valid" modes of ``_fused_dec_level``
+    (``non_decimated_wavelets_tpu/ops/pallas_kernels.py:776``, with
+    ``_edge_copies`` :389; TPU kernel table row 23): on a flagged axis
+    ``approx`` carries ``K//2 - 1`` rows of its left ring neighbour in
+    front and ``K//2`` of its right one behind (``halo_widths``), and the
+    bands have the extent of ``big``."""
     if not approx.is_cuda:
-        return dec_level_ref(approx, big, band_off, taps, lam, final)
+        return dec_level_ref(approx, big, band_off, taps, lam, final, padded)
     if approx.ndim not in (2, 3) or len(taps) != approx.ndim:
         raise NotImplementedError(
             f"the per-level CUDA kernels take 2D and 3D arrays, got "
@@ -353,24 +423,30 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False):
         )
     check_array("approx", approx)
     check_array("big", big, approx)
+    pad = _padded_flags(padded, approx.ndim)
+    shape = tuple(big.shape[1:])
     nb = 2**approx.ndim
-    if big.shape[1:] != approx.shape or not 1 <= band_off <= big.shape[0] - nb + 1:
+    if (len(shape) != approx.ndim
+            or _padded_shape(shape, taps, pad) != tuple(approx.shape)
+            or not 1 <= band_off <= big.shape[0] - nb + 1):
         raise ValueError(
             f"band array {tuple(big.shape)} cannot take the {nb - 1} detail "
-            f"bands of {tuple(approx.shape)} at offset {band_off}"
+            f"bands of {tuple(approx.shape)} (halo-padded on {pad}) at offset "
+            f"{band_off}"
         )
-    out = big[0] if final else torch.empty_like(approx)
-    n, k, t, left, bit, arr = _geometry(approx.shape, taps, False, approx.dtype)
+    out = big[0] if final else torch.empty(shape, dtype=approx.dtype,
+                                           device=approx.device)
+    n, k, t, left, bit, arr = _geometry(shape, taps, False, approx.dtype)
     lib = load()
     with torch.cuda.device(approx.device):
         err = lib.nddwt_dec_level(
             approx.data_ptr(), big.data_ptr(), out.data_ptr(),
-            DTYPE_CODE[approx.dtype], n, k, t, left, bit,
-            _taps_ptr(arr),
-            int(band_off), float(lam), torch.cuda.current_stream().cuda_stream,
+            DTYPE_CODE[approx.dtype], n, k, t, left, bit, _taps_ptr(arr),
+            int(band_off), float(lam), _ints((False,) * (3 - len(shape)) + pad),
+            torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, err, "nddwt_dec_level")
-    launch_counts["nddwt_dec_level"] += 1
+    _count("nddwt_dec_level", pad)
     return None if final else out
 
 
@@ -392,21 +468,30 @@ def _band_indices(band_src, n_bands: int, y, approx, shape) -> list:
     return idx
 
 
-def rec_level(y, approx, band_src, taps, scale):
+def rec_level(y, approx, band_src, taps, scale, padded=None):
     """One synthesis level (contract of ``level_ref.rec_level_ref``): band
     ``b`` is ``y[i]`` for ``band_src[b] == ("y", i)`` or ``approx`` for
-    ``("a", 0)``; returns ``scale *`` the adjoint, shaped ``y.shape[1:]``."""
+    ``("a", 0)``; returns ``scale *`` the adjoint, shaped ``y.shape[1:]``.
+
+    ``padded`` (one flag per axis): the halo-padded mode, which replaces
+    the concat and slab "valid" modes of ``_fused_rec_level``
+    (``non_decimated_wavelets_tpu/ops/pallas_kernels.py:1468``; TPU kernel
+    table row 23): on a flagged axis ``y`` and ``approx`` carry ``K//2``
+    rows of the left ring neighbour in front and ``K//2 - 1`` of the right
+    one behind (``halo_widths``), and the output drops them."""
     if not y.is_cuda:
-        return rec_level_ref(y, approx, band_src, taps, scale)
-    shape = tuple(y.shape[1:])
-    if len(shape) not in (2, 3) or len(taps) != len(shape):
+        return rec_level_ref(y, approx, band_src, taps, scale, padded)
+    in_shape = tuple(y.shape[1:])
+    if len(in_shape) not in (2, 3) or len(taps) != len(in_shape):
         raise NotImplementedError(
             f"the per-level CUDA kernels take 2D and 3D arrays, got "
-            f"{len(shape)}D (1D: rec1_level; 4D: the stage kernels)"
+            f"{len(in_shape)}D (1D: rec1_level; 4D: the stage kernels)"
         )
     check_array("y", y)
+    pad = _padded_flags(padded, len(in_shape))
+    shape = _unpadded_shape(in_shape, taps, pad, "band array")
     nb = 2 ** len(shape)
-    idx = _band_indices(band_src, nb, y, approx, shape)
+    idx = _band_indices(band_src, nb, y, approx, in_shape)
     if -1 in idx:
         check_array("approx", approx, y)
     else:
@@ -417,13 +502,13 @@ def rec_level(y, approx, band_src, taps, scale):
     with torch.cuda.device(y.device):
         err = lib.nddwt_rec_level(
             y.data_ptr(), approx.data_ptr(), out.data_ptr(),
-            DTYPE_CODE[y.dtype], n, k, t, left, bit,
-            _taps_ptr(arr),
-            (ctypes.c_longlong * 8)(*(idx + [-1] * (8 - nb))),
-            float(scale), torch.cuda.current_stream().cuda_stream,
+            DTYPE_CODE[y.dtype], n, k, t, left, bit, _taps_ptr(arr),
+            (ctypes.c_longlong * 8)(*(idx + [-1] * (8 - nb))), float(scale),
+            _ints((False,) * (3 - len(shape)) + pad),
+            torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, err, "nddwt_rec_level")
-    launch_counts["nddwt_rec_level"] += 1
+    _count("nddwt_rec_level", pad)
     return out
 
 
@@ -480,19 +565,21 @@ def _stage_tiles(n: tuple, k: tuple, lane: bool, adj: bool, word: int = 4) -> tu
     return best[1]
 
 
-def _stage_geometry(shape, taps, lane: bool, adj: bool, dtype=torch.float32):
+def _stage_geometry(shape, taps, lane: bool, adj: bool, dtype=torch.float32,
+                    padded=(False, False)):
     """ctypes arguments of one stage launch on ``dtype`` arrays: view
-    extents, taps, tile and left halo per slot, and the taps in the compute
-    type (reversed for an adjoint, whose halo is mirrored: K//2 left instead
-    of K//2 - 1)."""
+    extents, taps, tile and left halo per slot (``halo_widths``), and the
+    taps in the compute type (reversed for an adjoint, whose halo is
+    mirrored: K//2 left instead of K//2 - 1). ``padded``: the lead stage's
+    halo-padded slots 0 and 1, which may be shorter than their filters."""
     n, slot_taps = _stage_slots(shape, taps, lane)
     k = [1 if t is None else int(np.shape(t)[1]) for t in slot_taps]
     if max(k) > _MAX_TAPS:
         raise NotImplementedError(f"filters longer than {_MAX_TAPS} taps")
-    if any(K > m for K, m in zip(k, n)):
+    pad = tuple(padded) + (False,) * (3 - len(padded))
+    if any(K > m and not p for K, m, p in zip(k, n, pad)):
         raise ValueError(f"filters of lengths {k} are longer than the axes {n}")
-    left = [0 if t is None else (K // 2 if adj else K // 2 - 1)
-            for K, t in zip(k, slot_taps)]
+    left = [0 if t is None else halo_widths([t], adj)[0][0] for t in slot_taps]
     t = _stage_tiles(tuple(n), tuple(k), lane, adj, _word(dtype))
     return (_ints(n), _ints(k), _ints(t), _ints(left),
             _tap_array(slot_taps, adj, _compute_dtype(dtype)))
@@ -542,47 +629,69 @@ def lane_dec(x, taps):
     return temp
 
 
-def lead_dec(temp, big, band_off, taps, lam=0.0, final=False):
+def lead_dec(temp, big, band_off, taps, lam=0.0, final=False, padded=None):
     """Lead stage analysis (contract of ``level4_ref.lead_dec_ref``): the
     ``4 nl - 1`` details into ``big[band_off:]``, shrunk by ``lam``; the
-    approximation into ``big[0]`` when ``final``, else returned."""
+    approximation into ``big[0]`` when ``final``, else returned.
+
+    ``padded`` (flags for the lead axes 0 and 1): the halo-padded mode,
+    which replaces the concat and slab "valid" modes of ``_lead_dec_call``
+    (``non_decimated_wavelets_tpu/ops/pallas_4d.py:592``, with
+    ``_lane_edge_copies`` :432; TPU kernel table row 23): on a flagged
+    axis ``temp`` carries ``K//2 - 1`` rows of the left ring neighbour in
+    front and ``K//2`` of the right one behind (``halo_widths``), and the
+    bands have the extent of ``big``."""
     _check_stage_array("temp", temp, taps, lead=1)
-    shape, nb = tuple(temp.shape[1:]), 4 * temp.shape[0]
-    if (temp.shape[0] != 2 ** (len(shape) - 2) or tuple(big.shape[1:]) != shape
+    pad = _padded_flags(padded, 2)
+    shape, nb = tuple(big.shape[1:]), 4 * temp.shape[0]
+    if (temp.shape[0] != 2 ** (len(shape) - 2)
+            or _padded_shape(shape, taps, pad + (False,) * (len(shape) - 2))
+            != tuple(temp.shape[1:])
             or not 1 <= band_off <= big.shape[0] - nb + 1):
         raise ValueError(
             f"band array {tuple(big.shape)} cannot take the {nb - 1} detail "
-            f"bands of lane bands {tuple(temp.shape)} at offset {band_off}"
+            f"bands of lane bands {tuple(temp.shape)} (halo-padded on {pad}) "
+            f"at offset {band_off}"
         )
     if not temp.is_cuda:
-        return lead_dec_ref(temp, big, band_off, taps, lam, final)
+        return lead_dec_ref(temp, big, band_off, taps, lam, final, pad)
     check_array("temp", temp)
     check_array("big", big, temp)
     out = big[0] if final else torch.empty(shape, dtype=temp.dtype,
                                            device=temp.device)
-    n, k, t, left, arr = _stage_geometry(shape, taps, False, False, temp.dtype)
+    n, k, t, left, arr = _stage_geometry(shape, taps, False, False, temp.dtype, pad)
     lib = load4()
     with torch.cuda.device(temp.device):
         err = lib.nddwt_lead_dec(
             temp.data_ptr(), big.data_ptr(), out.data_ptr(),
             DTYPE_CODE[temp.dtype], n, k, t, left, _taps_ptr(arr),
-            int(temp.shape[0]), int(band_off), float(lam),
+            int(temp.shape[0]), int(band_off), float(lam), _ints(pad + (False,)),
             torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, err, "nddwt_lead_dec")
-    launch_counts["nddwt_lead_dec"] += 1
+    _count("nddwt_lead_dec", pad)
     return None if final else out
 
 
-def lead_adj(y, approx, band_src, taps):
+def lead_adj(y, approx, band_src, taps, padded=None):
     """Lead stage synthesis (contract of ``level4_ref.lead_adj_ref``): the
     ``2^d`` bands named by ``band_src`` -> the partial lane bands
-    ``(nl, *s)``."""
+    ``(nl, *s)``.
+
+    ``padded`` (flags for the lead axes 0 and 1): the halo-padded mode,
+    which replaces the concat and slab "valid" modes of ``_lead_adj_call``
+    (``non_decimated_wavelets_tpu/ops/pallas_4d.py:882``; TPU kernel table
+    row 23): on a flagged axis ``y`` and ``approx`` carry ``K//2`` rows of
+    the left ring neighbour in front and ``K//2 - 1`` of the right one
+    behind (``halo_widths``), and the partial bands drop them."""
     _check_stage_array("y", y, taps, lead=1)
-    shape = tuple(y.shape[1:])
-    idx = _band_indices(band_src, 2 ** len(shape), y, approx, shape)
+    pad = _padded_flags(padded, 2)
+    in_shape = tuple(y.shape[1:])
+    shape = _unpadded_shape(in_shape, taps, pad + (False,) * (len(in_shape) - 2),
+                            "band array")
+    idx = _band_indices(band_src, 2 ** len(shape), y, approx, in_shape)
     if not y.is_cuda:
-        return lead_adj_ref(y, approx, band_src, taps)
+        return lead_adj_ref(y, approx, band_src, taps, pad)
     check_array("y", y)
     if -1 in idx:
         check_array("approx", approx, y)
@@ -590,17 +699,17 @@ def lead_adj(y, approx, band_src, taps):
         approx = y
     nl = 2 ** (len(shape) - 2)
     partial = torch.empty((nl,) + shape, dtype=y.dtype, device=y.device)
-    n, k, t, left, arr = _stage_geometry(shape, taps, False, True, y.dtype)
+    n, k, t, left, arr = _stage_geometry(shape, taps, False, True, y.dtype, pad)
     lib = load4()
     with torch.cuda.device(y.device):
         err = lib.nddwt_lead_adj(
             y.data_ptr(), approx.data_ptr(), partial.data_ptr(),
             DTYPE_CODE[y.dtype], n, k, t, left, _taps_ptr(arr),
             (ctypes.c_longlong * 16)(*(idx + [-1] * (16 - len(idx)))), nl,
-            torch.cuda.current_stream().cuda_stream,
+            _ints(pad + (False,)), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, err, "nddwt_lead_adj")
-    launch_counts["nddwt_lead_adj"] += 1
+    _count("nddwt_lead_adj", pad)
     return partial
 
 

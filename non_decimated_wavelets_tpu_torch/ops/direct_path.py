@@ -44,13 +44,19 @@ def _circ_pad(x: torch.Tensor, axis: int, left: int, right: int) -> torch.Tensor
     return torch.cat(parts, dim=axis) if len(parts) > 1 else x
 
 
-def _corr_pair(x: torch.Tensor, taps, axis: int):
-    """One axis pass: (lo, hi) K-tap circular correlations sharing reads."""
+def _corr_pair(x: torch.Tensor, taps, axis: int, padded: bool = False):
+    """One axis pass: (lo, hi) K-tap circular correlations sharing reads.
+    ``padded``: ``x`` already carries its halo on ``axis`` (``o`` rows in
+    front, ``K - 1 - o`` behind, e.g. a sharded block with its ring
+    neighbours' rows), so the pass is a valid correlation and the output is
+    ``K - 1`` shorter there."""
     lo_t, hi_t = _tap_rows(taps)
     K = len(lo_t)
     o = K // 2 - 1
-    n = x.shape[axis]
-    xp = _circ_pad(x, axis, o, K - 1 - o)
+    if padded:
+        n, xp = x.shape[axis] - (K - 1), x
+    else:
+        n, xp = x.shape[axis], _circ_pad(x, axis, o, K - 1 - o)
     acc_lo = acc_hi = None
     for j in range(K):
         r = xp.narrow(axis, j, n)
@@ -61,19 +67,24 @@ def _corr_pair(x: torch.Tensor, taps, axis: int):
     return acc_lo, acc_hi
 
 
-def _adj_pair(lo: torch.Tensor, hi: torch.Tensor, taps, axis: int):
+def _adj_pair(lo: torch.Tensor, hi: torch.Tensor, taps, axis: int,
+              padded: bool = False):
     """Adjoint of :func:`_corr_pair`: sum of the two transposed correlations.
 
     The adjoint of ``y[n] = sum_j t[j] x[n+j-o]`` is
     ``x[m] = sum_j t[j] y[m-j+o]``; ``y[m-j+o]`` sits at padded index
-    ``m + K-1-j`` after a (K-1-o, o) circular pad.
+    ``m + K-1-j`` after a (K-1-o, o) circular pad. ``padded``: ``lo`` and
+    ``hi`` already carry that (K-1-o, o) halo on ``axis``.
     """
     lo_t, hi_t = _tap_rows(taps)
     K = len(lo_t)
     o = K // 2 - 1
-    n = lo.shape[axis]
-    lp = _circ_pad(lo, axis, K - 1 - o, o)
-    hp = _circ_pad(hi, axis, K - 1 - o, o)
+    if padded:
+        n, lp, hp = lo.shape[axis] - (K - 1), lo, hi
+    else:
+        n = lo.shape[axis]
+        lp = _circ_pad(lo, axis, K - 1 - o, o)
+        hp = _circ_pad(hi, axis, K - 1 - o, o)
     acc = None
     for j in range(K):
         start = K - 1 - j
@@ -84,25 +95,30 @@ def _adj_pair(lo: torch.Tensor, hi: torch.Tensor, taps, axis: int):
     return acc
 
 
-def _level1_dec(x: torch.Tensor, taps: tuple) -> torch.Tensor:
-    """(2^d, *spatial) bands from (*spatial); band bit k = H on axis k."""
+def _level1_dec(x: torch.Tensor, taps: tuple, padded=None) -> torch.Tensor:
+    """(2^d, *spatial) bands from (*spatial); band bit k = H on axis k.
+    ``padded[k]``: spatial axis k of ``x`` already carries the analysis
+    halo (:func:`_corr_pair`)."""
     ndim = len(taps)
     T = x.unsqueeze(0)
     for ax in range(ndim):
         sp_axis = T.ndim - ndim + ax
-        lo, hi = _corr_pair(T, taps[ax], sp_axis)
+        lo, hi = _corr_pair(T, taps[ax], sp_axis, bool(padded and padded[ax]))
         T = torch.cat([lo, hi], dim=0)
     return T
 
 
-def _level1_rec(group: torch.Tensor, taps: tuple) -> torch.Tensor:
-    """Adjoint of :func:`_level1_dec`: (2^d, *spatial) -> (*spatial)."""
+def _level1_rec(group: torch.Tensor, taps: tuple, padded=None) -> torch.Tensor:
+    """Adjoint of :func:`_level1_dec`: (2^d, *spatial) -> (*spatial).
+    ``padded[k]``: spatial axis k of ``group`` already carries the
+    synthesis halo (:func:`_adj_pair`)."""
     ndim = len(taps)
     T = group
     for ax in reversed(range(ndim)):
         nb = T.shape[0]
         sp_axis = T.ndim - ndim + ax
-        T = _adj_pair(T[: nb // 2], T[nb // 2 :], taps[ax], sp_axis)
+        T = _adj_pair(T[: nb // 2], T[nb // 2 :], taps[ax], sp_axis,
+                      bool(padded and padded[ax]))
     return T[0] if T.ndim > ndim else T
 
 

@@ -15,6 +15,11 @@ bands ``a + 4 c``, ``a = xbit + 2 ybit``: the band order of
 plan's ``taps_hp``). The CPU tests and ``chip_smoke.py`` hold the kernels
 against these; nothing on the CUDA path calls them, and the kernel wrappers
 use them only for tensors on the CPU.
+
+``padded`` (flags for the lead axes 0 and 1) is the lead stage's
+halo-padded mode, as in ``level_ref``: a flagged axis of the input carries
+its ring neighbours' rows and is sliced, not circularly padded
+(``_lead_dec_call``/``_lead_adj_call`` with ``shape_xy=``/``padded=``).
 """
 
 from __future__ import annotations
@@ -33,17 +38,18 @@ def lane_dec_ref(x, taps):
     return bands.to(x.dtype)
 
 
-def lead_dec_ref(temp, big, band_off, taps, lam=0.0, final=False):
+def lead_dec_ref(temp, big, band_off, taps, lam=0.0, final=False, padded=None):
     """``(nl, *s)`` lane bands -> the ``4 nl`` bands of the level
     (``pallas_4d._lead_dec_call``). The details go into
     ``big[band_off : band_off + 4 nl - 1]``, soft-thresholded by ``lam``
     when ``lam > 0``; with ``final`` the approximation goes into ``big[0]``
-    and ``None`` is returned, otherwise it is returned."""
+    and ``None`` is returned, otherwise it is returned. ``padded``: the
+    halo-padded lead axes of ``temp``."""
     v = temp.to(_compute_dtype(temp.dtype)).unsqueeze(0)  # (1, nl, *s)
     for ax in (0, 1):
-        lo, hi = _corr_pair(v, taps[ax], 2 + ax)
+        lo, hi = _corr_pair(v, taps[ax], 2 + ax, bool(padded and padded[ax]))
         v = torch.cat([lo, hi], dim=0)
-    bands = v.transpose(0, 1).reshape((-1,) + tuple(temp.shape[1:]))
+    bands = v.transpose(0, 1).reshape((-1,) + tuple(v.shape[2:]))
     details = bands[1:]
     if lam > 0:
         details = soft_threshold(details, lam)
@@ -54,11 +60,12 @@ def lead_dec_ref(temp, big, band_off, taps, lam=0.0, final=False):
     return bands[0].to(temp.dtype)
 
 
-def lead_adj_ref(y, approx, band_src, taps):
+def lead_adj_ref(y, approx, band_src, taps, padded=None):
     """Adjoint of :func:`lead_dec_ref` on the ``4 nl`` bands named by
     ``band_src`` (``("y", i)`` is ``y[i]``, ``("a", 0)`` is ``approx``):
     ``partial[c] = sum_a adj(band[a + 4 c])``, ``(nl, *s)``
-    (``pallas_4d._lead_adj_call``)."""
+    (``pallas_4d._lead_adj_call``). ``padded``: the halo-padded lead axes
+    of ``y`` and ``approx``, which the output drops."""
     cdt = _compute_dtype(y.dtype)
     group = torch.stack(
         [(approx if kind == "a" else y[idx]).to(cdt) for kind, idx in band_src]
@@ -66,7 +73,8 @@ def lead_adj_ref(y, approx, band_src, taps):
     v = group.reshape((-1, 4) + tuple(group.shape[1:])).transpose(0, 1)
     for ax in (1, 0):
         nb = v.shape[0]
-        v = _adj_pair(v[: nb // 2], v[nb // 2 :], taps[ax], 2 + ax)
+        v = _adj_pair(v[: nb // 2], v[nb // 2 :], taps[ax], 2 + ax,
+                      bool(padded and padded[ax]))
     return v[0].to(y.dtype)
 
 

@@ -7,6 +7,14 @@ and ``_fused_rec_level``): storage in the array dtype, compute in float32
 (float64 for float64 arrays) with full-precision taps. The CPU tests and
 ``chip_smoke.py`` hold the kernels against these; nothing on the CUDA path
 calls them, and the kernel wrappers use them only for tensors on the CPU.
+
+``padded`` (one flag per axis) is the halo-padded mode of the kernels: on a
+flagged axis the input is one rank's block of a sharded axis with its ring
+neighbours' rows around it (``cuda_kernels.halo_widths``: ``K//2 - 1`` in
+front and ``K//2`` behind for the analysis, ``K//2`` and ``K//2 - 1`` for
+the synthesis). Such an axis is sliced, not circularly padded, and the
+outputs keep the block's extent: the concat "valid" mode of
+``_fused_dec_level``/``_fused_rec_level`` (``shape=``/``padded=``).
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def dec_level_ref(approx, big, band_off, taps, lam=0.0, final=False):
+def dec_level_ref(approx, big, band_off, taps, lam=0.0, final=False,
+                  padded=None):
     """One analysis level of the ``(B, *s)`` cascade.
 
     Writes the ``2^d - 1`` detail bands of ``approx`` into
@@ -30,9 +39,10 @@ def dec_level_ref(approx, big, band_off, taps, lam=0.0, final=False):
     shrink of ``pallas_kernels.py:509-515``). With ``final`` the
     approximation goes into ``big[0]`` and ``None`` is returned; otherwise
     the next approximation is returned (in the storage dtype). ``taps``:
-    one (2, K) float64 array per axis (the plan's ``taps_hp``).
+    one (2, K) float64 array per axis (the plan's ``taps_hp``). ``padded``:
+    the halo-padded axes of ``approx`` (module docstring).
     """
-    bands = _level1_dec(approx.to(_compute_dtype(approx.dtype)), taps)
+    bands = _level1_dec(approx.to(_compute_dtype(approx.dtype)), taps, padded)
     details = bands[1:]
     if lam > 0:
         details = soft_threshold(details, lam)
@@ -43,15 +53,17 @@ def dec_level_ref(approx, big, band_off, taps, lam=0.0, final=False):
     return bands[0].to(approx.dtype)
 
 
-def rec_level_ref(y, approx, band_src, taps, scale):
+def rec_level_ref(y, approx, band_src, taps, scale, padded=None):
     """One synthesis level: the adjoint of one analysis level applied to
     the ``2^d`` bands named by ``band_src`` — ``("y", i)`` is ``y[i]``,
-    ``("a", 0)`` is ``approx`` — times ``scale``; returns ``(*s)``."""
+    ``("a", 0)`` is ``approx`` — times ``scale``; returns ``(*s)``.
+    ``padded``: the halo-padded axes of ``y`` and ``approx``, which the
+    output drops."""
     cdt = _compute_dtype(y.dtype)
     group = torch.stack(
         [(approx if kind == "a" else y[idx]).to(cdt) for kind, idx in band_src]
     )
-    acc = _level1_rec(group, taps)
+    acc = _level1_rec(group, taps, padded)
     if scale != 1.0:
         acc = acc * scale
     return acc.to(y.dtype)
