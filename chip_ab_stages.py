@@ -1,16 +1,33 @@
 #!/usr/bin/env python3
-"""A/B of the 4D stage kernels on one NVIDIA GPU.
+"""A/B of the 4D stage kernels and the streamed synthesis on one NVIDIA GPU.
 
-    python3 chip_ab_stages.py [VARIANT.cu ...]
+    python3 chip_ab_stages.py [VARIANT ...]
 
-Builds this checkout's ``ops/csrc/nddwt_4d.cu`` and every variant source
-given (a copy of it with a change; built with the checkout's ``csrc/`` on
-the include path), holds each build against the kernels' plain versions at
-two small shapes (an A/B never times a wrong kernel), and times the four
-stage kernels per build at (128, 128, 128, 32) db4 float32 with CUDA
-events: every build once in the order given, then once in reverse, so the
-card's clock drifts against no one build. Then it times this checkout's
-kernels at a list of tiles forced per launch (the tile plan bypassed).
+Builds this checkout's ``ops/csrc/nddwt_4d.cu`` and ``nddwt_level.cu`` and
+every variant given: a directory (a copy of ``csrc/`` with a change; both
+sources are built from it) or one source file (a copy of ``nddwt_4d.cu`` or
+``nddwt_level.cu`` with a change, by its name's prefix; built with the
+checkout's ``csrc/`` on the include path). Five variants of the streamed
+synthesis (``csrc/nddwt_stream.cuh``) are built in (``BUILT_IN``): "ring in
+shared memory" sends every filter length to the runtime-tap path (the ring
+of partial planes in shared memory, one plane element a thread, instead of
+in registers); "two stages" keeps one window copy in flight instead of up
+to three; "one CTA per SM" drops the two-CTA register cap; and two
+diagnostic builds whose outputs are wrong, timed only: "copies only" skips
+the passes and "passes only" skips the copies, which shows what each part
+costs alone and whether the two overlap.
+
+Each build but the diagnostic ones is held against the kernels' plain
+versions at small shapes (an A/B never times a wrong kernel). Then it
+times, per build, the four stage kernels at (128, 128, 128, 32) db4
+float32 and ``nddwt_rec_level`` at 256^3
+db4 float32 and float64 with CUDA events: every build once in the order
+given, then once in reverse, so the card's clock drifts against no one
+build. Then it times this checkout's kernels over forced launch plans (the
+plan functions bypassed): the stage tiles of ``nddwt_lane_dec``,
+``nddwt_lead_dec`` and ``nddwt_lane_adj``, the streamed plans ``(C, T1,
+T2)`` of ``nddwt_lead_adj`` and ``nddwt_rec_level``, and the ring-in-shared-
+memory build's ``nddwt_rec_level`` at its own plans (``T1 x T2 = 256``).
 
 Prints the card's name and power limit first and one JSON object last. It
 exits non-zero without a CUDA device or if a build disagrees with the plain
@@ -19,15 +36,41 @@ versions.
 
 import ctypes
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
 SHAPE = (128, 128, 128, 32)
+SHAPE3 = (256, 256, 256)
 LEAD_TILES = [(16, 32, 8), (16, 16, 8), (8, 16, 16), (16, 16, 16), (8, 8, 32),
               (4, 8, 64)]
 LANE_TILES = [(1, 128, 32), (1, 64, 32), (2, 64, 32), (1, 32, 32)]
+# Streamed plans (C, T1, T2); T1 * T2 = 256 * 4 where the taps are unrolled.
+LEAD_ADJ_PLANS = [(128, 4, 256), (128, 8, 128), (128, 16, 64), (64, 4, 256),
+                  (128, 2, 512)]
+REC_PLANS = [(64, 8, 128), (64, 16, 64), (32, 8, 128), (64, 4, 256), (29, 16, 64),
+             (128, 8, 128)]
+RING_SMEM = "ring in shared memory"
+RING_SMEM_PLANS = [(64, 2, 128), (64, 4, 64), (32, 2, 128)]  # T1 * T2 = 256
+# The built-in variants: name -> (text of csrc/nddwt_stream.cuh, replacement).
+BUILT_IN = {
+    RING_SMEM: ("  if (K != 2 && K != 4 && K != 6 && K != 8) return 0;",
+                "  if (K > 0) return 0;"),
+    "two stages": ("constexpr int kStreamMaxStages = 4;",
+                   "constexpr int kStreamMaxStages = 2;"),
+    "one CTA per SM": ("__launch_bounds__(kThreads, 2)\n    stream_syn_kernel",
+                       "__launch_bounds__(kThreads)\n    stream_syn_kernel"),
+    "copies only": ("    cp_commit();\n\n    const int gi = at.gi",
+                    "    cp_commit();\n    if (nw > 0) continue;\n\n    const int gi = at.gi"),
+    "passes only": ("      for (int i = lane; i < hd; i += 32) copy_elem(srow + i, row + col(c0 + i));\n"
+                    "      for (int u = lane; u < nv; u += 32)\n"
+                    "        copy16(srow + hd + u * V, row + col(c0 + hd + u * V));\n"
+                    "      for (int i = tail + lane; i < E2; i += 32) "
+                    "copy_elem(srow + i, row + col(c0 + i));\n", ""),
+}
+DIAGNOSTIC = ("copies only", "passes only")
 
 
 def timed(fn, reps=8):
@@ -45,6 +88,20 @@ def timed(fn, reps=8):
     return start.elapsed_time(end) / reps
 
 
+def _built_in_sources(ck, into: Path, name: str) -> Path:
+    """A copy of ``csrc/`` with the built-in variant ``name`` applied to
+    ``nddwt_stream.cuh``."""
+    d = into / name.replace(" ", "_")
+    shutil.copytree(ck.CSRC, d)
+    p = d / "nddwt_stream.cuh"
+    old, new = BUILT_IN[name]
+    src = p.read_text()
+    if old not in src:
+        raise RuntimeError(f"nddwt_stream.cuh has changed: cannot build {name!r}")
+    p.write_text(src.replace(old, new))
+    return d
+
+
 def main() -> int:
     import torch
 
@@ -55,43 +112,69 @@ def main() -> int:
     import non_decimated_wavelets_tpu_torch as tw
     from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
     from non_decimated_wavelets_tpu_torch.ops import level4_ref as r4
+    from non_decimated_wavelets_tpu_torch.ops import level_ref as r3
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    builds = {"checkout": ck.library_path("nddwt_4d")}
-    ck.build(("nddwt_4d",))
+    ck.build(("nddwt_level", "nddwt_4d"))
+    builds = {"checkout": {"nddwt_level": ck.library_path("nddwt_level"),
+                           "nddwt_4d": ck.library_path("nddwt_4d")}}
     with tempfile.TemporaryDirectory() as tmp:
-        procs = {}
-        for src in sys.argv[1:]:
-            so = Path(tmp) / f"{Path(src).stem}.so"
-            procs[src] = (so, subprocess.Popen(
-                [ck._nvcc(), *ck.NVCC_FLAGS, "-I", str(ck.CSRC), "-o", str(so), src]))
-        for src, (so, proc) in procs.items():
+        tmp = Path(tmp)
+        jobs = []  # (build name, library name, source, include dir)
+        variants = [(name, str(_built_in_sources(ck, tmp, name))) for name in BUILT_IN]
+        for name, v in variants + [(v, v) for v in sys.argv[1:]]:
+            if Path(v).is_dir():
+                jobs += [(name, lib, Path(v) / f"{lib}.cu", Path(v))
+                         for lib in ("nddwt_level", "nddwt_4d")]
+            else:
+                lib = "nddwt_level" if Path(v).name.startswith("nddwt_level") else "nddwt_4d"
+                jobs.append((name, lib, Path(v), ck.CSRC))
+        procs = []
+        for i, (name, lib, src, inc) in enumerate(jobs):
+            so = tmp / f"v{i}_{lib}.so"
+            procs.append((name, lib, so, subprocess.Popen(
+                [ck._nvcc(), *ck.NVCC_FLAGS, "-I", str(inc), "-o", str(so), str(src)])))
+        for name, lib, so, proc in procs:
             if proc.wait():
-                print(f"chip_ab_stages: nvcc failed on {src}", file=sys.stderr)
+                print(f"chip_ab_stages: nvcc failed on {name} ({lib})", file=sys.stderr)
                 return 1
-            builds[src] = so
+            builds.setdefault(name, dict(builds["checkout"]))[lib] = so
         libs, real_library = {}, ck.library
-        for name, so in builds.items():
+        for name, paths in builds.items():
+            ck.load.cache_clear()
             ck.load4.cache_clear()
-            ck.library = lambda n, so=so: ctypes.CDLL(str(so)) if n == "nddwt_4d" else real_library(n)
-            libs[name] = ck.load4()
+            ck.library = lambda n, p=paths: (ctypes.CDLL(str(p[n])) if n in p
+                                             else real_library(n))
+            libs[name] = (ck.load(), ck.load4())
         ck.library = real_library
-        return run(torch, tw, ck, r4, libs, smi)
+        return run(torch, tw, ck, r3, r4, libs, smi)
 
 
-def run(torch, tw, ck, r4, libs, smi) -> int:
+def run(torch, tw, ck, r3, r4, libs, smi) -> int:
     def use(name):
-        ck.load4 = lambda: libs[name]
+        ck.load = lambda: libs[name][0]
+        ck.load4 = lambda: libs[name][1]
 
+    def plan_items(name, plan):
+        """Force plan on every streamed launch (the items check: 1 a thread
+        on the ring-in-shared-memory build)."""
+        ck._stream_plan = lambda *a, t=plan: t
+        ck._stream_items = (lambda k: 1) if name == RING_SMEM else real_items
+
+    real_plan, real_items = ck._stream_plan, ck._stream_items
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     wrong = []
     for name in libs:
+        if name in DIAGNOSTIC:
+            continue
         use(name)
+        if name == RING_SMEM:
+            plan_items(name, (8, 2, 128))
         for shape, wv in (((12, 10, 9, 7), "db2"), ((40, 41, 45), "db20")):
             taps = tw.NDDWT(wv, shape, device=dev).taps_hp
             x = torch.randn(shape, generator=gen, device=dev)
@@ -111,40 +194,69 @@ def run(torch, tw, ck, r4, libs, smi) -> int:
             for k, r in pairs:
                 if (k - r).abs().max().item() > 1e-5 * r.abs().max().item():
                     wrong.append(f"{name} at {shape} {wv}")
+        for shape, wv in (((24, 40, 72), "db4"), ((9, 300), ("db2", "db6"))):
+            taps = tw.NDDWT(wv, shape, device=dev).taps_hp
+            nb = 2 ** len(shape)
+            y = torch.randn((nb,) + shape, generator=gen, device=dev)
+            src = [("y", b) for b in range(nb)]
+            k, r = ck.rec_level(y, None, src, taps, 0.5), r3.rec_level_ref(y, None, src, taps, 0.5)
+            if (k - r).abs().max().item() > 1e-5 * r.abs().max().item():
+                wrong.append(f"{name} nddwt_rec_level at {shape} {wv}")
+        ck._stream_plan, ck._stream_items = real_plan, real_items
     if wrong:
         print(f"chip_ab_stages: disagrees with the plain versions: {wrong}",
               file=sys.stderr)
         return 1
 
     taps = tw.NDDWT("db4", SHAPE, device=dev).taps_hp
+    taps3 = tw.NDDWT("db4", SHAPE3, device=dev).taps_hp
     x = torch.randn(SHAPE, generator=gen, device=dev)
     temp = torch.randn((4,) + SHAPE, generator=gen, device=dev)
     big = torch.randn((16,) + SHAPE, generator=gen, device=dev)
-    src16 = [("y", b) for b in range(16)]
+    y32 = torch.randn((8,) + SHAPE3, generator=gen, device=dev)
+    y64 = torch.randn((8,) + SHAPE3, generator=gen, device=dev, dtype=torch.float64)
+    src16, src8 = [("y", b) for b in range(16)], [("y", b) for b in range(8)]
     calls = {
-        "nddwt_lane_dec": (lambda: ck.lane_dec(x, taps), True),
-        "nddwt_lead_dec": (lambda: ck.lead_dec(temp, big, 1, taps), False),
-        "nddwt_lead_adj": (lambda: ck.lead_adj(big, None, src16, taps), False),
-        "nddwt_lane_adj": (lambda: ck.lane_adj(temp, taps, 1 / 16), True),
+        "nddwt_lane_dec": lambda: ck.lane_dec(x, taps),
+        "nddwt_lead_dec": lambda: ck.lead_dec(temp, big, 1, taps),
+        "nddwt_lead_adj": lambda: ck.lead_adj(big, None, src16, taps),
+        "nddwt_lane_adj": lambda: ck.lane_adj(temp, taps, 1 / 16),
+        "nddwt_rec_level f32": lambda: ck.rec_level(y32, None, src8, taps3, 0.125),
+        "nddwt_rec_level f64": lambda: ck.rec_level(y64, None, src8, taps3, 0.125),
     }
-    out = {"card": smi, "shape": SHAPE, "ms": {}, "tiles": {}}
-    order = list(libs)
+    out = {"card": smi, "shape": SHAPE, "shape3": SHAPE3, "ms": {}, "tiles": {}, "plans": {}}
+    order = [name for name in libs if name != RING_SMEM]
     for name in order + order[::-1]:
         use(name)
-        for kernel, (fn, _) in calls.items():
+        for kernel, fn in calls.items():
             out["ms"].setdefault(name, {}).setdefault(kernel, []).append(timed(fn))
     for name, per in out["ms"].items():
         print(f"{name}: " + "; ".join(f"{k} {v}" for k, v in per.items()), flush=True)
     use("checkout")
     plan_tiles = ck._stage_tiles
-    for kernel, (fn, lane) in calls.items():
+    for kernel, tiles in (("nddwt_lane_dec", LANE_TILES), ("nddwt_lead_dec", LEAD_TILES),
+                          ("nddwt_lane_adj", LANE_TILES)):
         row = {}
-        for t in LANE_TILES if lane else LEAD_TILES:
+        for t in tiles:
             ck._stage_tiles = lambda n, k, lane_, adj, word, t=t: t
-            row[str(t)] = timed(fn)
+            row[str(t)] = timed(calls[kernel])
         ck._stage_tiles = plan_tiles
         out["tiles"][kernel] = row
         print(f"tiles {kernel}: {row}", flush=True)
+    for name, kernel, plans in (
+            ("checkout", "nddwt_lead_adj", LEAD_ADJ_PLANS),
+            ("checkout", "nddwt_rec_level f32", REC_PLANS),
+            ("checkout", "nddwt_rec_level f64", REC_PLANS),
+            (RING_SMEM, "nddwt_rec_level f32", RING_SMEM_PLANS),
+            (RING_SMEM, "nddwt_rec_level f64", RING_SMEM_PLANS)):
+        use(name)
+        row = {}
+        for t in plans:
+            plan_items(name, t)
+            row[str(t)] = timed(calls[kernel])
+        ck._stream_plan, ck._stream_items = real_plan, real_items
+        out["plans"][f"{kernel} ({name})"] = row
+        print(f"plans {kernel} ({name}): {row}", flush=True)
     print(json.dumps(out))
     return 0
 

@@ -55,7 +55,11 @@ Phases:
    multi-coil batch; the halo-padded mode of the level and lead-stage
    kernels on one rank's padded block cut from a global array (one and two
    padded axes; float32, bfloat16, float64), also against the wrap mode on
-   the whole array, cut to the block;
+   the whole array, cut to the block; and the streamed synthesis
+   (``nddwt_rec_level``, ``nddwt_lead_adj``) at the cases its plan can get
+   wrong (``STREAM_REC_CASES``, ``STREAM_LEAD_CASES``: a streamed axis of
+   extent K, odd extents, 2 to 28 taps, 2D mixed filters) in float32,
+   bfloat16 and float64, one line per case;
 3. the main path at 256^3 (both normalizations) against the plain path on
    the card, the threshold-0 round trip, and the 64^3 flagship step of
    ``__graft_entry__.entry`` against the float64 NumPy oracle; the kernels'
@@ -157,18 +161,27 @@ SOLVE_SHAPE, SOLVE_ITERS = (256, 256), 100  # the one-launch FISTA solves
 CHAIN_SHAPE, CHAIN_WV, CHAIN_SWEEPS = (264, 264), ("db1", "db3"), 20  # nd_dwt_2D's
 SPLIT_SHAPE = (128, 128)  # the one-launch dec_rec_split
 FIVE_D = (((12, 10, 8, 6, 5), "db1", 2), ((8, 8, 8, 8, 8), "db2", 1))
+# The streamed synthesis (nddwt_rec_level, built from nddwt_level.cu, and
+# nddwt_lead_adj, from nddwt_4d.cu) is written in this header, and the cases
+# its plan can get wrong: a streamed axis of extent K, extents no multiple of
+# the plane tile or chunk, K = 2, the longest filter the per-level route takes
+# (db14; db11 in float64), 2D mixed filters; X of extent K and odd extents.
+STREAM_SOURCE = "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_stream.cuh"
+STREAM_REC_CASES = [((8, 40, 72), "db4"), ((37, 41, 45), "db4"), ((24, 40, 72), "db1"),
+                    ((30, 30, 31), "db14"), ((24, 25, 26), "db11"), ((9, 300), ("db2", "db6"))]
+STREAM_LEAD_CASES = [((8, 64, 20, 10), "db4"), ((37, 41, 20, 10), "db2")]
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nddwt_dec_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_level.cu",
                         "non_decimated_wavelets_tpu/ops/pallas_kernels.py:519"),
-    "nddwt_rec_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_level.cu",
-                        "non_decimated_wavelets_tpu/ops/pallas_kernels.py:1389"),
+    "nddwt_rec_level": (STREAM_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_kernels.py:1389"),
     "nddwt_mag_shrink_pair": (
         "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_elemwise.cu",
         "non_decimated_wavelets_tpu/ops/pallas_elemwise.py:57"),
     "nddwt_fista_step": (
         "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_elemwise.cu",
         "non_decimated_wavelets_tpu/ops/pallas_elemwise.py:108"),
-    **{name: ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_4d.cu",
+    **{name: (STREAM_SOURCE if name == "nddwt_lead_adj"
+              else "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_4d.cu",
               f"non_decimated_wavelets_tpu/ops/pallas_4d.py:{line}")
        for name, line in zip(STAGE_KERNELS, (503, 592, 882, 998))},
     "nddwt_dec1_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_1d.cu",
@@ -553,6 +566,34 @@ def main() -> int:
             main_err.update(errs)
         del x, temp
         torch.cuda.empty_cache()
+
+    # The streamed synthesis' edge cases (STREAM_REC_CASES, STREAM_LEAD_CASES)
+    # in each dtype; one line per case, both band sources (y only, and band 0
+    # from approx). The longest filter is the per-level route's own for the
+    # dtype (db14 takes the stage kernels in float64).
+    for seed, ((shape, wv), dt) in enumerate(
+            (c, d) for c in STREAM_REC_CASES + STREAM_LEAD_CASES
+            for d in (torch.float32, torch.bfloat16, torch.float64)):
+        if wv == ("db14" if dt == torch.float64 else "db11"):
+            continue
+        gen.manual_seed(1600 + seed)
+        taps = tw.NDDWT(wv, shape, device=dev).taps_hp
+        nb = 2 ** len(shape)
+        lead = len(shape) == 4
+        kernel, plain = ((ck.lead_adj, level4_ref.lead_adj_ref) if lead else
+                         (lambda *a: ck.rec_level(*a, 1 / nb),
+                          lambda *a: level_ref.rec_level_ref(*a, 1 / nb)))
+        y, x = randn((2 * nb - 1,) + shape, dt), randn(shape, dt)
+        err = tol = 0.0
+        for src in ([("y", b) for b in range(nb)],
+                    [("a", 0)] + [("y", nb + b - 1) for b in range(1, nb)]):
+            k, r = kernel(y, x, src, taps), plain(y, x, src, taps)
+            torch.cuda.synchronize()
+            err, tol = max(err, max_err(k, r)), max(tol, rel_tol(r, dt))
+        check(f"{'nddwt_lead_adj' if lead else 'nddwt_rec_level'} streamed {shape} {wv} "
+              f"{str(dt).removeprefix('torch.')}", err, tol)
+        del y, x, k, r
+    torch.cuda.empty_cache()
 
     # The 1D level kernels: bench.py's 1M-sample signal, the reference's
     # 54321-sample test length, N = K, and a 2^23-sample db6 signal.

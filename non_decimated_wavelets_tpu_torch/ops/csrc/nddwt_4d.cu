@@ -37,12 +37,20 @@
 // consecutive threads on consecutive addresses. The analysis computes both
 // halves of the second pass from one read of the intermediate. Flat indices
 // are split by multiply-high, not by division, and the lead stage keeps 8
-// window loads in flight per thread. They still run at 14-30 % of the bound
-// on an H100: every pass waits at a barrier for its window, and the lead
-// stage's window spans tile + K - 1 planes of X. Streaming X through the
-// CTA, with a ring of K planes, would read each plane once. Every index
-// wraps periodically, so any extent >= K runs: odd Z and T, T > 128.
-// TMA, wgmma and warp specialisation are left for later work.
+// window loads in flight per thread. The lane stages and the lead analysis
+// run at 14-30 % of the bound on an H100: every pass waits at a barrier for
+// its window, and the lead analysis's window spans tile + K - 1 planes of X.
+// Every index wraps periodically, so any extent >= K runs: odd Z and T,
+// T > 128.
+//
+// The lead adjoint streams X instead (nddwt_stream.cuh over the (X, Y, Z*T)
+// view, slot 2 the pass-through): a CTA owns (T1 rows of Y) x (T2 of Z*T)
+// and a chunk of X, copies each band plane's (T1 + K - 1) x T2 window, whose
+// rows are contiguous along Z*T, asynchronously in 16-byte pieces, runs the
+// Y pass and scatters along X into a ring of K partial planes per output
+// group; each plane of X is read once per chunk plus K - 1. It runs at about
+// a quarter of its bound on an H100: its copies and its passes each take
+// about half of its time and barely overlap (nddwt_stream.cuh).
 //
 // The halo-padded ("valid") mode of the lead stage: nddwt_lead_dec and
 // nddwt_lead_adj take a `pad` flag on slots 0 and 1 (X and Y of the
@@ -61,6 +69,7 @@
 //        -Xcompiler -fPIC  (ops/cuda_kernels.py does this at first use).
 
 #include "nddwt_common.cuh"
+#include "nddwt_stream.cuh"
 
 namespace {
 
@@ -251,7 +260,7 @@ __device__ void dec_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
 // s applied to band d = s + 4 gi, read from y[src.idx[d]] or, for -1, from
 // approx. The taps arrive reversed and the halo mirrored, so each adjoint
 // is a forward correlation. smem: window, intermediate, output tile.
-template <typename T, int HA, int HB, bool kPad, typename C>
+template <typename T, int HA, int HB, typename C>
 __device__ void adj_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
                           const T* __restrict__ y, const T* __restrict__ approx,
                           const Sources& src, int n_out, const LevelT<C>& g,
@@ -267,7 +276,6 @@ __device__ void adj_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
   C* p1 = s0 + e0 * e1 * e2;
   C* acc = p1 + d0 * d1 * d2;
   const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
-  const long long ivox = kPad ? in_vox(g) : vox;  // one input band
   const int nsA = g.k[HA] > 1 ? 2 : 1, nsB = g.k[HB] > 1 ? 2 : 1;
   const int p1n = d0 * d1 * d2, an = t0 * t1 * t2;
   const Split3 split(t1, t2);
@@ -277,9 +285,9 @@ __device__ void adj_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
       for (int i = threadIdx.x; i < p1n; i += blockDim.x) p1[i] = 0;
       for (int sa = 0; sa < nsA; ++sa) {
         const long long id = src.idx[sa + 2 * sb + 4 * gi];
-        const T* bsrc = id < 0 ? approx : y + id * ivox;
+        const T* bsrc = id < 0 ? approx : y + id * vox;
         __syncthreads();  // the previous band's window is consumed
-        load_window<HA == 0 ? 8 : 1, kPad>(s0, bsrc, g, b, e0, e1, e2);
+        load_window<HA == 0 ? 8 : 1, false>(s0, bsrc, g, b, e0, e1, e2);
         __syncthreads();
         stage_pass<HA, true>(p1, s0, e0, e1, e2, g.t[HA], taps[HA][sa],
                              g.k[HA]);
@@ -323,18 +331,6 @@ __global__ void __launch_bounds__(kThreads)
                            big, band_off, lam);
 }
 
-// Lead adjoint: 16 band sources -> partial (n_out, X, Y, Z*T); kPad: the
-// halo-padded instantiation.
-template <typename T, bool kPad, typename C = compute_t<T>>
-__global__ void __launch_bounds__(kThreads)
-    lead_adj_kernel(const T* __restrict__ y, const T* __restrict__ approx,
-                    T* __restrict__ partial, const __grid_constant__ LevelT<C> g,
-                    const __grid_constant__ Sources src, int n_out) {
-  __shared__ C taps[3][2][kMaxTaps];
-  adj_stage<T, 0, 1, kPad>(shared_words<C>(), taps, y, approx, src, n_out, g,
-                           partial, C(1));
-}
-
 // Lane adjoint: partial (4, X*Y, Z, T) -> scale * (X*Y, Z, T).
 template <typename T, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads)
@@ -342,7 +338,7 @@ __global__ void __launch_bounds__(kThreads)
                     const __grid_constant__ LevelT<C> g,
                     const __grid_constant__ Sources src, C scale) {
   __shared__ C taps[3][2][kMaxTaps];
-  adj_stage<T, 1, 2, false>(shared_words<C>(), taps, partial, partial, src, 1,
+  adj_stage<T, 1, 2>(shared_words<C>(), taps, partial, partial, src, 1,
                             g, out, scale);
 }
 
@@ -398,14 +394,15 @@ int lead_dec(const void* temp, void* big, void* approx_out, const Geom& v,
                 (T*)big, (T*)approx_out, g, n_in, band_off, (C)lam);
 }
 
+// The lead adjoint streams X (nddwt_stream.cuh) over the (X, Y, Z*T) view:
+// t = (C, T1, T2) is its chunk of X and plane tile; band s0 + 2 s1 + 4 gi.
 template <typename T, typename C = compute_t<T>>
 int lead_adj(const void* y, const void* approx, void* partial, const Geom& v,
-             const Sources& src, int n_out, cudaStream_t s) {
-  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.pad, v.taps);
-  auto kernel = v.pad && (v.pad[0] || v.pad[1]) ? lead_adj_kernel<T, true, C>
-                                                : lead_adj_kernel<T, false, C>;
-  return launch(kernel, g, stage_smem(g, 0, true), s, (const T*)y,
-                (const T*)approx, (T*)partial, g, src, n_out);
+             const StreamSources& src, int n_out, cudaStream_t s) {
+  const int bits[3] = {0, 1, 0};
+  const LevelT<C> g = make_level<C>(v.n, v.k, v.t, v.left, bits, v.taps, v.pad);
+  return launch_stream<T>((const T*)y, (const T*)approx, (T*)partial, g, src,
+                          n_out, C(1), v.pad && (v.pad[0] || v.pad[1]), s);
 }
 
 template <typename T, typename C = compute_t<T>>
@@ -464,8 +461,8 @@ extern "C" int nddwt_lead_adj(const void* y, const void* approx, void* partial,
                               const long long* band_idx, int n_out,
                               const int* pad, void* stream) {
   const Geom v{n, k, t, left, pad, taps};
-  Sources src;
-  for (int d = 0; d < kMaxBands; ++d) src.idx[d] = band_idx[d];
+  StreamSources src;
+  for (int d = 0; d < kStreamBands; ++d) src.idx[d] = band_idx[d];
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return lead_adj<float>(y, approx, partial, v, src, n_out, s);
   if (dtype == 1)

@@ -35,21 +35,34 @@
 // same way. A padded level moves the same bytes as a wrapped one, plus the
 // halo rows.
 //
-// Each CTA owns one output tile; the tile's body is in nddwt_tile.cuh, which
-// the one-launch multilevel kernels (nddwt_multi.cu) share.
+// nddwt_dec_level: each CTA owns one output tile; the tile's body is in
+// nddwt_tile.cuh, which the one-launch multilevel kernels (nddwt_multi.cu)
+// share. One analysis level of a 3D array reads the array once and writes
+// 2^d of them, so it is bound by device-memory bytes (9 arrays moved; at
+// 256^3 f32 about 0.6 GB, ~0.18 ms at 3.35 TB/s; f64 twice that). The K-tap
+// passes read shared memory K times per output, which is the next limit;
+// they keep consecutive threads on consecutive addresses (no bank
+// conflicts), and the depth-first tree does (2 + 4 + 8) passes' work on
+// shrinking intermediates instead of 8 full band cascades.
 //
-// What bounds them: one analysis level of a 3D array reads the array once and
-// writes 2^d of them, so it is bound by device-memory bytes (9 arrays moved;
-// at 256^3 f32 about 0.6 GB, ~0.18 ms at 3.35 TB/s; f64 twice that). The K-tap passes
-// read shared memory K times per output, which is the next limit; they keep
-// consecutive threads on consecutive addresses (no bank conflicts), and the
-// depth-first tree does (2 + 4 + 8) passes' work on shrinking intermediates
-// instead of 8 full band cascades. TMA, wgmma and warp specialisation are
-// left for later work.
+// nddwt_rec_level streams slot 0 (nddwt_stream.cuh; a 2D array as
+// (n0, 1, n1)): each CTA owns a (T1, T2) column on slots 1 and 2 and a
+// chunk of slot 0, reads each band plane of the chunk once (plus K - 1 halo
+// planes) through an asynchronous ring of window copies, runs the in-plane
+// adjoint on it and scatters into a ring of K partial output planes. It
+// moves the same 9 arrays as the analysis. The tile body it replaced loaded
+// a (t + K - 1)^3 window per band with three divisions and three modulos
+// per element, and spent its time in that loop (one more select there
+// slowed the 3D pair 17.7 %); the streamed body divides nothing per
+// element and reads each band about 2.2x (at 256^3 db4: its row, column and
+// plane halos) instead of 4.3x. What bounds it now
+// is in nddwt_stream.cuh: its copies and its passes each take about half of
+// its time on an H100 and barely overlap.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (ops/cuda_kernels.py does this at first use).
 
+#include "nddwt_stream.cuh"
 #include "nddwt_tile.cuh"
 
 namespace {
@@ -66,17 +79,6 @@ __global__ void __launch_bounds__(kThreads)
   copy_taps(taps, g);
   dec_tile<false, kPad>(x, big, approx_out, g, taps, shared_words<C>(),
                         band_off, lam, blockIdx.x);
-}
-
-template <typename T, bool kPad, typename C = compute_t<T>>
-__global__ void __launch_bounds__(kThreads)
-    rec_level_kernel(const T* __restrict__ y, const T* __restrict__ approx,
-                     T* __restrict__ out, const __grid_constant__ LevelT<C> g,
-                     const __grid_constant__ Sources src, C scale) {
-  __shared__ C taps[3][2][kMaxTaps];
-  copy_taps(taps, g);
-  rec_tile<false, kPad>(y, approx, out, g, src, scale, taps,
-                        shared_words<C>(), blockIdx.x);
 }
 
 template <typename C, typename... KArgs, typename... Args>
@@ -104,17 +106,17 @@ int launch_dec(const void* x, void* big, void* approx_out, const int* n,
                 g, band_off, (C)lam);
 }
 
+// The synthesis streams slot 0 (nddwt_stream.cuh): n, k, left, bit, pad
+// describe the view the wrapper hands over ((n0, n1, n2) in 3D, (n0, 1, n1)
+// in 2D) and t = (C, T1, T2) its chunk and plane tile.
 template <typename T, typename C = compute_t<T>>
 int launch_rec(const void* y, const void* approx, void* out, const int* n,
                const int* k, const int* t, const int* left, const int* bit,
-               const int* pad, const void* taps, const Sources& src,
+               const int* pad, const void* taps, const StreamSources& src,
                double scale, cudaStream_t stream) {
   const LevelT<C> g = make_level<C>(n, k, t, left, bit, taps, pad);
-  const size_t smem = tile_smem_bytes(g, true);
-  auto kernel =
-      any_pad(pad) ? rec_level_kernel<T, true> : rec_level_kernel<T, false>;
-  return launch(kernel, g, smem, stream, (const T*)y, (const T*)approx, (T*)out,
-                g, src, (C)scale);
+  return launch_stream<T>((const T*)y, (const T*)approx, (T*)out, g, src, 1,
+                          (C)scale, any_pad(pad), stream);
 }
 
 }  // namespace
@@ -151,8 +153,8 @@ extern "C" int nddwt_rec_level(const void* y, const void* approx, void* out,
                                const int* t, const int* left, const int* bit,
                                const void* taps, const long long* band_idx,
                                double scale, const int* pad, void* stream) {
-  Sources src;
-  for (int b = 0; b < 8; ++b) src.idx[b] = band_idx[b];
+  StreamSources src;
+  for (int b = 0; b < kStreamBands; ++b) src.idx[b] = b < 8 ? band_idx[b] : -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_rec<float>(y, approx, out, n, k, t, left, bit, pad, taps,

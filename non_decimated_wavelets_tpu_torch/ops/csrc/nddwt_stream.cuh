@@ -1,0 +1,490 @@
+// The streamed synthesis body shared by nddwt_rec_level (nddwt_level.cu) and
+// nddwt_lead_adj (nddwt_4d.cu): a CTA owns an output column of (T1, T2) on
+// slots 1 and 2 and a chunk of C outputs along slot 0, and walks slot 0 one
+// input plane at a time.
+//
+// The launch is over a 3-slot view (LevelT: extents n, taps k, left halo,
+// band bit and halo-padded flag per slot; t = (C, T1, T2), T2 a power of
+// two and T1 * T2 = kThreads * items). Output group gi (of `groups`, one
+// view's extent apart in `out`) is
+//
+//   out[gi] = scale * sum_{s0, s1, s2} adj0_{s0} adj1_{s1} adj2_{s2} band(s, gi)
+//
+// where band(s, gi) = y[src.idx[(s0 << bit0 | s1 << bit1 | s2 << bit2) + 4 gi]]
+// (index -1: the approx array), and adj_a is the K-tap correlation along slot
+// a with the taps as given (already reversed: the adjoint with the mirrored
+// halo). A slot with one tap is a pass-through (no band split, no halo).
+// The views:
+//
+//   nddwt_rec_level 3D  (n0, n1, n2), halos on all three slots, one group;
+//   nddwt_rec_level 2D  (n0, 1, n1): slot 1 is the pass-through;
+//   nddwt_lead_adj      (X, Y, Z*T): slot 2 is the pass-through, groups = the
+//                       lane bands, band s0 + 2 s1 + 4 gi.
+//
+// Per input plane r of the chunk (C + K0 - 1 of them) and per s0, the CTA
+// runs the in-plane adjoint on the plane windows of the bands (s0, s1, s2):
+// along slot 2 into an intermediate Q, then along slot 1 into the plane P
+// (P in registers, `items` elements per thread); then it scatters P into a
+// ring of K0 partial output planes along slot 0 (R[m] += tap0[K0-1-m] * P).
+// After both s0 the front of the ring is a finished output plane: written
+// out, and the ring shifts. A band plane is read once per chunk plus
+// K0 - 1 halo planes at its start.
+//
+// Copies: each window (T1 + K1 - 1 rows of T2 + K2 - 1, in the storage
+// type) is copied asynchronously (cp.async) into a ring of up to
+// kStreamMaxStages buffers, stages - 1 windows ahead of the one computed,
+// one barrier per window. The input offset of every window row is computed
+// once per CTA (the rows are the same in every plane and band); a row is
+// copied in 16-byte pieces where the input rows are 16-byte aligned (a piece
+// never straddles the periodic wrap then, so only its first column is
+// wrapped), element by element otherwise (bfloat16 elements by plain loads:
+// cp.async copies 4, 8 or 16 bytes). No index is divided per element. The
+// halo-padded mode (kPad) reads a padded slot at position + left without
+// wrapping.
+//
+// Filter lengths 2, 4, 6, 8 (db1-db4, the same K on every slot that has a
+// halo: stream_unrolled) run with the tap loops unrolled, the taps of the
+// current pass in registers, the ring in registers and 4 plane elements a
+// thread on consecutive rows (the slot-1 pass loads 4 + K - 1 rows for
+// 4 K taps); any other filters run with runtime tap loops, the ring in
+// shared memory and one element a thread. Two CTAs per SM (128 registers).
+//
+// What bounds it on an H100: neither bytes nor flops. At 256^3 db4 f32 a
+// level moves 0.6 GB (0.18 ms at 3.35 TB/s) and does about 190 FMAs per
+// output; the kernel takes about 7x the bound, and builds that leave out the
+// copies or the passes each take about half of its time: the two do not
+// overlap, and a ring of two window buffers instead of four changes the time
+// by 3 % or less. Bulk (TMA) row copies completing on an mbarrier, which
+// take the copies off the load/store path, are the next step (PERF.md).
+
+#pragma once
+
+#include <cstdint>
+
+#include "nddwt_common.cuh"
+
+namespace {
+
+constexpr int kStreamBands = 16;
+// Window buffers in flight: up to kStreamMaxStages where they fit the
+// budget (stream_stages), at least 2.
+constexpr int kStreamMaxStages = 4;
+constexpr size_t kStreamSmemBudget = 200 * 1024;
+
+struct StreamSources {
+  long long idx[kStreamBands];  // band d's index into y; -1 reads approx
+};
+
+// Elements of P per thread: the register ring holds items * KT words.
+constexpr int kStreamItems = 4;
+template <int KT>
+__host__ __device__ constexpr int stream_items() {
+  return KT > 0 ? kStreamItems : 1;
+}
+
+// The unrolled filter length of a launch, or 0 (runtime loops): the same
+// length K of 2, 4, 6 or 8 on every slot that has a halo.
+__host__ __device__ inline int stream_unrolled(const int* k) {
+  const int K = k[0];
+  if (K != 2 && K != 4 && K != 6 && K != 8) return 0;
+  return (k[1] == 1 || k[1] == K) && (k[2] == 1 || k[2] == K) ? K : 0;
+}
+
+// Shared memory of a launch, in bytes: the input offsets of the window's
+// rows, `stages` window buffers (storage type T, rows of ws elements), the
+// slot-2 intermediate Q (only when slots 1 and 2 both have a halo) and, for
+// runtime filter lengths, the ring.
+struct StreamLayout {
+  int ws;            // window row stride, elements (a multiple of 16 bytes)
+  size_t rows, win, q, ring, total;
+};
+
+__host__ __device__ inline size_t round16(size_t b) { return (b + 15) / 16 * 16; }
+
+template <typename T, typename C>
+__host__ __device__ StreamLayout stream_layout(const LevelT<C>& g, bool smem_ring,
+                                               int stages) {
+  constexpr int V = 16 / sizeof(T);
+  StreamLayout L;
+  const int ea1 = g.t[1] + g.k[1] - 1;
+  L.ws = (g.t[2] + g.k[2] - 1 + V - 1 + V - 1) / V * V;
+  L.rows = round16((size_t)ea1 * sizeof(long long));
+  L.win = round16((size_t)ea1 * L.ws * sizeof(T));
+  L.q = g.k[1] > 1 && g.k[2] > 1 ? round16((size_t)ea1 * g.t[2] * sizeof(C)) : 0;
+  L.ring = smem_ring ? (size_t)g.k[0] * g.t[1] * g.t[2] * sizeof(C) : 0;
+  L.total = L.rows + stages * L.win + L.q + L.ring;
+  return L;
+}
+
+// The most window buffers (up to kStreamMaxStages, at least 2) whose layout
+// fits kStreamSmemBudget.
+template <typename T, typename C>
+__host__ __device__ int stream_stages(const LevelT<C>& g, bool smem_ring) {
+  int s = kStreamMaxStages;
+  while (s > 2 && stream_layout<T>(g, smem_ring, s).total > kStreamSmemBudget) --s;
+  return s;
+}
+
+// p mod n for -n <= p < 2n: every window position of a chunk or column is
+// there (the loads stop at the last output's halo, and K <= n).
+__device__ __forceinline__ int wrap2(int p, int n) {
+  return p < 0 ? p + n : (p >= n ? p - n : p);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void copy_elem(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_elem(double* dst, const double* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_elem(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src) {
+  *dst = *src;
+}
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most n (< kStreamMaxStages) of this thread's newest copy
+// groups are still in flight.
+__device__ __forceinline__ void cp_wait(int n) {
+  static_assert(kStreamMaxStages <= 6, "cp_wait takes n < 5");
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+  }
+}
+
+// The taps of one pass, tp[j] = src[j]: KT > 0 copies them into registers
+// and unrolls the tap loop; KT == 0 reads them from shared memory in a
+// runtime loop of K.
+template <int KT, typename C>
+struct Taps {
+  C r[KT > 0 ? KT : 1];
+  const C* s;
+  __device__ __forceinline__ explicit Taps(const C* src) : s(src) {
+    if constexpr (KT > 0) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) r[j] = src[j];
+    }
+  }
+  // sum_j tp[j] * p[j * stride]
+  template <typename S>
+  __device__ __forceinline__ C dot(const S* p, int stride, int K) const {
+    C acc = 0;
+    if constexpr (KT > 0) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) acc = mad(r[j], to_f(p[j * stride]), acc);
+    } else {
+      for (int j = 0; j < K; ++j) acc = mad(s[j], to_f(p[j * stride]), acc);
+    }
+    return acc;
+  }
+  // tp[K - 1 - m]: the slot-0 tap that input plane r gives ring entry m
+  __device__ __forceinline__ C rev(int m, int K) const {
+    if constexpr (KT > 0)
+      return r[KT - 1 - m];
+    else
+      return s[K - 1 - m];
+  }
+};
+
+template <typename T, int KT, bool kPad, typename C>
+__device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx,
+                           T* __restrict__ out, const LevelT<C>& g,
+                           const StreamSources& src, int groups, C scale,
+                           int stages, C (*taps)[2][kMaxTaps],
+                           unsigned char* smem) {
+  constexpr int NI = stream_items<KT>();
+  constexpr int V = 16 / sizeof(T);
+  const StreamLayout L = stream_layout<T>(g, KT == 0, stages);
+  long long* const row_off = reinterpret_cast<long long*>(smem);
+  unsigned char* const wins = smem + L.rows;
+  C* const Q = reinterpret_cast<C*>(wins + stages * L.win);
+  C* const ring_s = reinterpret_cast<C*>(wins + stages * L.win + L.q);
+
+  const int K0 = KT > 0 ? KT : g.k[0];
+  const int K1 = g.k[1], K2 = g.k[2];
+  const int T1 = g.t[1], T2 = g.t[2];
+  const int lg2 = 31 - __clz(T2);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int o2 = blockIdx.x * T2, o1 = blockIdx.y * T1, p0 = blockIdx.z * g.t[0];
+  const int w2 = min(T2, g.n[2] - o2), w1 = min(T1, g.n[1] - o1);
+  const int cc = min(g.t[0], g.n[0] - p0);
+  const int E1 = w1 + K1 - 1, E2 = w2 + K2 - 1;  // the window loaded
+  const bool pad0 = kPad && g.pad[0], pad1 = kPad && g.pad[1],
+             pad2 = kPad && g.pad[2];
+  const long long m1 = kPad ? in_extent(g, 1) : g.n[1];
+  const long long m2 = kPad ? in_extent(g, 2) : g.n[2];
+  const long long plane_in = m1 * m2;
+  const long long ivox = kPad ? in_vox(g) : (long long)g.n[0] * g.n[1] * g.n[2];
+  const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
+  const long long nplane = (long long)g.n[1] * g.n[2];
+  // The window's first column in the input; rows are copied from there.
+  const int c0 = pad2 ? o2 : o2 - g.left[2];
+  const bool inner2 = pad2 || (c0 >= 0 && c0 + E2 <= g.n[2]);
+  const int sh = ((c0 % V) + V) % V;  // column c0 sits at row offset sh
+  const int head = (V - sh) % V;      // elements before the first 16-byte piece
+  const int ws = L.ws;
+  const int lgs1 = K1 > 1 ? 1 : 0, lgs2 = K2 > 1 ? 1 : 0;
+  const int lgpp = 1 + lgs1 + lgs2;  // log2 windows per plane (s0, s1, s2)
+  const int R = cc + K0 - 1;         // input planes per group
+  const int nw = groups * R << lgpp;
+
+  // A window's place in the walk: group, input plane, and (s0, s1, s2) as
+  // the bits of sub; advanced one window at a time.
+  struct Pos {
+    int gi, r, sub;
+  };
+  const int per_plane = 1 << lgpp;
+  auto advance = [&](Pos& p) {
+    if (++p.sub == per_plane) {
+      p.sub = 0;
+      if (++p.r == R) {
+        p.r = 0;
+        ++p.gi;
+      }
+    }
+  };
+
+  // The input offset of each window row (slot 1), the same for every window.
+  for (int l1 = tid; l1 < E1; l1 += kThreads) {
+    const int q = o1 - g.left[1] + l1;
+    row_off[l1] = (pad1 ? q + g.left[1] : wrap2(q, g.n[1])) * m2;
+  }
+  __syncthreads();
+
+  // Issue the asynchronous copies of the window at p into buffer `buf`.
+  // A row is copied in 16-byte pieces where its input rows are 16-byte
+  // aligned; a piece never straddles the wrap (n2 is then a multiple of V,
+  // so the wrap falls between pieces), so only its first column is wrapped.
+  const bool vec = m2 % V == 0;
+  auto col = [&](int c) { return inner2 ? c : wrap2(c, g.n[2]); };
+  auto issue = [&](int buf, const Pos& p) {
+    const int s2 = p.sub & lgs2, s1 = (p.sub >> lgs2) & lgs1,
+              s0 = p.sub >> (lgs1 + lgs2);
+    const int band =
+        ((s0 << g.bit[0]) | (s1 << g.bit[1]) | (s2 << g.bit[2])) + 4 * p.gi;
+    const long long id = src.idx[band];
+    const T* base = id < 0 ? approx : y + id * ivox;
+    const int pp = p0 - g.left[0] + p.r;
+    const int g0 = pad0 ? pp + g.left[0] : wrap2(pp, g.n[0]);
+    const T* plane = base + g0 * plane_in;
+    const bool v = vec && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+    const int hd = v ? min(head, E2) : E2;
+    const int nv = v ? (E2 - hd) / V : 0;
+    const int tail = hd + nv * V;
+    T* const W = reinterpret_cast<T*>(wins + buf * L.win);
+    for (int l1 = warp; l1 < E1; l1 += kThreads / 32) {
+      const T* row = plane + row_off[l1];
+      T* srow = W + l1 * ws + sh;
+      for (int i = lane; i < hd; i += 32) copy_elem(srow + i, row + col(c0 + i));
+      for (int u = lane; u < nv; u += 32)
+        copy16(srow + hd + u * V, row + col(c0 + hd + u * V));
+      for (int i = tail + lane; i < E2; i += 32) copy_elem(srow + i, row + col(c0 + i));
+    }
+  };
+
+  // This thread's plane elements: NI consecutive rows of column tid % T2
+  // (the slot-1 pass then loads NI + K1 - 1 rows for NI * K1 taps); a plane
+  // of fewer than NI rows (a 2D level) takes columns tid + kThreads i.
+  // Per element: its place in an output plane and whether it is inside.
+  int c1[NI], c2[NI], po[NI];
+  unsigned inside = 0;
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    if (T1 >= NI) {
+      c1[i] = (tid >> lg2) * NI + i;
+      c2[i] = tid & (T2 - 1);
+    } else {
+      const int f = tid + kThreads * i;
+      c1[i] = f >> lg2;
+      c2[i] = f & (T2 - 1);
+    }
+    po[i] = (o1 + c1[i]) * g.n[2] + o2 + c2[i];  // a plane holds < 2^31
+    if (c1[i] < w1 && c2[i] < w2) inside |= 1u << i;
+  }
+  C P[NI];
+  C ring[KT > 0 ? KT : 1][NI];
+  int hd_slot = 0;  // the shared-memory ring's front (KT == 0)
+
+  // stages - 1 windows ahead: window w + stages - 1 goes into the buffer
+  // that window w - 1 used, which every thread has left at the barrier.
+  Pos ahead{0, 0, 0}, at{0, 0, 0};  // the window issued next, computed next
+  int buf_ahead = 0, buf_at = 0;      // their buffers
+  for (int w = 0; w < stages - 1; ++w) {
+    if (w < nw) {
+      issue(buf_ahead++, ahead);
+      advance(ahead);
+    }
+    cp_commit();
+  }
+  for (int w = 0; w < nw; ++w, advance(at), buf_at = buf_at + 1 == stages ? 0 : buf_at + 1) {
+    cp_wait(stages - 2);
+    __syncthreads();  // window w has arrived; window w - 1 and Q are consumed
+    if (w + stages - 1 < nw) {
+      if (buf_ahead == stages) buf_ahead = 0;
+      issue(buf_ahead++, ahead);
+      advance(ahead);
+    }
+    cp_commit();
+
+    const int gi = at.gi, r = at.r, sub = at.sub;
+    const int s2 = sub & lgs2, s1 = (sub >> lgs2) & lgs1, s0 = sub >> (lgs1 + lgs2);
+    const T* W = reinterpret_cast<const T*>(wins + buf_at * L.win);
+    if (r == 0 && sub == 0) {  // a new group: an empty ring
+      if constexpr (KT > 0) {
+#pragma unroll
+        for (int m = 0; m < KT; ++m)
+#pragma unroll
+          for (int i = 0; i < NI; ++i) ring[m][i] = 0;
+      } else {
+        for (int m = 0; m < K0; ++m) ring_s[m * T1 * T2 + tid] = 0;
+        hd_slot = 0;
+      }
+    }
+    if (s1 == 0 && s2 == 0) {
+#pragma unroll
+      for (int i = 0; i < NI; ++i) P[i] = 0;
+    }
+    if (K1 > 1 && K2 > 1) {
+      // Slot 2 into Q over the loaded rows, then slot 1 into P.
+      const Taps<KT, C> t2(taps[2][s2]);
+#pragma unroll 1
+      for (int f = tid; f < E1 * T2; f += kThreads) {
+        const int l1 = f >> lg2, c = f & (T2 - 1);
+        const C v = t2.dot(W + l1 * ws + sh + c, 1, K2);
+        Q[f] = s2 == 0 ? v : Q[f] + v;
+      }
+      if (s2 == 1) {
+        __syncthreads();  // Q is complete
+        const Taps<KT, C> t1(taps[1][s1]);
+#pragma unroll
+        for (int i = 0; i < NI; ++i)
+          P[i] += t1.dot(Q + c1[i] * T2 + c2[i], T2, K1);
+      }
+    } else if (K1 == 1) {
+      // Slot 1 passes through (a 2D level): the window is one row.
+      const Taps<KT, C> t2(taps[2][s2]);
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+        P[i] += t2.dot(W + sh + c2[i], 1, K2);
+    } else {
+      // Slot 2 passes through (the lead stage): slot 1 from the window.
+      const Taps<KT, C> t1(taps[1][s1]);
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+        P[i] += t1.dot(W + c1[i] * ws + sh + c2[i], ws, K1);
+    }
+    if (s1 == lgs1 && s2 == lgs2) {
+      // Scatter P along slot 0; after s0 = 1 the ring's front is finished:
+      // output plane p0 + r - (K0 - 1) of the chunk.
+      const Taps<KT, C> t0(taps[0][s0]);
+      const bool emit = s0 == 1 && r >= K0 - 1;
+      T* dst = out + gi * vox + (emit ? (long long)(p0 + r - (K0 - 1)) * nplane : 0);
+      if constexpr (KT > 0) {
+#pragma unroll
+        for (int m = 0; m < KT; ++m)
+#pragma unroll
+          for (int i = 0; i < NI; ++i) ring[m][i] = mad(t0.rev(m, KT), P[i], ring[m][i]);
+        if (s0 == 1) {
+          if (emit) {
+#pragma unroll
+            for (int i = 0; i < NI; ++i)
+              if (inside >> i & 1) dst[po[i]] = from_f<T>(ring[0][i] * scale);
+          }
+#pragma unroll
+          for (int m = 0; m < KT - 1; ++m)
+#pragma unroll
+            for (int i = 0; i < NI; ++i) ring[m][i] = ring[m + 1][i];
+#pragma unroll
+          for (int i = 0; i < NI; ++i) ring[KT - 1][i] = 0;
+        }
+      } else {
+        const int tt = T1 * T2;
+        int slot = hd_slot;
+        for (int m = 0; m < K0; ++m) {
+          C* e = ring_s + slot * tt + tid;
+          *e = mad(t0.rev(m, K0), P[0], *e);
+          if (++slot == K0) slot = 0;
+        }
+        if (s0 == 1) {
+          C* e = ring_s + hd_slot * tt + tid;
+          if (emit && (inside & 1)) dst[po[0]] = from_f<T>(*e * scale);
+          *e = 0;
+          if (++hd_slot == K0) hd_slot = 0;
+        }
+      }
+    }
+  }
+}
+
+// The kernel of one instantiation: the taps copied to shared memory (the
+// passes load them from there into registers), then the body. Two CTAs per
+// SM: at most 128 registers a thread.
+template <typename T, int KT, bool kPad, typename C = compute_t<T>>
+__global__ void __launch_bounds__(kThreads, 2)
+    stream_syn_kernel(const T* __restrict__ y, const T* __restrict__ approx,
+                      T* __restrict__ out, const __grid_constant__ LevelT<C> g,
+                      const __grid_constant__ StreamSources src, int groups,
+                      C scale, int stages) {
+  __shared__ C taps[3][2][kMaxTaps];
+  copy_taps(taps, g);
+  stream_syn<T, KT, kPad>(y, approx, out, g, src, groups, scale, stages, taps,
+                          reinterpret_cast<unsigned char*>(shared_words<C>()));
+}
+
+template <typename T, bool kPad, typename C = compute_t<T>>
+auto stream_kernel_for(int kt) {
+  switch (kt) {
+    case 2: return stream_syn_kernel<T, 2, kPad, C>;
+    case 4: return stream_syn_kernel<T, 4, kPad, C>;
+    case 6: return stream_syn_kernel<T, 6, kPad, C>;
+    case 8: return stream_syn_kernel<T, 8, kPad, C>;
+    default: return stream_syn_kernel<T, 0, kPad, C>;
+  }
+}
+
+// Launch one streamed synthesis over the view g (t = (C, T1, T2)); pad: some
+// slot is halo-padded. Returns the cudaError_t of the launch.
+template <typename T, typename C = compute_t<T>>
+int launch_stream(const T* y, const T* approx, T* out, const LevelT<C>& g,
+                  const StreamSources& src, int groups, C scale, bool pad,
+                  cudaStream_t stream) {
+  const int kt = stream_unrolled(g.k);
+  const int t2 = g.t[2];
+  if (g.t[0] < 1 || g.t[1] < 1 || t2 < 1 || (t2 & (t2 - 1)) ||
+      g.t[1] * t2 != kThreads * (kt > 0 ? kStreamItems : 1) || g.k[0] < 2 ||
+      groups < 1 || groups > kStreamBands / 4)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = pad ? stream_kernel_for<T, true, C>(kt)
+                    : stream_kernel_for<T, false, C>(kt);
+  const int stages = stream_stages<T>(g, kt == 0);
+  const size_t smem = stream_layout<T>(g, kt == 0, stages).total;
+  if (smem > kStreamSmemBudget) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((g.n[2] + t2 - 1) / t2, (g.n[1] + g.t[1] - 1) / g.t[1],
+                  (g.n[0] + g.t[0] - 1) / g.t[0]);
+  kernel<<<grid, kThreads, smem, stream>>>(y, approx, out, g, src, groups, scale,
+                                           stages);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -22,6 +22,12 @@ and direction:
 * ``nddwt_lead_adj`` for ``_lead_adj_call``, ``nddwt_lane_adj`` for
   ``_lane_adj_call``.
 
+``nddwt_rec_level`` and ``nddwt_lead_adj`` run one streamed synthesis body
+(``csrc/nddwt_stream.cuh``): a CTA walks a chunk of the slowest halo axis
+plane by plane with a ring of partial output planes; ``_stream_plan``
+lays out its chunk and plane tile, and ``ops/stream_ref.py`` replays that
+schedule on the CPU for the tests.
+
 A 3D level whose filters are too long for the per-level kernels' tile
 (about 30 taps and up on every axis, db15 and longer) runs on the stage
 kernels too, with one lane axis: ``dec_levels``/``rec_levels`` pick the
@@ -101,6 +107,21 @@ _SMEM_BUDGET = 100 * 1024
 # tiles at (128, 128, 128, 32) db4 on an H100 (PERF.md).
 _STAGE_SMEM_BUDGET = {"lane": 32 * 1024, "lead": 64 * 1024}
 _THREADS = 256  # kThreads in the sources
+# The streamed synthesis (csrc/nddwt_stream.cuh: nddwt_rec_level and
+# nddwt_lead_adj): the filter lengths whose tap loops and ring are unrolled
+# (stream_unrolled), the plane elements per thread there (kStreamItems; 1
+# otherwise), the most window buffers in flight (kStreamMaxStages), the
+# dynamic shared memory a CTA may take (kStreamSmemBudget: 227 KB less the
+# static tap table), the preferred plane width T2 and the CTAs of one wave
+# (two per SM of an H100), which set the chunk along the streamed slot: the
+# fastest in a sweep of (C, T1, T2) at 256^3 db4 and (128, 128, 128, 32) db4
+# on an H100 (PERF.md, PR 9).
+_STREAM_UNROLLED = (2, 4, 6, 8)
+_STREAM_ITEMS = 4
+_STREAM_MAX_STAGES = 4
+_STREAM_SMEM_BUDGET = 200 * 1024
+_STREAM_T2 = {"rec": 128, "lead": 256}
+_STREAM_CTAS = 2 * 132
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 launch_counts = {
@@ -468,10 +489,131 @@ def _band_indices(band_src, n_bands: int, y, approx, shape) -> list:
     return idx
 
 
+def _pow2_at_least(m: int) -> int:
+    """The least power of two >= m (1 for m <= 1)."""
+    return 1 << max(0, int(m) - 1).bit_length()
+
+
+def _stream_items(k) -> int:
+    """Plane elements per thread of a streamed synthesis with taps ``k``
+    per slot (``stream_items`` in the source): ``_STREAM_ITEMS`` where the
+    taps are unrolled (one length of ``_STREAM_UNROLLED`` on every slot with
+    a halo), else 1."""
+    K = k[0]
+    unrolled = K in _STREAM_UNROLLED and all(x in (1, K) for x in k[1:])
+    return _STREAM_ITEMS if unrolled else 1
+
+
+def _stream_smem(k, t, dtype, stages=None) -> int:
+    """Dynamic shared memory of a streamed synthesis (``stream_layout`` in
+    the source), bytes: the window rows' input offsets (8 bytes a row);
+    ``stages`` window buffers of ``t[1] + k[1] - 1`` rows in the storage
+    type, each row padded to whole 16-byte pieces; the slot-2 intermediate
+    when slots 1 and 2 both have a halo; the ring of ``k[0]`` planes where
+    the taps are not unrolled. ``stages`` None: as many as the launch takes
+    (``stream_stages``: the most, up to ``_STREAM_MAX_STAGES``, that fit
+    the budget, at least 2)."""
+    if stages is None:
+        stages = _STREAM_MAX_STAGES
+        while stages > 2 and _stream_smem(k, t, dtype, stages) > _STREAM_SMEM_BUDGET:
+            stages -= 1
+    store, word = torch.empty((), dtype=dtype).element_size(), _word(dtype)
+    vec = 16 // store
+
+    def round16(b):
+        return -(-b // 16) * 16
+
+    rows = t[1] + k[1] - 1
+    ws = -(-(t[2] + k[2] - 1 + vec - 1) // vec) * vec
+    win = round16(rows * ws * store)
+    q = round16(rows * t[2] * word) if k[1] > 1 and k[2] > 1 else 0
+    ring = k[0] * t[1] * t[2] * word if _stream_items(k) == 1 else 0
+    return round16(rows * 8) + stages * win + q + ring
+
+
+def _stream_plan(n, k, dtype=torch.float32, kind="rec") -> tuple:
+    """``(C, T1, T2)`` of a streamed synthesis over the 3-slot view ``n``
+    with taps ``k``: a plane tile of ``T1 x T2 = 256 * items`` outputs on
+    slots 1 and 2 (``T2`` a power of two, ``_STREAM_T2[kind]`` where the
+    plane is that wide, wider where slot 1 is short; one row when slot 1
+    passes through), whose shared memory fits ``_STREAM_SMEM_BUDGET``, and a
+    chunk of ``C`` outputs along slot 0 that keeps the launch within one
+    wave of ``_STREAM_CTAS`` CTAs where the columns leave room (a second,
+    part-filled wave cost more than the larger chunk's fewer halo planes),
+    but at least ``K0`` (a chunk reads ``C + K0 - 1`` planes)."""
+    tt = _THREADS * _stream_items(k)
+    if n[1] == 1:
+        cands = [tt]
+    else:
+        t2 = min(_STREAM_T2[kind], _pow2_at_least(n[2]), tt)
+        t2 = min(max(t2, tt // _pow2_at_least(n[1])), tt)
+        cands = [t2] + [1 << i for i in range(tt.bit_length()) if 1 << i != t2]
+    fits = [t2 for t2 in cands if _stream_smem(k, (1, tt // t2, t2), dtype)
+            <= _STREAM_SMEM_BUDGET]
+    if not fits:
+        raise NotImplementedError(
+            f"filters of lengths {list(k)} do not fit the streamed synthesis's "
+            "shared memory")
+    t2 = fits[0]
+    t1 = tt // t2
+    cols = -(-n[1] // t1) * -(-n[2] // t2)
+    chunks = max(1, _STREAM_CTAS // cols)
+    return (max(-(-n[0] // chunks), min(n[0], k[0])), t1, t2)
+
+
+def _rec_stream_view(shape, taps, pad):
+    """The 3-slot view ``nddwt_rec_level`` streams over, slot 0 streamed:
+    ``(n0, n1, n2)`` for a 3D level, ``(n0, 1, n1)`` for a 2D one (the
+    middle slot passes through); per slot the extent, the taps (None:
+    pass-through), the band bit and the halo-padded flag."""
+    if len(shape) == 3:
+        return list(shape), list(taps), [0, 1, 2], list(pad)
+    return [shape[0], 1, shape[1]], [taps[0], None, taps[1]], [0, 0, 1], \
+        [pad[0], False, pad[1]]
+
+
+def _rec_stream_geometry(shape, taps, dtype=torch.float32, pad=None):
+    """The view geometry ``(n, k, t, left, bit, pad, tap_array)`` of one
+    ``nddwt_rec_level`` launch whose output has ``shape`` (``pad``: its
+    halo-padded axes): ``_rec_stream_view``, the synthesis halos
+    (``halo_widths``), the plan ``(C, T1, T2)`` and the reversed taps in
+    the compute type."""
+    pad = _padded_flags(pad, len(shape))
+    n, slot_taps, bit, vpad = _rec_stream_view(shape, taps, pad)
+    k = [1 if t is None else int(np.shape(t)[1]) for t in slot_taps]
+    if max(k) > _MAX_TAPS:
+        raise NotImplementedError(f"filters longer than {_MAX_TAPS} taps")
+    if any(K > m and not p for K, m, p in zip(k, n, vpad)):
+        raise ValueError(f"filters of lengths {k} are longer than the axes {n}")
+    left = [0 if t is None else halo_widths([t], True)[0][0] for t in slot_taps]
+    return (n, k, _stream_plan(n, k, dtype), left, bit, vpad,
+            _tap_array(slot_taps, True, _compute_dtype(dtype)))
+
+
+def rec_stream_args(y, approx, band_src, taps, padded=None):
+    """Everything one ``nddwt_rec_level`` launch is given, built the same
+    on any device: the output shape, the band-source table (``2^d``
+    entries, ``_band_indices``) and the view geometry
+    (``_rec_stream_geometry``). ``ops/stream_ref.py`` replays a launch from
+    these."""
+    in_shape = tuple(y.shape[1:])
+    if len(in_shape) not in (2, 3) or len(taps) != len(in_shape):
+        raise NotImplementedError(
+            f"the per-level CUDA kernels take 2D and 3D arrays, got "
+            f"{len(in_shape)}D (1D: rec1_level; 4D: the stage kernels)"
+        )
+    pad = _padded_flags(padded, len(in_shape))
+    shape = _unpadded_shape(in_shape, taps, pad, "band array")
+    idx = _band_indices(band_src, 2 ** len(shape), y, approx, in_shape)
+    return shape, idx, _rec_stream_geometry(shape, taps, y.dtype, pad)
+
+
 def rec_level(y, approx, band_src, taps, scale, padded=None):
     """One synthesis level (contract of ``level_ref.rec_level_ref``): band
     ``b`` is ``y[i]`` for ``band_src[b] == ("y", i)`` or ``approx`` for
     ``("a", 0)``; returns ``scale *`` the adjoint, shaped ``y.shape[1:]``.
+    On the card it streams slot 0 (``rec_stream_args``: axis 0 of a 2D or
+    3D array).
 
     ``padded`` (one flag per axis): the halo-padded mode, which replaces
     the concat and slab "valid" modes of ``_fused_rec_level``
@@ -481,31 +623,22 @@ def rec_level(y, approx, band_src, taps, scale, padded=None):
     one behind (``halo_widths``), and the output drops them."""
     if not y.is_cuda:
         return rec_level_ref(y, approx, band_src, taps, scale, padded)
-    in_shape = tuple(y.shape[1:])
-    if len(in_shape) not in (2, 3) or len(taps) != len(in_shape):
-        raise NotImplementedError(
-            f"the per-level CUDA kernels take 2D and 3D arrays, got "
-            f"{len(in_shape)}D (1D: rec1_level; 4D: the stage kernels)"
-        )
     check_array("y", y)
-    pad = _padded_flags(padded, len(in_shape))
-    shape = _unpadded_shape(in_shape, taps, pad, "band array")
-    nb = 2 ** len(shape)
-    idx = _band_indices(band_src, nb, y, approx, in_shape)
+    shape, idx, (n, k, t, left, bit, pad, arr) = rec_stream_args(
+        y, approx, band_src, taps, padded)
     if -1 in idx:
         check_array("approx", approx, y)
     else:
         approx = y
     out = torch.empty(shape, dtype=y.dtype, device=y.device)
-    n, k, t, left, bit, arr = _geometry(shape, taps, True, y.dtype)
     lib = load()
     with torch.cuda.device(y.device):
         err = lib.nddwt_rec_level(
             y.data_ptr(), approx.data_ptr(), out.data_ptr(),
-            DTYPE_CODE[y.dtype], n, k, t, left, bit, _taps_ptr(arr),
-            (ctypes.c_longlong * 8)(*(idx + [-1] * (8 - nb))), float(scale),
-            _ints((False,) * (3 - len(shape)) + pad),
-            torch.cuda.current_stream().cuda_stream,
+            DTYPE_CODE[y.dtype], _ints(n), _ints(k), _ints(t), _ints(left),
+            _ints(bit), _taps_ptr(arr),
+            (ctypes.c_longlong * 8)(*(idx + [-1] * (8 - len(idx)))),
+            float(scale), _ints(pad), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, err, "nddwt_rec_level")
     _count("nddwt_rec_level", pad)
@@ -570,8 +703,10 @@ def _stage_geometry(shape, taps, lane: bool, adj: bool, dtype=torch.float32,
     """ctypes arguments of one stage launch on ``dtype`` arrays: view
     extents, taps, tile and left halo per slot (``halo_widths``), and the
     taps in the compute type (reversed for an adjoint, whose halo is
-    mirrored: K//2 left instead of K//2 - 1). ``padded``: the lead stage's
-    halo-padded slots 0 and 1, which may be shorter than their filters."""
+    mirrored: K//2 left instead of K//2 - 1). The lead adjoint's "tile" is
+    its streamed plan ``(C, T1, T2)`` (``_stream_plan``). ``padded``: the
+    lead stage's halo-padded slots 0 and 1, which may be shorter than their
+    filters."""
     n, slot_taps = _stage_slots(shape, taps, lane)
     k = [1 if t is None else int(np.shape(t)[1]) for t in slot_taps]
     if max(k) > _MAX_TAPS:
@@ -580,7 +715,10 @@ def _stage_geometry(shape, taps, lane: bool, adj: bool, dtype=torch.float32,
     if any(K > m and not p for K, m, p in zip(k, n, pad)):
         raise ValueError(f"filters of lengths {k} are longer than the axes {n}")
     left = [0 if t is None else halo_widths([t], adj)[0][0] for t in slot_taps]
-    t = _stage_tiles(tuple(n), tuple(k), lane, adj, _word(dtype))
+    if adj and not lane:  # the lead adjoint streams X (csrc/nddwt_stream.cuh)
+        t = _stream_plan(n, k, dtype, "lead")
+    else:
+        t = _stage_tiles(tuple(n), tuple(k), lane, adj, _word(dtype))
     return (_ints(n), _ints(k), _ints(t), _ints(left),
             _tap_array(slot_taps, adj, _compute_dtype(dtype)))
 

@@ -1,0 +1,101 @@
+"""A plain-torch replay of the streamed synthesis kernel's schedule.
+
+``csrc/nddwt_stream.cuh`` is the body of ``nddwt_rec_level`` and
+``nddwt_lead_adj``: over a 3-slot view, each CTA owns a plane tile
+``(T1, T2)`` on slots 1 and 2 and a chunk of ``C`` outputs on slot 0, and
+walks the chunk's ``C + K0 - 1`` input planes. Per plane it runs the
+in-plane adjoint of each band window (slot 2, then slot 1) and scatters the
+result into a ring of ``K0`` partial output planes; the ring's front is
+written once it is complete.
+
+``stream_replay`` does the same walk with torch ops, CTA by CTA: the grid
+and chunks the plan function lays out, the windows each CTA loads (the
+wrapped or halo-padded input rows and columns, computed as the kernel
+computes them, with its range assumptions asserted), the two passes, the
+ring and its emits. The tests hold it against the plain versions
+(``level_ref.rec_level_ref``, ``level4_ref.lead_adj_ref``) for the geometry
+that ``cuda_kernels.rec_stream_args`` and ``cuda_kernels._stage_geometry``
+build, so a plan that drops, repeats or misplaces a plane, a row or a band
+fails here. Nothing on the CUDA path calls it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .level_ref import _compute_dtype
+
+THREADS = 256  # kThreads in the sources
+
+
+def _window_index(p, n, left, padded):
+    """Input index of window positions ``p`` on one slot: ``p + left`` on a
+    halo-padded slot (inside its extent ``n + K - 1``), else ``p`` wrapped
+    once, which the kernel's ``wrap2`` assumes lies in ``[-n, 2n)``."""
+    if padded:
+        return p + left
+    assert p.min() >= -n and p.max() < 2 * n, "window beyond wrap2's range"
+    return torch.where(p < 0, p + n, torch.where(p >= n, p - n, p))
+
+
+def _corr(w, tp, axis):
+    """out[c] = sum_j tp[j] * w[c + j] along ``axis`` (valid part)."""
+    K = tp.shape[0]
+    return torch.tensordot(w.unfold(axis, K, 1), tp, dims=([w.ndim], [0]))
+
+
+def stream_replay(y, approx, idx, n, k, t, left, bit, pad, arr, groups, scale,
+                  items):
+    """The launch's output ``(groups, *n)``: ``y`` is the band array on the
+    view, ``(B, m0, m1, m2)`` (``m`` = ``n`` plus ``k - 1`` on a padded
+    slot), ``approx`` one such band or None, ``idx`` the 16-entry band
+    table (-1: ``approx``), ``n, k, t, left, bit, pad`` the view geometry
+    with ``t = (C, T1, T2)``, ``arr`` the (3, 2, kMaxTaps) tap array,
+    ``items`` the plane elements per thread of the instantiation."""
+    cdt = _compute_dtype(y.dtype)
+    C, T1, T2 = t
+    assert C >= 1 and T2 & (T2 - 1) == 0 and T1 * T2 == THREADS * items
+    assert k[0] >= 2 and 1 <= groups <= 4
+    ins = [n[a] + (k[a] - 1 if pad[a] else 0) for a in range(3)]
+    assert tuple(y.shape[1:]) == tuple(ins)
+    taps = torch.as_tensor(np.asarray(arr), dtype=cdt)
+    ns = [2 if k[a] > 1 else 1 for a in range(3)]
+    out = torch.full((groups,) + tuple(n), float("nan"), dtype=cdt)
+    written = torch.zeros((groups,) + tuple(n), dtype=torch.int32)
+    K0 = k[0]
+    for bz in range(-(-n[0] // C)):
+        for by in range(-(-n[1] // T1)):
+            for bx in range(-(-n[2] // T2)):
+                p0, o1, o2 = bz * C, by * T1, bx * T2
+                cc = min(C, n[0] - p0)
+                w1, w2 = min(T1, n[1] - o1), min(T2, n[2] - o2)
+                rows = _window_index(o1 - left[1] + torch.arange(w1 + k[1] - 1),
+                                     n[1], left[1], pad[1])
+                cols = _window_index(o2 - left[2] + torch.arange(w2 + k[2] - 1),
+                                     n[2], left[2], pad[2])
+                for gi in range(groups):
+                    ring = torch.zeros((K0, w1, w2), dtype=cdt)
+                    for r in range(cc + K0 - 1):
+                        g0 = _window_index(torch.tensor([p0 - left[0] + r]), n[0],
+                                           left[0], pad[0])
+                        for s0 in range(2):
+                            P = torch.zeros((w1, w2), dtype=cdt)
+                            for s1 in range(ns[1]):
+                                Q = torch.zeros((w1 + k[1] - 1, w2), dtype=cdt)
+                                for s2 in range(ns[2]):
+                                    band = (s0 << bit[0] | s1 << bit[1]
+                                            | s2 << bit[2]) + 4 * gi
+                                    b = approx if idx[band] < 0 else y[idx[band]]
+                                    w = b[g0[0]][rows][:, cols].to(cdt)
+                                    Q += _corr(w, taps[2, s2, :k[2]], 1)
+                                P += _corr(Q, taps[1, s1, :k[1]], 0)
+                            # ring[m] += tap0[K0 - 1 - m] * P
+                            ring += taps[0, s0, :K0].flip(0)[:, None, None] * P
+                        if r >= K0 - 1:
+                            q0 = p0 + r - (K0 - 1)
+                            out[gi, q0, o1:o1 + w1, o2:o2 + w2] = ring[0] * scale
+                            written[gi, q0, o1:o1 + w1, o2:o2 + w2] += 1
+                        ring = torch.cat([ring[1:], torch.zeros_like(ring[:1])])
+    assert bool((written == 1).all()), "an output written other than once"
+    return out.to(y.dtype)

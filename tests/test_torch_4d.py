@@ -414,7 +414,8 @@ def test_stage_geometry(shape, wv, lane, adj):
     """The launch geometry the stage wrappers hand the kernels: the 3-slot
     view, one tap of 1.0 on the pass-through slot, the analysis/adjoint
     halos and tap orientation, and a tile inside the extents and the
-    shared-memory budget."""
+    shared-memory budget (for the lead adjoint its streamed plan, inside
+    the stream budget)."""
     taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
     n, k, t, left, arr = ck._stage_geometry(shape, taps, lane, adj)
     lane_axes = list(range(2, len(shape)))
@@ -434,7 +435,12 @@ def test_stage_geometry(shape, wv, lane, adj):
             assert k[a] == K and left[a] == (K // 2 if adj else K // 2 - 1)
             want = tp[:, ::-1] if adj else tp
             np.testing.assert_array_equal(arr[a, :, :K], want.astype(np.float32))
-        assert 1 <= t[a] <= n[a]
+    if adj and not lane:  # the lead adjoint streams X: (C, T1, T2)
+        assert t[1] * t[2] == 256 * ck._stream_items(list(k)) and t[2] & (t[2] - 1) == 0
+        assert 1 <= t[0] <= n[0] and 1 <= t[1]
+        assert ck._stream_smem(list(k), list(t), torch.float32) <= ck._STREAM_SMEM_BUDGET
+        return
+    assert all(1 <= t[a] <= n[a] for a in range(3))
     halo = (1, 2) if lane else (0, 1)
     budget = ck._STAGE_SMEM_BUDGET["lane" if lane else "lead"]
     assert 4 * ck._stage_words(list(t), list(k), halo, adj) <= budget

@@ -221,9 +221,14 @@ def test_f64_tiles_and_stage_route():
     for lane, adj in ((True, False), (False, True)):
         n, k, t, left, arr = ck._stage_geometry((16, 16, 8, 16), taps + taps[:1], lane, adj,
                                                 torch.float64)
+        assert arr.dtype == np.float64
+        if adj:  # the lead adjoint streams X; its windows are 8-byte words
+            assert ck._stream_smem(list(k), list(t), torch.float64) <= ck._STREAM_SMEM_BUDGET
+            assert (ck._stream_smem(list(k), list(t), torch.float64)
+                    > ck._stream_smem(list(k), list(t), torch.float32))
+            continue
         halo = (1, 2) if lane else (0, 1)
         budget = ck._STAGE_SMEM_BUDGET["lane" if lane else "lead"]
-        assert arr.dtype == np.float64
         assert 8 * ck._stage_words(list(t), list(k), halo, adj) <= budget
 
 
