@@ -4,22 +4,26 @@ GPU.
 
     python3 chip_ab_pairs.py OTHER_CHECKOUT
 
-Times the 256^3 db4 L3 float32 dec+rec pair and the (128, 128, 128, 32)
-db4 L3 float32 pair of this checkout's ``non_decimated_wavelets_tpu_torch``
-and of OTHER_CHECKOUT's (the root of another checkout, e.g. the parent
-commit unpacked with ``git archive``), each in a fresh process that builds
-that checkout's kernels from its own sources, in the order other, this,
-this, other, so that the card's clock drifts against neither. Each process
-checks its pairs' round trip (1e-4) and times each pair with CUDA events:
-5 repeats of 10 (3D) or 3 (4D) pairs after 3 warm-up pairs. It also times
-the two synthesis kernels the pairs spend most in, per call: one
-``nddwt_rec_level`` level at 256^3 db4 (float32 and float64, 8 bands in)
-and one ``nddwt_lead_adj`` at (128, 128, 128, 32) db4 float32 (16 bands
-in), and both in their halo-padded mode on one rank's block of a {"x": 2}
-mesh (X halved and padded by K - 1 = 7 rows, as ``chip_sharded.py`` times
-them), each checked once against its plain version (float32 1e-5, float64
-1e-12, relative to max|plain|), 5 repeats of 10 calls after 3 warm-up
-calls.
+Times the 256^3 db4 L3 float32 dec+rec pair, the (128, 128, 128, 32) db4
+L3 float32 pair and the 128^3 db20 L2 float32 ``dec_rec`` step (threshold
+0.1: the 3D long-filter route, on the stage kernels) of this checkout's
+``non_decimated_wavelets_tpu_torch`` and of OTHER_CHECKOUT's (the root of
+another checkout, e.g. the parent commit unpacked with ``git archive``),
+each in a fresh process that builds that checkout's kernels from its own
+sources, in the order other, this, this, other, so that the card's clock
+drifts against neither. Each process checks its pairs' round trip (1e-4)
+and times each pair with CUDA events: 5 repeats of 10 (3D) or 3 (4D)
+pairs after 3 warm-up pairs. It also times, per call, the four kernels
+the pairs spend most in: one ``nddwt_rec_level`` and one
+``nddwt_dec_level`` level at 256^3 db4 (float32 and float64, 8 bands in or
+out) and one ``nddwt_lead_adj`` and one ``nddwt_lead_dec`` at (128, 128,
+128, 32) db4 float32 (16 bands in or out, 4 lane bands out or in), each in
+its halo-padded mode on one rank's block of a {"x": 2} mesh (X halved and
+padded by K - 1 = 7 rows, as ``chip_sharded.py`` times them); and the two
+lead stages of the db20 step (2 lane bands, both on their runtime-tap
+paths). Each is checked once against its plain version (float32 1e-5,
+float64 1e-12, relative to max|plain|) and timed in 5 repeats of 10 calls
+after 3 warm-up calls.
 
 Prints the card's name and power limit first and one JSON object last, with
 every repeat and the median per checkout. It exits non-zero without a CUDA
@@ -34,14 +38,17 @@ from pathlib import Path
 
 SHAPE = (256, 256, 256)
 SHAPE4 = (128, 128, 128, 32)
+SHAPE20 = (128, 128, 128)
 LEVEL = 3
-KEYS = ("pair_3d_ms", "pair_4d_ms", "rec_level_f32_ms", "rec_level_f64_ms", "lead_adj_ms",
-        "rec_level_padded_ms", "lead_adj_padded_ms")
+KEYS = ("pair_3d_ms", "pair_4d_ms", "step_db20_ms", "rec_level_f32_ms", "rec_level_f64_ms", "lead_adj_ms",
+        "rec_level_padded_ms", "lead_adj_padded_ms", "dec_level_f32_ms", "dec_level_f64_ms",
+        "lead_dec_ms", "dec_level_padded_ms", "lead_dec_padded_ms", "lead_dec_db20_ms",
+        "lead_adj_db20_ms")
 
 
 def child(root: str) -> int:
-    """Time the pairs and the two synthesis kernels of the package found
-    at ``root``."""
+    """Time the pairs and the four level and lead-stage kernels of the
+    package found at ``root``."""
     sys.path.insert(0, root)
     import torch
 
@@ -52,19 +59,34 @@ def child(root: str) -> int:
         return 1
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    kernel_calls = (("rec_level_f32_ms", SHAPE, torch.float32, False),
-                    ("rec_level_f64_ms", SHAPE, torch.float64, False),
-                    ("lead_adj_ms", SHAPE4, torch.float32, False),
-                    ("rec_level_padded_ms", SHAPE, torch.float32, True),
-                    ("lead_adj_padded_ms", SHAPE4, torch.float32, True))
-    for key, shape, n_call in (("pair_3d_ms", SHAPE, 10), ("pair_4d_ms", SHAPE4, 3)):
-        plan = tw.NDDWT("db4", shape, device="cuda")
+    # (key, kernel, shape, wavelet, dtype, X halo-padded); the lead stages
+    # of a 3D shape are its long-filter route (2 lane bands)
+    kernel_calls = (("rec_level_f32_ms", "rec", SHAPE, "db4", torch.float32, False),
+                    ("rec_level_f64_ms", "rec", SHAPE, "db4", torch.float64, False),
+                    ("lead_adj_ms", "lead_adj", SHAPE4, "db4", torch.float32, False),
+                    ("rec_level_padded_ms", "rec", SHAPE, "db4", torch.float32, True),
+                    ("lead_adj_padded_ms", "lead_adj", SHAPE4, "db4", torch.float32, True),
+                    ("dec_level_f32_ms", "dec", SHAPE, "db4", torch.float32, False),
+                    ("dec_level_f64_ms", "dec", SHAPE, "db4", torch.float64, False),
+                    ("lead_dec_ms", "lead_dec", SHAPE4, "db4", torch.float32, False),
+                    ("dec_level_padded_ms", "dec", SHAPE, "db4", torch.float32, True),
+                    ("lead_dec_padded_ms", "lead_dec", SHAPE4, "db4", torch.float32, True),
+                    ("lead_dec_db20_ms", "lead_dec", SHAPE20, "db20", torch.float32, False),
+                    ("lead_adj_db20_ms", "lead_adj", SHAPE20, "db20", torch.float32, False))
+    for key, shape, wv, n_call in (("pair_3d_ms", SHAPE, "db4", 10),
+                                   ("pair_4d_ms", SHAPE4, "db4", 3),
+                                   ("step_db20_ms", SHAPE20, "db20", 10)):
+        plan = tw.NDDWT(wv, shape, device="cuda")
         x = torch.randn(shape, generator=gen, device="cuda")
+        if wv == "db20":
+            def pair():
+                return plan.dec_rec(x, 2, threshold=0.1, band_axis=0)[1]
+        else:
+            def pair():
+                return plan.rec(plan.dec(x, LEVEL, band_axis=0), band_axis=0)
 
-        def pair():
-            return plan.rec(plan.dec(x, LEVEL, band_axis=0), band_axis=0)
-
-        err = (pair() - x).abs().max().item()
+        err = (plan.rec(plan.dec(x, 2 if wv == "db20" else LEVEL, band_axis=0),
+                        band_axis=0) - x).abs().max().item()
         if err > 1e-4:
             print(f"{key}: round trip {err}", file=sys.stderr)
             return 1
@@ -86,19 +108,33 @@ def child(root: str) -> int:
     from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
     from non_decimated_wavelets_tpu_torch.ops import level4_ref, level_ref
 
-    for key, shape, dtype, padded in kernel_calls:
-        taps = tw.NDDWT("db4", shape, device="cuda").taps_hp
+    for key, kind, shape, wv, dtype, padded in kernel_calls:
+        taps = tw.NDDWT(wv, shape, device="cuda").taps_hp
         nb = 2 ** len(shape)
+        nl = 2 ** (len(shape) - 2)  # the lead stages' lane bands
         pad = (padded,) + (False,) * (len(shape) - 1)
         block = (shape[0] // 2 + 7,) + shape[1:] if padded else shape
-        y = torch.randn((nb,) + block, generator=gen, device="cuda", dtype=dtype)
-        src = [("y", b) for b in range(nb)]
-        if len(shape) == 4:
-            call = lambda: ck.lead_adj(y, None, src, taps, pad[:2])  # noqa: E731
-            want = level4_ref.lead_adj_ref(y, None, src, taps, pad[:2])
+        out_shape = (shape[0] // 2,) + shape[1:] if padded else shape
+        if kind in ("dec", "lead_dec"):  # the analysis: 1 or nl inputs, nb bands out
+            lead = kind == "lead_dec"
+            y = torch.randn(((nl,) if lead else ()) + block, generator=gen,
+                            device="cuda", dtype=dtype)
+            big = torch.empty((nb,) + out_shape, device="cuda", dtype=dtype)
+            kernel, plain = ((ck.lead_dec, level4_ref.lead_dec_ref) if lead
+                             else (ck.dec_level, level_ref.dec_level_ref))
+            flags = pad[:2] if lead else pad
+            call = lambda: kernel(y, big, 1, taps, 0.0, True, flags) or big  # noqa: E731
+            want = big.clone()
+            plain(y, want, 1, taps, 0.0, True, flags)
         else:
-            call = lambda: ck.rec_level(y, None, src, taps, 1 / nb, pad)  # noqa: E731
-            want = level_ref.rec_level_ref(y, None, src, taps, 1 / nb, pad)
+            y = torch.randn((nb,) + block, generator=gen, device="cuda", dtype=dtype)
+            src = [("y", b) for b in range(nb)]
+            if kind == "lead_adj":
+                call = lambda: ck.lead_adj(y, None, src, taps, pad[:2])  # noqa: E731
+                want = level4_ref.lead_adj_ref(y, None, src, taps, pad[:2])
+            else:
+                call = lambda: ck.rec_level(y, None, src, taps, 1 / nb, pad)  # noqa: E731
+                want = level_ref.rec_level_ref(y, None, src, taps, 1 / nb, pad)
         tol = 1e-12 if dtype == torch.float64 else 1e-5
         err = (call() - want).abs().max().item()
         if err > tol * want.abs().max().item():
@@ -118,7 +154,7 @@ def child(root: str) -> int:
             torch.cuda.synchronize()
             times.append(s.elapsed_time(e) / 10)
         out[key] = times
-        del y
+        del y, call
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0

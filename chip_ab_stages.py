@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B of the 4D stage kernels and the streamed synthesis on one NVIDIA GPU.
+"""A/B of the 4D stage kernels and the streamed bodies on one NVIDIA GPU.
 
     python3 chip_ab_stages.py [VARIANT ...]
 
@@ -8,26 +8,29 @@ every variant given: a directory (a copy of ``csrc/`` with a change; both
 sources are built from it) or one source file (a copy of ``nddwt_4d.cu`` or
 ``nddwt_level.cu`` with a change, by its name's prefix; built with the
 checkout's ``csrc/`` on the include path). Five variants of the streamed
-synthesis (``csrc/nddwt_stream.cuh``) are built in (``BUILT_IN``): "ring in
-shared memory" sends every filter length to the runtime-tap path (the ring
-of partial planes in shared memory, one plane element a thread, instead of
-in registers); "two stages" keeps one window copy in flight instead of up
-to three; "one CTA per SM" drops the two-CTA register cap; and two
-diagnostic builds whose outputs are wrong, timed only: "copies only" skips
-the passes and "passes only" skips the copies, which shows what each part
-costs alone and whether the two overlap.
+bodies (``csrc/nddwt_stream.cuh``: the synthesis and the analysis) are
+built in (``BUILT_IN``): "ring in shared memory" sends every filter length
+to the runtime-tap path (the ring in shared memory, one plane element a
+thread, instead of in registers); "two stages" keeps one window copy in
+flight instead of up to three; "one CTA per SM" drops the two-CTA register
+cap; and two diagnostic builds whose outputs are wrong, timed only:
+"copies only" skips the passes and "passes only" skips the copies (in both
+bodies), which shows what each part costs alone and whether the two
+overlap.
 
 Each build but the diagnostic ones is held against the kernels' plain
 versions at small shapes (an A/B never times a wrong kernel). Then it
 times, per build, the four stage kernels at (128, 128, 128, 32) db4
-float32 and ``nddwt_rec_level`` at 256^3
-db4 float32 and float64 with CUDA events: every build once in the order
-given, then once in reverse, so the card's clock drifts against no one
-build. Then it times this checkout's kernels over forced launch plans (the
-plan functions bypassed): the stage tiles of ``nddwt_lane_dec``,
-``nddwt_lead_dec`` and ``nddwt_lane_adj``, the streamed plans ``(C, T1,
-T2)`` of ``nddwt_lead_adj`` and ``nddwt_rec_level``, and the ring-in-shared-
-memory build's ``nddwt_rec_level`` at its own plans (``T1 x T2 = 256``).
+float32, ``nddwt_lead_dec`` at 128^3 db20 (the 3D long-filter route) and
+``nddwt_rec_level`` and ``nddwt_dec_level`` at 256^3 db4 float32 and
+float64 with CUDA events: every build once in the order given,
+then once in reverse, so the card's clock drifts against no one build.
+Then it times this checkout's kernels over forced launch plans (the plan
+functions bypassed): the stage tiles of ``nddwt_lane_dec`` and
+``nddwt_lane_adj``, the streamed plans ``(C, T1, T2)`` of
+``nddwt_lead_adj``, ``nddwt_rec_level``, ``nddwt_lead_dec`` and
+``nddwt_dec_level``, and the ring-in-shared-memory build's
+``nddwt_rec_level`` at its own plans (``T1 x T2 = 256``).
 
 Prints the card's name and power limit first and one JSON object last. It
 exits non-zero without a CUDA device or if a build disagrees with the plain
@@ -44,24 +47,33 @@ from pathlib import Path
 
 SHAPE = (128, 128, 128, 32)
 SHAPE3 = (256, 256, 256)
-LEAD_TILES = [(16, 32, 8), (16, 16, 8), (8, 16, 16), (16, 16, 16), (8, 8, 32),
-              (4, 8, 64)]
 LANE_TILES = [(1, 128, 32), (1, 64, 32), (2, 64, 32), (1, 32, 32)]
 # Streamed plans (C, T1, T2); T1 * T2 = 256 * 4 where the taps are unrolled.
 LEAD_ADJ_PLANS = [(128, 4, 256), (128, 8, 128), (128, 16, 64), (64, 4, 256),
                   (128, 2, 512)]
 REC_PLANS = [(64, 8, 128), (64, 16, 64), (32, 8, 128), (64, 4, 256), (29, 16, 64),
              (128, 8, 128)]
+# The analysis: T1 * T2 = 256 * items, items 2 at db4 in float32 (a ring of
+# 8 x 4 x 2 registers), 1 in float64, 4 in the lead stage.
+DEC_PLANS = [(128, 8, 64), (128, 4, 128), (64, 8, 64), (128, 16, 32), (256, 8, 64)]
+DEC64_PLANS = [(256, 4, 64), (128, 4, 64), (128, 8, 32), (256, 8, 32), (64, 8, 32)]
+LEAD_DEC_PLANS = [(128, 4, 256), (128, 8, 128), (128, 16, 64), (64, 4, 256),
+                  (128, 2, 512)]
+# The lead analysis of the 3D long-filter route (128^3 db20: 40 taps, the
+# runtime-tap path, one element a thread), whose chunk reads C + 39 planes.
+SHAPE20 = (128, 128, 128)
+LEAD_DEC20_PLANS = [(40, 8, 32), (64, 8, 32), (128, 8, 32), (64, 16, 16), (128, 16, 16),
+                    (64, 32, 8), (128, 32, 8), (40, 16, 16)]
 RING_SMEM = "ring in shared memory"
 RING_SMEM_PLANS = [(64, 2, 128), (64, 4, 64), (32, 2, 128)]  # T1 * T2 = 256
-# The built-in variants: name -> (text of csrc/nddwt_stream.cuh, replacement).
+# The built-in variants: name -> (text of csrc/nddwt_stream.cuh, replacement),
+# every occurrence replaced (both bodies where the text is in both).
 BUILT_IN = {
     RING_SMEM: ("  if (K != 2 && K != 4 && K != 6 && K != 8) return 0;",
                 "  if (K > 0) return 0;"),
     "two stages": ("constexpr int kStreamMaxStages = 4;",
                    "constexpr int kStreamMaxStages = 2;"),
-    "one CTA per SM": ("__launch_bounds__(kThreads, 2)\n    stream_syn_kernel",
-                       "__launch_bounds__(kThreads)\n    stream_syn_kernel"),
+    "one CTA per SM": ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads)"),
     "copies only": ("    cp_commit();\n\n    const int gi = at.gi",
                     "    cp_commit();\n    if (nw > 0) continue;\n\n    const int gi = at.gi"),
     "passes only": ("      for (int i = lane; i < hd; i += 32) copy_elem(srow + i, row + col(c0 + i));\n"
@@ -202,6 +214,11 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
             k, r = ck.rec_level(y, None, src, taps, 0.5), r3.rec_level_ref(y, None, src, taps, 0.5)
             if (k - r).abs().max().item() > 1e-5 * r.abs().max().item():
                 wrong.append(f"{name} nddwt_rec_level at {shape} {wv}")
+            bk, br = torch.zeros_like(y), torch.zeros_like(y)
+            ck.dec_level(y[0], bk, 1, taps, 0.1, True)
+            r3.dec_level_ref(y[0], br, 1, taps, 0.1, True)
+            if (bk - br).abs().max().item() > 1e-5 * br.abs().max().item():
+                wrong.append(f"{name} nddwt_dec_level at {shape} {wv}")
         ck._stream_plan, ck._stream_items = real_plan, real_items
     if wrong:
         print(f"chip_ab_stages: disagrees with the plain versions: {wrong}",
@@ -215,14 +232,22 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
     big = torch.randn((16,) + SHAPE, generator=gen, device=dev)
     y32 = torch.randn((8,) + SHAPE3, generator=gen, device=dev)
     y64 = torch.randn((8,) + SHAPE3, generator=gen, device=dev, dtype=torch.float64)
+    x32, b32 = torch.randn(SHAPE3, generator=gen, device=dev), torch.empty_like(y32)
+    x64, b64 = x32.double(), torch.empty_like(y64)
+    taps20 = tw.NDDWT("db20", SHAPE20, device=dev).taps_hp
+    temp20 = torch.randn((2,) + SHAPE20, generator=gen, device=dev)
+    big20 = torch.empty((8,) + SHAPE20, device=dev)
     src16, src8 = [("y", b) for b in range(16)], [("y", b) for b in range(8)]
     calls = {
         "nddwt_lane_dec": lambda: ck.lane_dec(x, taps),
         "nddwt_lead_dec": lambda: ck.lead_dec(temp, big, 1, taps),
         "nddwt_lead_adj": lambda: ck.lead_adj(big, None, src16, taps),
+        "nddwt_lead_dec db20": lambda: ck.lead_dec(temp20, big20, 1, taps20),
         "nddwt_lane_adj": lambda: ck.lane_adj(temp, taps, 1 / 16),
         "nddwt_rec_level f32": lambda: ck.rec_level(y32, None, src8, taps3, 0.125),
         "nddwt_rec_level f64": lambda: ck.rec_level(y64, None, src8, taps3, 0.125),
+        "nddwt_dec_level f32": lambda: ck.dec_level(x32, b32, 1, taps3, 0.0, True),
+        "nddwt_dec_level f64": lambda: ck.dec_level(x64, b64, 1, taps3, 0.0, True),
     }
     out = {"card": smi, "shape": SHAPE, "shape3": SHAPE3, "ms": {}, "tiles": {}, "plans": {}}
     order = [name for name in libs if name != RING_SMEM]
@@ -234,11 +259,10 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
         print(f"{name}: " + "; ".join(f"{k} {v}" for k, v in per.items()), flush=True)
     use("checkout")
     plan_tiles = ck._stage_tiles
-    for kernel, tiles in (("nddwt_lane_dec", LANE_TILES), ("nddwt_lead_dec", LEAD_TILES),
-                          ("nddwt_lane_adj", LANE_TILES)):
+    for kernel, tiles in (("nddwt_lane_dec", LANE_TILES), ("nddwt_lane_adj", LANE_TILES)):
         row = {}
         for t in tiles:
-            ck._stage_tiles = lambda n, k, lane_, adj, word, t=t: t
+            ck._stage_tiles = lambda n, k, adj, word, t=t: t
             row[str(t)] = timed(calls[kernel])
         ck._stage_tiles = plan_tiles
         out["tiles"][kernel] = row
@@ -247,6 +271,10 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
             ("checkout", "nddwt_lead_adj", LEAD_ADJ_PLANS),
             ("checkout", "nddwt_rec_level f32", REC_PLANS),
             ("checkout", "nddwt_rec_level f64", REC_PLANS),
+            ("checkout", "nddwt_lead_dec", LEAD_DEC_PLANS),
+            ("checkout", "nddwt_lead_dec db20", LEAD_DEC20_PLANS),
+            ("checkout", "nddwt_dec_level f32", DEC_PLANS),
+            ("checkout", "nddwt_dec_level f64", DEC64_PLANS),
             (RING_SMEM, "nddwt_rec_level f32", RING_SMEM_PLANS),
             (RING_SMEM, "nddwt_rec_level f64", RING_SMEM_PLANS)):
         use(name)

@@ -55,11 +55,15 @@ Phases:
    multi-coil batch; the halo-padded mode of the level and lead-stage
    kernels on one rank's padded block cut from a global array (one and two
    padded axes; float32, bfloat16, float64), also against the wrap mode on
-   the whole array, cut to the block; and the streamed synthesis
+   the whole array, cut to the block; the streamed synthesis
    (``nddwt_rec_level``, ``nddwt_lead_adj``) at the cases its plan can get
    wrong (``STREAM_REC_CASES``, ``STREAM_LEAD_CASES``: a streamed axis of
    extent K, odd extents, 2 to 28 taps, 2D mixed filters) in float32,
-   bfloat16 and float64, one line per case;
+   bfloat16 and float64, one line per case; and the streamed analysis
+   (``nddwt_dec_level``, ``nddwt_lead_dec``) the same way
+   (``STREAM_DEC_CASES``, ``STREAM_LEAD_DEC_CASES``: also runtime taps,
+   the split walk, 2D and padded slots 0 and 1), lam 0 and 0.1, ``final``
+   both ways, one line per case;
 3. the main path at 256^3 (both normalizations) against the plain path on
    the card, the threshold-0 round trip, and the 64^3 flagship step of
    ``__graft_entry__.entry`` against the float64 NumPy oracle; the kernels'
@@ -170,9 +174,21 @@ STREAM_SOURCE = "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_stream.cuh"
 STREAM_REC_CASES = [((8, 40, 72), "db4"), ((37, 41, 45), "db4"), ((24, 40, 72), "db1"),
                     ((30, 30, 31), "db14"), ((24, 25, 26), "db11"), ((9, 300), ("db2", "db6"))]
 STREAM_LEAD_CASES = [((8, 64, 20, 10), "db4"), ((37, 41, 20, 10), "db2")]
+# The streamed analysis (nddwt_dec_level, nddwt_lead_dec) is written in the
+# same header: (shape, wavelet, halo-padded axes) at a streamed axis of
+# extent K, extents no multiple of the plane tile or chunk, db1, db2, db4,
+# runtime taps (db10, db11: its walk split in float64; the db20 stage
+# route), 2D (db38: its walk split in float64) and padded slots 0 and 1.
+STREAM_DEC_CASES = [((8, 40, 72), "db4", None), ((37, 41, 45), "db2", None),
+                    ((24, 40, 72), "db1", None), ((30, 30, 31), "db10", None),
+                    ((24, 25, 26), "db11", None), ((9, 300), ("db2", "db6"), None),
+                    ((80, 90), "db38", None), ((12, 9, 10), "db2", (True, False, False)),
+                    ((10, 12, 9), "db4", (False, True, False))]
+STREAM_LEAD_DEC_CASES = [((8, 64, 20, 10), "db4", None), ((37, 41, 20, 10), "db2", None),
+                         ((40, 41, 45), "db20", None), ((9, 10, 4, 6), "db2", (True, False)),
+                         ((9, 10, 6, 7), "db3", (False, True))]
 KERNELS = {  # name: (source, the TPU kernel it replaces)
-    "nddwt_dec_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_level.cu",
-                        "non_decimated_wavelets_tpu/ops/pallas_kernels.py:519"),
+    "nddwt_dec_level": (STREAM_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_kernels.py:519"),
     "nddwt_rec_level": (STREAM_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_kernels.py:1389"),
     "nddwt_mag_shrink_pair": (
         "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_elemwise.cu",
@@ -180,7 +196,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nddwt_fista_step": (
         "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_elemwise.cu",
         "non_decimated_wavelets_tpu/ops/pallas_elemwise.py:108"),
-    **{name: (STREAM_SOURCE if name == "nddwt_lead_adj"
+    **{name: (STREAM_SOURCE if name in ("nddwt_lead_dec", "nddwt_lead_adj")
               else "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_4d.cu",
               f"non_decimated_wavelets_tpu/ops/pallas_4d.py:{line}")
        for name, line in zip(STAGE_KERNELS, (503, 592, 882, 998))},
@@ -593,6 +609,38 @@ def main() -> int:
         check(f"{'nddwt_lead_adj' if lead else 'nddwt_rec_level'} streamed {shape} {wv} "
               f"{str(dt).removeprefix('torch.')}", err, tol)
         del y, x, k, r
+    torch.cuda.empty_cache()
+
+    # The streamed analysis' edge cases (STREAM_DEC_CASES,
+    # STREAM_LEAD_DEC_CASES) in each dtype; one line per case: lam 0 and
+    # 0.1, final both ways, the details written past band 1.
+    for seed, ((shape, wv, pad), dt) in enumerate(
+            (c, d) for c in STREAM_DEC_CASES + STREAM_LEAD_DEC_CASES
+            for d in (torch.float32, torch.bfloat16, torch.float64)):
+        gen.manual_seed(1700 + seed)
+        taps = tw.NDDWT(wv, shape, device=dev).taps_hp
+        stage = wv == "db20" or len(shape) == 4  # the lead stage's view
+        nl = 2 ** (len(shape) - 2) if stage else 1
+        flags = (pad or (False,) * (2 if stage else len(shape)))
+        ins = ck._padded_shape(shape, taps, flags + (False,) * (len(shape) - len(flags)))
+        x = randn(((nl,) if stage else ()) + ins, dt)
+        nbands = 4 * nl if stage else 2 ** len(shape)
+        kernel, plain = ((ck.lead_dec, level4_ref.lead_dec_ref) if stage else
+                         (ck.dec_level, level_ref.dec_level_ref))
+        err = tol = 0.0
+        for lam in (0.0, THRESHOLD):
+            for final in (False, True):
+                bk = torch.zeros((2 * nbands - 1,) + shape, dtype=dt, device=dev)
+                br = bk.clone()
+                ak = kernel(x, bk, nbands, taps, lam, final, pad)
+                ar = plain(x, br, nbands, taps, lam, final, pad)
+                torch.cuda.synchronize()
+                err, tol = max(err, max_err(bk, br)), max(tol, rel_tol(br, dt))
+                if not final:
+                    err = max(err, max_err(ak, ar))
+        check(f"{'nddwt_lead_dec' if stage else 'nddwt_dec_level'} streamed {shape} {wv} "
+              f"pad={pad} {str(dt).removeprefix('torch.')}", err, tol)
+        del x, bk, br, ak, ar
     torch.cuda.empty_cache()
 
     # The 1D level kernels: bench.py's 1M-sample signal, the reference's

@@ -32,25 +32,25 @@
 // the lead analysis 20 (1.60 ms), the lead adjoint 20 and the lane adjoint
 // 5. A halo on two slots instead of four keeps a CTA's window small (one
 // launch per level with halos on all four axes does not fit 100 KB at db4,
-// and reads its input 25 times), so the input is read about 1.3-2 times
-// over, mostly from L2, and the K-tap passes run in shared memory with
-// consecutive threads on consecutive addresses. The analysis computes both
-// halves of the second pass from one read of the intermediate. Flat indices
-// are split by multiply-high, not by division, and the lead stage keeps 8
-// window loads in flight per thread. The lane stages and the lead analysis
-// run at 14-30 % of the bound on an H100: every pass waits at a barrier for
-// its window, and the lead analysis's window spans tile + K - 1 planes of X.
-// Every index wraps periodically, so any extent >= K runs: odd Z and T,
-// T > 128.
+// and reads its input 25 times).
 //
-// The lead adjoint streams X instead (nddwt_stream.cuh over the (X, Y, Z*T)
+// The lane stages load a tile's halo'd window into shared memory and run the
+// K-tap passes there, consecutive threads on consecutive addresses; the
+// analysis computes both halves of the second pass from one read of the
+// intermediate, and flat indices are split by multiply-high, not by
+// division. They run at 16-30 % of the bound on an H100: every pass waits at
+// a barrier for its window. Every index wraps periodically, so any extent
+// >= K runs: odd Z and T, T > 128.
+//
+// The lead stages stream X instead (nddwt_stream.cuh over the (X, Y, Z*T)
 // view, slot 2 the pass-through): a CTA owns (T1 rows of Y) x (T2 of Z*T)
-// and a chunk of X, copies each band plane's (T1 + K - 1) x T2 window, whose
-// rows are contiguous along Z*T, asynchronously in 16-byte pieces, runs the
-// Y pass and scatters along X into a ring of K partial planes per output
-// group; each plane of X is read once per chunk plus K - 1. It runs at about
-// a quarter of its bound on an H100: its copies and its passes each take
-// about half of its time and barely overlap (nddwt_stream.cuh).
+// and a chunk of X, and copies each input plane's (T1 + K - 1) x T2 window,
+// whose rows are contiguous along Z*T, asynchronously in 16-byte pieces.
+// The adjoint runs the Y pass of each band's window and scatters along X
+// into a ring of K partial planes per output group; the analysis runs the
+// Y lo and hi of each lane band's window and gathers along X from a ring of
+// the last K planes, writing 4 bands per lane band and output plane. Each
+// plane of X is read once per chunk plus K - 1.
 //
 // The halo-padded ("valid") mode of the lead stage: nddwt_lead_dec and
 // nddwt_lead_adj take a `pad` flag on slots 0 and 1 (X and Y of the
@@ -63,7 +63,8 @@
 // shape_xy=/padded= or slab_axes=/slabs= (pallas_4d.py:592,882) and the lane
 // stage's emitted edges (_lane_edge_copies, pallas_4d.py:432), called by
 // non_decimated_wavelets_tpu/parallel/sharded.py:440,512. The lane stages
-// stay local: Z and T are never sharded.
+// stay local: Z and T are never sharded. Both lead stages read a padded slot
+// at position + left (nddwt_stream.cuh).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (ops/cuda_kernels.py does this at first use).
@@ -113,60 +114,29 @@ struct Split3 {
 };
 
 // i mod n for -n <= i < 3n: the wrapper keeps every tile inside its extent
-// and every filter no longer than an unpadded axis, so window indices stay
-// there.
+// and every filter no longer than an axis, so window indices stay there.
 __device__ __forceinline__ int wrap3(int i, int n) {
   if (i < 0) return i + n;
   if (i >= n) i -= n;
   return i >= n ? i - n : i;
 }
 
-// Input row of window position p on slot a: wrapped, or on a halo-padded
-// slot p + left, inside the padded extent.
-template <typename C>
-__device__ __forceinline__ int in_row3(const LevelT<C>& g, int a, int p) {
-  return g.pad[a] ? p + g.left[a] : wrap3(p, g.n[a]);
-}
-
-// The CTA's (e0, e1, e2) input window, wrapped periodically; kPad: some
-// slot may be halo-padded (its window shifted into the halo; kPad = false
-// compiles the wrap-only load). Each thread
-// issues BATCH loads before it stores any. The lead stage's window is short
-// rows in tile + K - 1 planes of X that every pass waits on at a barrier:
-// 8 loads in flight per thread take a quarter off the lead adjoint. The lane
-// stage's rows are long, and there the registers cost more than they hide
-// (both measured on an H100 in a sweep of batches and tiles).
-template <int BATCH, bool kPad, typename T, typename C>
+// The CTA's (e0, e1, e2) input window, wrapped periodically.
+template <typename T, typename C>
 __device__ void load_window(C* __restrict__ s, const T* __restrict__ src,
                             const LevelT<C>& g, const int* b, int e0, int e1,
                             int e2) {
   const int o0 = b[0] - g.left[0], o1 = b[1] - g.left[1],
             o2 = b[2] - g.left[2];
   const int total = e0 * e1 * e2;
-  const long long m1 = kPad ? in_extent(g, 1) : g.n[1];
-  const long long m2 = kPad ? in_extent(g, 2) : g.n[2];
   const Split3 split(e1, e2);
-  for (int base = threadIdx.x; base < total; base += BATCH * blockDim.x) {
-    C v[BATCH];
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      const int i = base + u * blockDim.x;
-      if (i < total) {
-        int l0, l1, l2;
-        split(i, l0, l1, l2);
-        const long long g0 =
-            kPad ? in_row3(g, 0, o0 + l0) : wrap3(o0 + l0, g.n[0]);
-        const long long g1 =
-            kPad ? in_row3(g, 1, o1 + l1) : wrap3(o1 + l1, g.n[1]);
-        const int g2 = kPad ? in_row3(g, 2, o2 + l2) : wrap3(o2 + l2, g.n[2]);
-        v[u] = to_f(src[(g0 * m1 + g1) * m2 + g2]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      const int i = base + u * blockDim.x;
-      if (i < total) s[i] = v[u];
-    }
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    int l0, l1, l2;
+    split(i, l0, l1, l2);
+    const long long g0 = wrap3(o0 + l0, g.n[0]);
+    const long long g1 = wrap3(o1 + l1, g.n[1]);
+    const int g2 = wrap3(o2 + l2, g.n[2]);
+    s[i] = to_f(src[(g0 * g.n[1] + g1) * g.n[2] + g2]);
   }
 }
 
@@ -200,7 +170,8 @@ __device__ void stage_pass(C* __restrict__ out, const C* __restrict__ in,
 // apart) gives sub-band s = bitA + 2 bitB as output d = s + 4 i, written to
 // dst0 for d == 0 and to big[band_off + d - 1] otherwise, soft-thresholded
 // by lam > 0 when d > 0. smem: the window, then the HA-pass intermediate.
-template <typename T, int HA, int HB, bool kPad, typename C>
+// (The lane analysis; the lead analysis streams, nddwt_stream.cuh.)
+template <typename T, int HA, int HB, typename C>
 __device__ void dec_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
                           const T* __restrict__ src, int n_in,
                           const LevelT<C>& g, T* __restrict__ dst0,
@@ -215,7 +186,6 @@ __device__ void dec_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
   C* s0 = smem;
   C* p1 = s0 + e0 * e1 * e2;
   const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
-  const long long ivox = kPad ? in_vox(g) : vox;  // one input
   const int nsA = g.k[HA] > 1 ? 2 : 1;
   const bool hiB = g.k[HB] > 1;
   const int KB = g.k[HB];
@@ -224,7 +194,7 @@ __device__ void dec_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
   const Split3 split(t1, t2);
   for (int i = 0; i < n_in; ++i) {
     __syncthreads();  // the previous input's window and intermediate are read
-    load_window<HA == 0 ? 8 : 1, kPad>(s0, src + i * ivox, g, b, e0, e1, e2);
+    load_window(s0, src + i * vox, g, b, e0, e1, e2);
     __syncthreads();
     for (int sa = 0; sa < nsA; ++sa) {
       stage_pass<HA, false>(p1, s0, e0, e1, e2, g.t[HA], taps[HA][sa],
@@ -287,7 +257,7 @@ __device__ void adj_stage(C* __restrict__ smem, C (*taps)[2][kMaxTaps],
         const long long id = src.idx[sa + 2 * sb + 4 * gi];
         const T* bsrc = id < 0 ? approx : y + id * vox;
         __syncthreads();  // the previous band's window is consumed
-        load_window<HA == 0 ? 8 : 1, false>(s0, bsrc, g, b, e0, e1, e2);
+        load_window(s0, bsrc, g, b, e0, e1, e2);
         __syncthreads();
         stage_pass<HA, true>(p1, s0, e0, e1, e2, g.t[HA], taps[HA][sa],
                              g.k[HA]);
@@ -314,21 +284,7 @@ __global__ void __launch_bounds__(kThreads)
     lane_dec_kernel(const T* __restrict__ x, T* __restrict__ temp,
                     const __grid_constant__ LevelT<C> g) {
   __shared__ C taps[3][2][kMaxTaps];
-  dec_stage<T, 1, 2, false>(shared_words<C>(), taps, x, 1, g, temp, temp, 1,
-                            C(0));
-}
-
-// Lead analysis: temp (n_in, X, Y, Z*T) -> 16 bands (8 for a 3D array);
-// kPad: the halo-padded instantiation.
-template <typename T, bool kPad, typename C = compute_t<T>>
-__global__ void __launch_bounds__(kThreads)
-    lead_dec_kernel(const T* __restrict__ temp, T* __restrict__ big,
-                    T* __restrict__ approx_out,
-                    const __grid_constant__ LevelT<C> g, int n_in,
-                    long long band_off, C lam) {
-  __shared__ C taps[3][2][kMaxTaps];
-  dec_stage<T, 0, 1, kPad>(shared_words<C>(), taps, temp, n_in, g, approx_out,
-                           big, band_off, lam);
+  dec_stage<T, 1, 2>(shared_words<C>(), taps, x, 1, g, temp, temp, 1, C(0));
 }
 
 // Lane adjoint: partial (4, X*Y, Z, T) -> scale * (X*Y, Z, T).
@@ -384,14 +340,17 @@ int lane_dec(const void* x, void* temp, const Geom& v, cudaStream_t s) {
                 (const T*)x, (T*)temp, g);
 }
 
+// The lead analysis streams X (nddwt_stream.cuh) over the (X, Y, Z*T) view:
+// t = (C, T1, T2) is its chunk of X and plane tile, gw the in-plane bands
+// (of the 2 of slot 1) a walk keeps; input group gi gives band s0 + 2 s1 +
+// 4 gi.
 template <typename T, typename C = compute_t<T>>
 int lead_dec(const void* temp, void* big, void* approx_out, const Geom& v,
-             int n_in, long long band_off, double lam, cudaStream_t s) {
-  const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.pad, v.taps);
-  auto kernel = v.pad && (v.pad[0] || v.pad[1]) ? lead_dec_kernel<T, true, C>
-                                                : lead_dec_kernel<T, false, C>;
-  return launch(kernel, g, stage_smem(g, 0, false), s, (const T*)temp,
-                (T*)big, (T*)approx_out, g, n_in, band_off, (C)lam);
+             int n_in, long long band_off, double lam, int gw, cudaStream_t s) {
+  const int bits[3] = {0, 1, 0};
+  const LevelT<C> g = make_level<C>(v.n, v.k, v.t, v.left, bits, v.taps, v.pad);
+  return launch_stream_ana<T, 2>((const T*)temp, (T*)big, (T*)approx_out, g, n_in,
+                                 gw, band_off, (C)lam, s);
 }
 
 // The lead adjoint streams X (nddwt_stream.cuh) over the (X, Y, Z*T) view:
@@ -402,7 +361,7 @@ int lead_adj(const void* y, const void* approx, void* partial, const Geom& v,
   const int bits[3] = {0, 1, 0};
   const LevelT<C> g = make_level<C>(v.n, v.k, v.t, v.left, bits, v.taps, v.pad);
   return launch_stream<T>((const T*)y, (const T*)approx, (T*)partial, g, src,
-                          n_out, C(1), v.pad && (v.pad[0] || v.pad[1]), s);
+                          n_out, C(1), s);
 }
 
 template <typename T, typename C = compute_t<T>>
@@ -417,9 +376,10 @@ int lane_adj(const void* partial, void* out, const Geom& v, const Sources& src,
 
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
 // 2 = float64. n, k, t, left: 3 ints each, the stage's view (slot 0
-// slowest; n the output extents); pad (the lead stages, last before the
-// stream): 3 ints, 1 on a halo-padded slot, whose inputs then have extent
-// n + k - 1; taps:
+// slowest; n the output extents); t: the tile, or the lead stages' streamed
+// plan (C, T1, T2); gw (the lead analysis): its in-plane bands a walk; pad
+// (the lead stages, last before the stream): 3 ints, 1 on a halo-padded
+// slot, whose inputs then have extent n + k - 1; taps:
 // 3 * 2 * 76 of the compute type (float for dtypes 0 and 1,
 // double for 2). The caller makes the arrays' device current. Returns the
 // cudaError_t of the launch (0 on success); the launch is asynchronous on
@@ -442,16 +402,16 @@ extern "C" int nddwt_lead_dec(const void* temp, void* big, void* approx_out,
                               int dtype, const int* n, const int* k,
                               const int* t, const int* left, const void* taps,
                               int n_in, long long band_off, double lam,
-                              const int* pad, void* stream) {
+                              int gw, const int* pad, void* stream) {
   const Geom v{n, k, t, left, pad, taps};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return lead_dec<float>(temp, big, approx_out, v, n_in, band_off, lam, s);
+    return lead_dec<float>(temp, big, approx_out, v, n_in, band_off, lam, gw, s);
   if (dtype == 1)
     return lead_dec<__nv_bfloat16>(temp, big, approx_out, v, n_in, band_off,
-                                   lam, s);
+                                   lam, gw, s);
   if (dtype == 2)
-    return lead_dec<double>(temp, big, approx_out, v, n_in, band_off, lam, s);
+    return lead_dec<double>(temp, big, approx_out, v, n_in, band_off, lam, gw, s);
   return (int)cudaErrorInvalidValue;
 }
 

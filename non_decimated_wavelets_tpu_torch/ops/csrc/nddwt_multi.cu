@@ -33,8 +33,8 @@
 // so level l + 1's DMA reads what level l wrote. Hopper CTAs run in no
 // order, so this is one cooperative launch of a persistent grid
 // (nddwt_grid.cuh): for each level the CTAs claim (batch item, tile) pairs
-// from a per-level counter, each running the per-level kernels' tile body
-// on it (nddwt_tile.cuh, the CTA's shared memory holding one halo'd tile),
+// from a per-level counter, each running the tile body on it
+// (nddwt_tile.cuh, the CTA's shared memory holding one halo'd tile),
 // and a grid-wide barrier separates the levels. Claiming keeps a CTA that
 // finishes early busy, as the hardware does for the per-level kernels'
 // one-tile CTAs: with a fixed grid-stride share per CTA instead, both
@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
           l == 0 ? a.src + item * a.vox : slot_item(a, (l - 1) % 2, item);
       T* bands = a.dst + item * a.nbands * a.vox;
       T* approx = final ? bands : slot_item(a, l % 2, item);
-      dec_tile<true>(in, bands, approx, a.g, taps, smem, off, a.coef, tile);
+      dec_tile(in, bands, approx, a.g, taps, smem, off, a.coef, tile);
     }
   }
 }
@@ -146,7 +146,7 @@ __global__ void __launch_bounds__(kThreads)
       const T* y = a.src + item * a.nbands * a.vox;
       const T* approx = l == 0 ? y : slot_item(a, (l - 1) % 2, item);
       T* out = final ? a.dst + item * a.vox : slot_item(a, l % 2, item);
-      rec_tile<true>(y, approx, out, a.g, src, a.coef, taps, smem, tile);
+      rec_tile(y, approx, out, a.g, src, a.coef, taps, smem, tile);
     }
   }
 }

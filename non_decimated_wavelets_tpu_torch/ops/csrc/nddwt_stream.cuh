@@ -1,7 +1,10 @@
-// The streamed synthesis body shared by nddwt_rec_level (nddwt_level.cu) and
-// nddwt_lead_adj (nddwt_4d.cu): a CTA owns an output column of (T1, T2) on
-// slots 1 and 2 and a chunk of C outputs along slot 0, and walks slot 0 one
-// input plane at a time.
+// The two streamed bodies of the level and lead-stage kernels: the synthesis
+// (stream_syn), shared by nddwt_rec_level (nddwt_level.cu) and
+// nddwt_lead_adj (nddwt_4d.cu), and the analysis (stream_ana, below), shared
+// by nddwt_dec_level and nddwt_lead_dec. In both a CTA owns an output column
+// of (T1, T2) on slots 1 and 2 and a chunk of C outputs along slot 0, and
+// walks slot 0 one input plane at a time, copying each window once through
+// the same ring of asynchronous copies (StreamCopy).
 //
 // The launch is over a 3-slot view (LevelT: extents n, taps k, left halo,
 // band bit and halo-padded flag per slot; t = (C, T1, T2), T2 a power of
@@ -39,8 +42,9 @@
 // never straddles the periodic wrap then, so only its first column is
 // wrapped), element by element otherwise (bfloat16 elements by plain loads:
 // cp.async copies 4, 8 or 16 bytes). No index is divided per element. The
-// halo-padded mode (kPad) reads a padded slot at position + left without
-// wrapping.
+// halo-padded mode reads a padded slot at position + left without wrapping;
+// both bodies read its flags once per CTA and per window, never per
+// element, so it is a runtime flag.
 //
 // Filter lengths 2, 4, 6, 8 (db1-db4, the same K on every slot that has a
 // halo: stream_unrolled) run with the tap loops unrolled, the taps of the
@@ -93,7 +97,9 @@ __host__ __device__ inline int stream_unrolled(const int* k) {
 // Shared memory of a launch, in bytes: the input offsets of the window's
 // rows, `stages` window buffers (storage type T, rows of ws elements), the
 // slot-2 intermediate Q (only when slots 1 and 2 both have a halo) and, for
-// runtime filter lengths, the ring.
+// runtime filter lengths, the ring. `bands`: the in-plane bands one walk of
+// the analysis keeps (1 for the synthesis), which hold (bands + 1) / 2
+// slices of Q and a ring of k0 planes per band.
 struct StreamLayout {
   int ws;            // window row stride, elements (a multiple of 16 bytes)
   size_t rows, win, q, ring, total;
@@ -103,15 +109,17 @@ __host__ __device__ inline size_t round16(size_t b) { return (b + 15) / 16 * 16;
 
 template <typename T, typename C>
 __host__ __device__ StreamLayout stream_layout(const LevelT<C>& g, bool smem_ring,
-                                               int stages) {
+                                               int stages, int bands = 1) {
   constexpr int V = 16 / sizeof(T);
   StreamLayout L;
   const int ea1 = g.t[1] + g.k[1] - 1;
   L.ws = (g.t[2] + g.k[2] - 1 + V - 1 + V - 1) / V * V;
   L.rows = round16((size_t)ea1 * sizeof(long long));
   L.win = round16((size_t)ea1 * L.ws * sizeof(T));
-  L.q = g.k[1] > 1 && g.k[2] > 1 ? round16((size_t)ea1 * g.t[2] * sizeof(C)) : 0;
-  L.ring = smem_ring ? (size_t)g.k[0] * g.t[1] * g.t[2] * sizeof(C) : 0;
+  L.q = g.k[1] > 1 && g.k[2] > 1
+            ? round16((size_t)(bands + 1) / 2 * ea1 * g.t[2] * sizeof(C))
+            : 0;
+  L.ring = smem_ring ? (size_t)g.k[0] * bands * g.t[1] * g.t[2] * sizeof(C) : 0;
   L.total = L.rows + stages * L.win + L.q + L.ring;
   return L;
 }
@@ -119,9 +127,11 @@ __host__ __device__ StreamLayout stream_layout(const LevelT<C>& g, bool smem_rin
 // The most window buffers (up to kStreamMaxStages, at least 2) whose layout
 // fits kStreamSmemBudget.
 template <typename T, typename C>
-__host__ __device__ int stream_stages(const LevelT<C>& g, bool smem_ring) {
+__host__ __device__ int stream_stages(const LevelT<C>& g, bool smem_ring,
+                                      int bands = 1) {
   int s = kStreamMaxStages;
-  while (s > 2 && stream_layout<T>(g, smem_ring, s).total > kStreamSmemBudget) --s;
+  while (s > 2 && stream_layout<T>(g, smem_ring, s, bands).total > kStreamSmemBudget)
+    --s;
   return s;
 }
 
@@ -170,6 +180,72 @@ __device__ __forceinline__ void cp_wait(int n) {
   }
 }
 
+// The copy side of both bodies: a CTA copies the window of one input plane,
+// E1 rows (slot 1) of E2 columns (slot 2) starting at column c0, into a
+// buffer whose rows are ws elements long, column c0 at row offset sh. The
+// input offset of every window row is computed once per CTA (the rows are
+// the same in every plane and band); a row is copied in 16-byte pieces where
+// the input rows are 16-byte aligned (a piece never straddles the periodic
+// wrap then: n2 is a multiple of V, so the wrap falls between pieces, and
+// only its first column is wrapped), element by element otherwise.
+template <typename T>
+struct StreamCopy {
+  const long long* row_off;  // the input offset of each window row (shared)
+  int E1, E2, c0, n2, sh, head, ws;
+  bool inner2, vec;
+
+  __device__ __forceinline__ int col(int c) const {
+    return inner2 ? c : wrap2(c, n2);
+  }
+
+  // Issue the asynchronous copies of the window of the input plane at
+  // `plane`, of an array based at `base`, into W.
+  __device__ __forceinline__ void issue(T* W, const T* base, const T* plane) const {
+    constexpr int V = 16 / sizeof(T);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const bool v = vec && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+    const int hd = v ? min(head, E2) : E2;
+    const int nv = v ? (E2 - hd) / V : 0;
+    const int tail = hd + nv * V;
+    for (int l1 = warp; l1 < E1; l1 += kThreads / 32) {
+      const T* row = plane + row_off[l1];
+      T* srow = W + l1 * ws + sh;
+      for (int i = lane; i < hd; i += 32) copy_elem(srow + i, row + col(c0 + i));
+      for (int u = lane; u < nv; u += 32)
+        copy16(srow + hd + u * V, row + col(c0 + hd + u * V));
+      for (int i = tail + lane; i < E2; i += 32) copy_elem(srow + i, row + col(c0 + i));
+    }
+  }
+};
+
+// A CTA's copies, whose window of E1 x E2 starts at rows o1 - left1 and
+// columns o2 - left2 (on a halo-padded slot at o1 and o2 of the padded
+// input, unwrapped); m2 is the input's row length. Fills row_off and waits
+// for it.
+template <typename T, typename C>
+__device__ StreamCopy<T> stream_copy(const LevelT<C>& g, long long* row_off, int o1,
+                                     int o2, int E1, int E2, int ws, long long m2,
+                                     bool pad1, bool pad2) {
+  constexpr int V = 16 / sizeof(T);
+  for (int l1 = threadIdx.x; l1 < E1; l1 += kThreads) {
+    const int q = o1 - g.left[1] + l1;
+    row_off[l1] = (pad1 ? q + g.left[1] : wrap2(q, g.n[1])) * m2;
+  }
+  __syncthreads();
+  StreamCopy<T> cp;
+  cp.row_off = row_off;
+  cp.E1 = E1;
+  cp.E2 = E2;
+  cp.c0 = pad2 ? o2 : o2 - g.left[2];
+  cp.n2 = g.n[2];
+  cp.inner2 = pad2 || (cp.c0 >= 0 && cp.c0 + E2 <= g.n[2]);
+  cp.sh = ((cp.c0 % V) + V) % V;  // column c0 sits at row offset sh
+  cp.head = (V - cp.sh) % V;      // elements before the first 16-byte piece
+  cp.ws = ws;
+  cp.vec = m2 % V == 0;
+  return cp;
+}
+
 // The taps of one pass, tp[j] = src[j]: KT > 0 copies them into registers
 // and unrolls the tap loop; KT == 0 reads them from shared memory in a
 // runtime loop of K.
@@ -204,14 +280,13 @@ struct Taps {
   }
 };
 
-template <typename T, int KT, bool kPad, typename C>
+template <typename T, int KT, typename C>
 __device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx,
                            T* __restrict__ out, const LevelT<C>& g,
                            const StreamSources& src, int groups, C scale,
                            int stages, C (*taps)[2][kMaxTaps],
                            unsigned char* smem) {
   constexpr int NI = stream_items<KT>();
-  constexpr int V = 16 / sizeof(T);
   const StreamLayout L = stream_layout<T>(g, KT == 0, stages);
   long long* const row_off = reinterpret_cast<long long*>(smem);
   unsigned char* const wins = smem + L.rows;
@@ -222,25 +297,17 @@ __device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx
   const int K1 = g.k[1], K2 = g.k[2];
   const int T1 = g.t[1], T2 = g.t[2];
   const int lg2 = 31 - __clz(T2);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int o2 = blockIdx.x * T2, o1 = blockIdx.y * T1, p0 = blockIdx.z * g.t[0];
   const int w2 = min(T2, g.n[2] - o2), w1 = min(T1, g.n[1] - o1);
   const int cc = min(g.t[0], g.n[0] - p0);
   const int E1 = w1 + K1 - 1, E2 = w2 + K2 - 1;  // the window loaded
-  const bool pad0 = kPad && g.pad[0], pad1 = kPad && g.pad[1],
-             pad2 = kPad && g.pad[2];
-  const long long m1 = kPad ? in_extent(g, 1) : g.n[1];
-  const long long m2 = kPad ? in_extent(g, 2) : g.n[2];
-  const long long plane_in = m1 * m2;
-  const long long ivox = kPad ? in_vox(g) : (long long)g.n[0] * g.n[1] * g.n[2];
+  const bool pad0 = g.pad[0];
+  const long long m2 = in_extent(g, 2);
+  const long long plane_in = (long long)in_extent(g, 1) * m2;
+  const long long ivox = in_vox(g);
   const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
   const long long nplane = (long long)g.n[1] * g.n[2];
-  // The window's first column in the input; rows are copied from there.
-  const int c0 = pad2 ? o2 : o2 - g.left[2];
-  const bool inner2 = pad2 || (c0 >= 0 && c0 + E2 <= g.n[2]);
-  const int sh = ((c0 % V) + V) % V;  // column c0 sits at row offset sh
-  const int head = (V - sh) % V;      // elements before the first 16-byte piece
-  const int ws = L.ws;
   const int lgs1 = K1 > 1 ? 1 : 0, lgs2 = K2 > 1 ? 1 : 0;
   const int lgpp = 1 + lgs1 + lgs2;  // log2 windows per plane (s0, s1, s2)
   const int R = cc + K0 - 1;         // input planes per group
@@ -262,19 +329,10 @@ __device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx
     }
   };
 
-  // The input offset of each window row (slot 1), the same for every window.
-  for (int l1 = tid; l1 < E1; l1 += kThreads) {
-    const int q = o1 - g.left[1] + l1;
-    row_off[l1] = (pad1 ? q + g.left[1] : wrap2(q, g.n[1])) * m2;
-  }
-  __syncthreads();
-
+  const StreamCopy<T> cp = stream_copy<T>(g, row_off, o1, o2, E1, E2, L.ws, m2,
+                                          g.pad[1], g.pad[2]);
+  const int ws = L.ws, sh = cp.sh;
   // Issue the asynchronous copies of the window at p into buffer `buf`.
-  // A row is copied in 16-byte pieces where its input rows are 16-byte
-  // aligned; a piece never straddles the wrap (n2 is then a multiple of V,
-  // so the wrap falls between pieces), so only its first column is wrapped.
-  const bool vec = m2 % V == 0;
-  auto col = [&](int c) { return inner2 ? c : wrap2(c, g.n[2]); };
   auto issue = [&](int buf, const Pos& p) {
     const int s2 = p.sub & lgs2, s1 = (p.sub >> lgs2) & lgs1,
               s0 = p.sub >> (lgs1 + lgs2);
@@ -284,20 +342,7 @@ __device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx
     const T* base = id < 0 ? approx : y + id * ivox;
     const int pp = p0 - g.left[0] + p.r;
     const int g0 = pad0 ? pp + g.left[0] : wrap2(pp, g.n[0]);
-    const T* plane = base + g0 * plane_in;
-    const bool v = vec && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
-    const int hd = v ? min(head, E2) : E2;
-    const int nv = v ? (E2 - hd) / V : 0;
-    const int tail = hd + nv * V;
-    T* const W = reinterpret_cast<T*>(wins + buf * L.win);
-    for (int l1 = warp; l1 < E1; l1 += kThreads / 32) {
-      const T* row = plane + row_off[l1];
-      T* srow = W + l1 * ws + sh;
-      for (int i = lane; i < hd; i += 32) copy_elem(srow + i, row + col(c0 + i));
-      for (int u = lane; u < nv; u += 32)
-        copy16(srow + hd + u * V, row + col(c0 + hd + u * V));
-      for (int i = tail + lane; i < E2; i += 32) copy_elem(srow + i, row + col(c0 + i));
-    }
+    cp.issue(reinterpret_cast<T*>(wins + buf * L.win), base, base + g0 * plane_in);
   };
 
   // This thread's plane elements: NI consecutive rows of column tid % T2
@@ -437,7 +482,7 @@ __device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx
 // The kernel of one instantiation: the taps copied to shared memory (the
 // passes load them from there into registers), then the body. Two CTAs per
 // SM: at most 128 registers a thread.
-template <typename T, int KT, bool kPad, typename C = compute_t<T>>
+template <typename T, int KT, typename C = compute_t<T>>
 __global__ void __launch_bounds__(kThreads, 2)
     stream_syn_kernel(const T* __restrict__ y, const T* __restrict__ approx,
                       T* __restrict__ out, const __grid_constant__ LevelT<C> g,
@@ -445,26 +490,26 @@ __global__ void __launch_bounds__(kThreads, 2)
                       C scale, int stages) {
   __shared__ C taps[3][2][kMaxTaps];
   copy_taps(taps, g);
-  stream_syn<T, KT, kPad>(y, approx, out, g, src, groups, scale, stages, taps,
+  stream_syn<T, KT>(y, approx, out, g, src, groups, scale, stages, taps,
                           reinterpret_cast<unsigned char*>(shared_words<C>()));
 }
 
-template <typename T, bool kPad, typename C = compute_t<T>>
+template <typename T, typename C = compute_t<T>>
 auto stream_kernel_for(int kt) {
   switch (kt) {
-    case 2: return stream_syn_kernel<T, 2, kPad, C>;
-    case 4: return stream_syn_kernel<T, 4, kPad, C>;
-    case 6: return stream_syn_kernel<T, 6, kPad, C>;
-    case 8: return stream_syn_kernel<T, 8, kPad, C>;
-    default: return stream_syn_kernel<T, 0, kPad, C>;
+    case 2: return stream_syn_kernel<T, 2, C>;
+    case 4: return stream_syn_kernel<T, 4, C>;
+    case 6: return stream_syn_kernel<T, 6, C>;
+    case 8: return stream_syn_kernel<T, 8, C>;
+    default: return stream_syn_kernel<T, 0, C>;
   }
 }
 
-// Launch one streamed synthesis over the view g (t = (C, T1, T2)); pad: some
-// slot is halo-padded. Returns the cudaError_t of the launch.
+// Launch one streamed synthesis over the view g (t = (C, T1, T2)). Returns
+// the cudaError_t of the launch.
 template <typename T, typename C = compute_t<T>>
 int launch_stream(const T* y, const T* approx, T* out, const LevelT<C>& g,
-                  const StreamSources& src, int groups, C scale, bool pad,
+                  const StreamSources& src, int groups, C scale,
                   cudaStream_t stream) {
   const int kt = stream_unrolled(g.k);
   const int t2 = g.t[2];
@@ -472,8 +517,7 @@ int launch_stream(const T* y, const T* approx, T* out, const LevelT<C>& g,
       g.t[1] * t2 != kThreads * (kt > 0 ? kStreamItems : 1) || g.k[0] < 2 ||
       groups < 1 || groups > kStreamBands / 4)
     return (int)cudaErrorInvalidValue;
-  auto kernel = pad ? stream_kernel_for<T, true, C>(kt)
-                    : stream_kernel_for<T, false, C>(kt);
+  auto kernel = stream_kernel_for<T, C>(kt);
   const int stages = stream_stages<T>(g, kt == 0);
   const size_t smem = stream_layout<T>(g, kt == 0, stages).total;
   if (smem > kStreamSmemBudget) return (int)cudaErrorInvalidValue;
@@ -484,6 +528,387 @@ int launch_stream(const T* y, const T* approx, T* out, const LevelT<C>& g,
                   (g.n[0] + g.t[0] - 1) / g.t[0]);
   kernel<<<grid, kThreads, smem, stream>>>(y, approx, out, g, src, groups, scale,
                                            stages);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ the analysis
+//
+// The streamed analysis body, shared by nddwt_dec_level (nddwt_level.cu)
+// and nddwt_lead_dec (nddwt_4d.cu): the synthesis's walk turned around. The
+// launch is over the same 3-slot views, with the analysis's halo (K/2 - 1 in
+// front, K/2 behind) and the taps as given (not reversed):
+//
+//   nddwt_dec_level 3D  (n0, n1, n2), halos on all three slots;
+//   nddwt_dec_level 2D  (n0, 1, n1): slot 1 is the pass-through;
+//   nddwt_lead_dec      (X, Y, Z*T): slot 2 is the pass-through; the groups
+//                       are the lane bands (inputs one view's extent apart).
+//
+// Input group gi gives the G in-plane bands b of each plane (G = 4 in 3D, 2
+// otherwise; b = s1 + 2 s2 in 3D, s2 in 2D, s1 in the lead stage), and each
+// of those two output bands along slot 0:
+//
+//   d = ((s0 << bit0) | (s1 << bit1) | (s2 << bit2)) + 4 gi,
+//
+// written to approx_out for d == 0 and to big[band_off + d - 1] otherwise,
+// soft-thresholded (shrink) by lam > 0 when d > 0.
+//
+// A CTA owns a (T1, T2) plane tile on slots 1 and 2 and a chunk of C
+// outputs along slot 0, and walks the chunk's C + K0 - 1 input planes. Each
+// plane's window is copied once, asynchronously (StreamCopy). Per plane the
+// in-plane passes run depth first: the slot-2 lo and hi into Q, then the
+// slot-1 lo and hi of each Q slice into registers (in 2D and the lead stage,
+// the one in-plane pass straight from the window). The G results go into a
+// ring of the last K0 planes along slot 0; once it is full, each output plane
+// is lo/hi = sum_j tap0[s0][j] ring[j] (gather form: both s0 from one ring),
+// written from registers as coalesced rows (plain stores: streaming,
+// evict-first stores of the details were 5-18 % slower on an H100).
+//
+// Filter lengths 2, 4, 6, 8 on every slot with a halo (stream_unrolled) run
+// with the tap loops unrolled and the ring in registers, KT x G x items words
+// a thread, items (plane elements per thread: 4, 2 or 1, ana_items) as many
+// as fit kAnaRingRegs registers at two CTAs per SM. Any other filters run
+// with runtime tap loops, one element a thread and the ring in shared
+// memory: K0 x gw x T1 T2 words, where gw (G, G/2 or G/4, from the plan) is
+// the in-plane bands one walk of the chunk keeps; where the ring of all G
+// does not fit, the chunk is walked G / gw times, one band group a walk,
+// each walk copying its input planes again.
+//
+// What bounds it on an H100 (chip_ab_stages.py): at 256^3 db4 f32 a level
+// moves 0.6 GB (0.18 ms at 3.35 TB/s) and takes about 0.52 ms; a build
+// that skips the passes (and so the stores) takes 0.14 ms, one that skips
+// the copies 0.30 ms: the passes and the stores of the 8 bands weigh most.
+// The lead analysis at (128, 128, 128, 32) takes about 2.9 ms for a 1.6 ms
+// bound, 1.3 ms of it the 16 band writes; there the copies-only (0.86 ms)
+// and passes-only (2.02 ms) builds add up to the whole: the copies and the
+// stores do not overlap.
+
+constexpr int kAnaRingRegs = 64;
+
+template <typename C, int KT, int G>
+__host__ __device__ constexpr int ana_items() {
+  return KT == 0 ? 1
+         : 4 * KT * G * (int)(sizeof(C) / 4) <= kAnaRingRegs ? 4
+         : 2 * KT * G * (int)(sizeof(C) / 4) <= kAnaRingRegs ? 2
+                                                             : 1;
+}
+
+template <typename C, int G>
+__host__ __device__ int ana_items_for(int kt) {
+  switch (kt) {
+    case 2: return ana_items<C, 2, G>();
+    case 4: return ana_items<C, 4, G>();
+    case 6: return ana_items<C, 6, G>();
+    case 8: return ana_items<C, 8, G>();
+    default: return 1;
+  }
+}
+
+// The lo and hi taps of one slot: in registers for KT > 0 (unrolled), read
+// from shared memory in a runtime loop of K otherwise.
+template <int KT, typename C>
+struct Taps2 {
+  C lo[KT > 0 ? KT : 1], hi[KT > 0 ? KT : 1];
+  const C *plo, *phi;
+  __device__ __forceinline__ explicit Taps2(C (*src)[kMaxTaps])
+      : plo(src[0]), phi(src[1]) {
+    if constexpr (KT > 0) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        lo[j] = plo[j];
+        hi[j] = phi[j];
+      }
+    }
+  }
+  // a = sum_j lo[j] p[j stride], b = sum_j hi[j] p[j stride]: one read of p
+  template <typename S>
+  __device__ __forceinline__ void dot2(const S* p, int stride, int K, C& a,
+                                       C& b) const {
+    a = 0;
+    b = 0;
+    if constexpr (KT > 0) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const C v = to_f(p[j * stride]);
+        a = mad(lo[j], v, a);
+        b = mad(hi[j], v, b);
+      }
+    } else {
+      for (int j = 0; j < K; ++j) {
+        const C v = to_f(p[j * stride]);
+        a = mad(plo[j], v, a);
+        b = mad(phi[j], v, b);
+      }
+    }
+  }
+};
+
+template <typename T, int KT, int G, typename C>
+__device__ void stream_ana(const T* __restrict__ x, T* __restrict__ big,
+                           T* __restrict__ approx_out, const LevelT<C>& g,
+                           int groups, int gw, long long band_off, C lam,
+                           int stages, C (*taps)[2][kMaxTaps],
+                           unsigned char* smem) {
+  constexpr int NI = ana_items<C, KT, G>();
+  constexpr int GR = KT > 0 ? G : 1;  // bands of the register ring
+  const int nb = KT > 0 ? G : gw;     // bands a walk keeps
+  const StreamLayout L = stream_layout<T>(g, KT == 0, stages, nb);
+  long long* const row_off = reinterpret_cast<long long*>(smem);
+  unsigned char* const wins = smem + L.rows;
+  C* const Q = reinterpret_cast<C*>(wins + stages * L.win);
+  C* const ring_s = reinterpret_cast<C*>(wins + stages * L.win + L.q);
+
+  const int K0 = KT > 0 ? KT : g.k[0];
+  const int K1 = g.k[1], K2 = g.k[2];
+  const int T1 = g.t[1], T2 = g.t[2];
+  const int lg2 = 31 - __clz(T2);
+  const int tid = threadIdx.x;
+  const int o2 = blockIdx.x * T2, o1 = blockIdx.y * T1, p0 = blockIdx.z * g.t[0];
+  const int w2 = min(T2, g.n[2] - o2), w1 = min(T1, g.n[1] - o1);
+  const int cc = min(g.t[0], g.n[0] - p0);
+  const int E1 = w1 + K1 - 1, E2 = w2 + K2 - 1;  // the window loaded
+  const bool pad0 = g.pad[0];
+  const long long m2 = in_extent(g, 2);
+  const long long plane_in = (long long)in_extent(g, 1) * m2;
+  const long long ivox = in_vox(g);
+  const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
+  const long long nplane = (long long)g.n[1] * g.n[2];
+  const int lgs1 = K1 > 1 ? 1 : 0;
+  const int qs = (T1 + K1 - 1) * T2;  // one slice of Q
+  const int walks = G / nb;
+  const int R = cc + K0 - 1;  // input planes per walk
+  const int nw = groups * walks * R;
+
+  // A window's place in the walk: group, walk (band group), input plane.
+  struct Pos {
+    int gi, wk, r;
+  };
+  auto advance = [&](Pos& p) {
+    if (++p.r == R) {
+      p.r = 0;
+      if (++p.wk == walks) {
+        p.wk = 0;
+        ++p.gi;
+      }
+    }
+  };
+
+  const StreamCopy<T> cp = stream_copy<T>(g, row_off, o1, o2, E1, E2, L.ws, m2,
+                                          g.pad[1], g.pad[2]);
+  const int ws = L.ws, sh = cp.sh;
+  auto issue = [&](int buf, const Pos& p) {
+    const T* base = x + p.gi * ivox;
+    const int pp = p0 - g.left[0] + p.r;
+    const int g0 = pad0 ? pp + g.left[0] : wrap2(pp, g.n[0]);
+    cp.issue(reinterpret_cast<T*>(wins + buf * L.win), base, base + g0 * plane_in);
+  };
+
+  // This thread's plane elements: NI consecutive rows of column tid % T2 (a
+  // plane of fewer than NI rows takes columns tid + kThreads i). Per
+  // element: its place in an output plane and whether it is inside.
+  int c1[NI], c2[NI], po[NI];
+  unsigned inside = 0;
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    if (T1 >= NI) {
+      c1[i] = (tid >> lg2) * NI + i;
+      c2[i] = tid & (T2 - 1);
+    } else {
+      const int f = tid + kThreads * i;
+      c1[i] = f >> lg2;
+      c2[i] = f & (T2 - 1);
+    }
+    po[i] = (o1 + c1[i]) * g.n[2] + o2 + c2[i];  // a plane holds < 2^31
+    if (c1[i] < w1 && c2[i] < w2) inside |= 1u << i;
+  }
+  C ring[KT > 0 ? KT : 1][GR][NI];  // planes oldest first
+#pragma unroll
+  for (int m = 0; m < (KT > 0 ? KT : 1); ++m)
+#pragma unroll
+    for (int b = 0; b < GR; ++b)
+#pragma unroll
+      for (int i = 0; i < NI; ++i) ring[m][b][i] = 0;
+  int newest = 0;  // the shared-memory ring's slot of the newest plane
+
+  Pos ahead{0, 0, 0}, at{0, 0, 0};  // the window issued next, computed next
+  int buf_ahead = 0, buf_at = 0;
+  for (int w = 0; w < stages - 1; ++w) {
+    if (w < nw) {
+      issue(buf_ahead++, ahead);
+      advance(ahead);
+    }
+    cp_commit();
+  }
+  for (int w = 0; w < nw; ++w, advance(at), buf_at = buf_at + 1 == stages ? 0 : buf_at + 1) {
+    cp_wait(stages - 2);
+    __syncthreads();  // window w has arrived; window w - 1 and Q are consumed
+    if (w + stages - 1 < nw) {
+      if (buf_ahead == stages) buf_ahead = 0;
+      issue(buf_ahead++, ahead);
+      advance(ahead);
+    }
+    cp_commit();
+
+    const int gi = at.gi, r = at.r;
+    const int b0 = KT > 0 ? 0 : at.wk * gw;  // the walk's first band
+    const T* W = reinterpret_cast<const T*>(wins + buf_at * L.win);
+    if constexpr (KT > 0) {  // the ring moves one plane on
+#pragma unroll
+      for (int m = 0; m < KT - 1; ++m)
+#pragma unroll
+        for (int b = 0; b < G; ++b)
+#pragma unroll
+          for (int i = 0; i < NI; ++i) ring[m][b][i] = ring[m + 1][b][i];
+    } else {
+      newest = r == 0 || newest + 1 == K0 ? 0 : newest + 1;
+    }
+    // The in-plane bands 2h (lo) and 2h + 1 (hi) of the last in-plane pass,
+    // into the ring's newest plane (shared memory: the walk's bands only).
+    C* const fresh = ring_s + newest * gw * (T1 * T2) + tid;
+    if constexpr (G == 4) {
+      // Slot 2 into the walk's slices of Q over the loaded rows, then slot 1.
+      const int h0 = b0 >> 1, h1 = (b0 + nb - 1) >> 1;  // Q slice h: s2 = h
+      const Taps2<KT, C> t2(taps[2]);
+#pragma unroll 1
+      for (int f = tid; f < E1 * T2; f += kThreads) {
+        const int l1 = f >> lg2, c = f & (T2 - 1);
+        C lo, hi;
+        t2.dot2(W + l1 * ws + sh + c, 1, K2, lo, hi);
+        if (h0 == 0) Q[f] = lo;
+        if (h1 == 1) Q[(1 - h0) * qs + f] = hi;
+      }
+      __syncthreads();  // Q is complete
+      const Taps2<KT, C> t1(taps[1]);
+#pragma unroll
+      for (int h = 0; h < G / 2; ++h) {
+        if (KT == 0 && (h < h0 || h > h1)) continue;
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          C lo, hi;
+          t1.dot2(Q + (h - h0) * qs + c1[i] * T2 + c2[i], T2, K1, lo, hi);
+          if constexpr (KT > 0) {
+            ring[KT - 1][2 * h][i] = lo;
+            ring[KT - 1][2 * h + 1][i] = hi;
+          } else {
+            if (2 * h >= b0) fresh[(2 * h - b0) * (T1 * T2)] = lo;
+            if (2 * h + 1 < b0 + gw) fresh[(2 * h + 1 - b0) * (T1 * T2)] = hi;
+          }
+        }
+      }
+    } else {
+      // One in-plane pass from the window: slot 2 in 2D (one row), slot 1 in
+      // the lead stage (slot 2 passes through).
+      const bool twod = K1 == 1;
+      const Taps2<KT, C> tp(taps[twod ? 2 : 1]);
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        C lo, hi;
+        if (twod)
+          tp.dot2(W + sh + c2[i], 1, K2, lo, hi);
+        else
+          tp.dot2(W + c1[i] * ws + sh + c2[i], ws, K1, lo, hi);
+        if constexpr (KT > 0) {
+          ring[KT - 1][0][i] = lo;
+          ring[KT - 1][1][i] = hi;
+        } else {
+          if (b0 == 0) fresh[0] = lo;
+          if (b0 + gw == 2) fresh[(1 - b0) * (T1 * T2)] = hi;
+        }
+      }
+    }
+    if (r < K0 - 1) continue;
+
+    // Output plane p0 + r - (K0 - 1): lo/hi along slot 0 over the ring, for
+    // each band b of the walk.
+    const long long q = (long long)(p0 + r - (K0 - 1)) * nplane;
+    const Taps2<KT, C> t0(taps[0]);
+    auto emit = [&](int b, bool in, long long at_q, C lo, C hi) {
+      if (!in) return;
+      const int dlo = (((b & lgs1) << g.bit[1]) | ((b >> lgs1) << g.bit[2])) + 4 * gi;
+      if (lam > 0) hi = shrink(hi, lam);
+      big[(band_off + dlo) * vox + at_q] = from_f<T>(hi);  // d = dlo + 1
+      if (dlo == 0) {
+        approx_out[at_q] = from_f<T>(lo);
+      } else {
+        if (lam > 0) lo = shrink(lo, lam);
+        big[(band_off + dlo - 1) * vox + at_q] = from_f<T>(lo);
+      }
+    };
+    if constexpr (KT > 0) {
+#pragma unroll
+      for (int b = 0; b < G; ++b)
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          C lo = 0, hi = 0;
+#pragma unroll
+          for (int j = 0; j < KT; ++j) {
+            lo = mad(t0.lo[j], ring[j][b][i], lo);
+            hi = mad(t0.hi[j], ring[j][b][i], hi);
+          }
+          emit(b, inside >> i & 1, q + po[i], lo, hi);
+        }
+    } else {
+      const int oldest = newest + 1 == K0 ? 0 : newest + 1;
+      for (int b = b0; b < b0 + gw; ++b) {
+        const C* e = ring_s + (b - b0) * (T1 * T2) + tid;
+        C lo = 0, hi = 0;
+        for (int j = 0, slot = oldest; j < K0; ++j, slot = slot + 1 == K0 ? 0 : slot + 1) {
+          const C v = e[slot * gw * (T1 * T2)];
+          lo = mad(t0.plo[j], v, lo);
+          hi = mad(t0.phi[j], v, hi);
+        }
+        emit(b, inside & 1, q + po[0], lo, hi);
+      }
+    }
+  }
+}
+
+template <typename T, int KT, int G, typename C = compute_t<T>>
+__global__ void __launch_bounds__(kThreads, 2)
+    stream_ana_kernel(const T* __restrict__ x, T* __restrict__ big,
+                      T* __restrict__ approx_out, const __grid_constant__ LevelT<C> g,
+                      int groups, int gw, long long band_off, C lam, int stages) {
+  __shared__ C taps[3][2][kMaxTaps];
+  copy_taps(taps, g);
+  stream_ana<T, KT, G>(x, big, approx_out, g, groups, gw, band_off, lam, stages, taps,
+                       reinterpret_cast<unsigned char*>(shared_words<C>()));
+}
+
+template <typename T, int G, typename C = compute_t<T>>
+auto stream_ana_kernel_for(int kt) {
+  switch (kt) {
+    case 2: return stream_ana_kernel<T, 2, G, C>;
+    case 4: return stream_ana_kernel<T, 4, G, C>;
+    case 6: return stream_ana_kernel<T, 6, G, C>;
+    case 8: return stream_ana_kernel<T, 8, G, C>;
+    default: return stream_ana_kernel<T, 0, G, C>;
+  }
+}
+
+// Launch one streamed analysis over the view g (t = (C, T1, T2)) with G
+// in-plane bands, `groups` inputs one view's extent apart and gw bands a
+// walk. Returns the cudaError_t of the launch.
+template <typename T, int G, typename C = compute_t<T>>
+int launch_stream_ana(const T* x, T* big, T* approx_out, const LevelT<C>& g,
+                      int groups, int gw, long long band_off, C lam,
+                      cudaStream_t stream) {
+  const int kt = stream_unrolled(g.k);
+  const int t2 = g.t[2];
+  if (g.t[0] < 1 || g.t[1] < 1 || t2 < 1 || (t2 & (t2 - 1)) ||
+      g.t[1] * t2 != kThreads * ana_items_for<C, G>(kt) || g.k[0] < 2 ||
+      G != (g.k[1] > 1 ? 2 : 1) * (g.k[2] > 1 ? 2 : 1) || groups < 1 ||
+      groups > 4 || gw < 1 || gw > G || G % gw || (kt > 0 && gw != G))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = stream_ana_kernel_for<T, G, C>(kt);
+  const int stages = stream_stages<T>(g, kt == 0, gw);
+  const size_t smem = stream_layout<T>(g, kt == 0, stages, gw).total;
+  if (smem > kStreamSmemBudget) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((g.n[2] + t2 - 1) / t2, (g.n[1] + g.t[1] - 1) / g.t[1],
+                  (g.n[0] + g.t[0] - 1) / g.t[0]);
+  kernel<<<grid, kThreads, smem, stream>>>(x, big, approx_out, g, groups, gw,
+                                           band_off, lam, stages);
   return (int)cudaGetLastError();
 }
 

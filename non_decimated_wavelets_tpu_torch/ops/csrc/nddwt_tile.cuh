@@ -1,7 +1,7 @@
 // One output tile of a 2D or 3D level, analysis or synthesis: the bodies of
-// the per-level kernels (nddwt_level.cu), which run one tile per CTA, and of
 // the one-launch multilevel kernels (nddwt_multi.cu), which loop a
-// persistent grid over the tiles of every batch item and level.
+// persistent grid over the tiles of every batch item and level. (The
+// per-level kernels stream instead: nddwt_stream.cuh.)
 //
 // A CTA loads the tile's halo'd input into shared memory once, wrapping
 // every index periodically (so extents smaller than the halo work), and
@@ -10,25 +10,9 @@
 // intermediate per axis is live (the shape of the TPU kernels' band tree,
 // _tree_expand / _tree_reduce).
 //
-// The halo-padded ("valid") mode: a slot whose LevelT::pad flag is set
-// holds one rank's block of an axis sharded across ranks, and its input
-// arrives with the ring neighbours' rows around it (extent n + k - 1,
-// `left` rows in front). The window is then read at o + l + left without
-// wrapping; the outputs keep extent n. It applies to dec_tile's input and
-// to both of rec_tile's inputs (the band array y and the approximation).
-// The halo widths are the kernels' own: K/2 - 1 in front and K/2 behind
-// for the analysis, K/2 and K/2 - 1 for the synthesis (its mirrored halo).
-// This mode replaces the concat "valid" mode of the TPU level kernels,
-// non_decimated_wavelets_tpu/ops/pallas_kernels.py _fused_dec_level (:776)
-// and _fused_rec_level (:1468) with shape=/padded=, whose sharded bodies
-// are parallel/sharded.py :338-600 (TPU kernel table row 23). Only the
-// per-level kernels set the flag; the multilevel kernels never do.
-//
-// Loads. kCg = false reads the input with plain loads (the per-level
-// kernels, whose inputs are read-only for the launch); kCg = true reads it
-// with ld.global.cg, through L2 only (the multilevel kernels, which read in
-// one level what other CTAs wrote in the level before: the read-only and
-// L1 caches are not coherent with those writes).
+// Loads go through L2 only (ld.global.cg): the multilevel kernels read in
+// one level what other CTAs wrote in the level before, and the read-only
+// and L1 caches are not coherent with those writes.
 //
 // Shared memory, in words of the compute type: the (e0, e1, e2) input tile,
 // the (t0, e1, e2) and (t0, t1, e2) intermediates, and for the synthesis the
@@ -52,41 +36,21 @@ __device__ __forceinline__ long long wrap(int i, int n) {
   return m < 0 ? m + n : m;
 }
 
-template <bool kCg, typename T>
-__device__ __forceinline__ T load(const T* p) {
-  if constexpr (kCg)
-    return __ldcg(p);
-  else
-    return *p;
-}
-
-// Input row of window position p = o + l on slot a: wrapped, or on a
-// halo-padded slot p + left, which lies inside the padded extent.
-template <typename C>
-__device__ __forceinline__ long long in_row(const LevelT<C>& g, int a, int p) {
-  return g.pad[a] ? p + g.left[a] : wrap(p, g.n[a]);
-}
-
-// The tile's (e0, e1, e2) input window starting at (o0, o1, o2), wrapped;
-// kPad: some slot may be halo-padded (its window shifted into the halo).
-// kPad = false compiles the wrap-only load, the only one the multilevel
-// kernels use.
-template <bool kCg, bool kPad, typename T, typename C>
+// The tile's (e0, e1, e2) input window starting at (o0, o1, o2), wrapped.
+template <typename T, typename C>
 __device__ void load_tile(C* __restrict__ s, const T* __restrict__ src,
                           const LevelT<C>& g, int o0, int o1, int o2, int e0,
                           int e1, int e2) {
   const int total = e0 * e1 * e2;
-  const long long m1 = kPad ? in_extent(g, 1) : g.n[1];
-  const long long m2 = kPad ? in_extent(g, 2) : g.n[2];
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int l2 = i % e2;
     const int r = i / e2;
     const int l1 = r % e1;
     const int l0 = r / e1;
-    const long long g0 = kPad ? in_row(g, 0, o0 + l0) : wrap(o0 + l0, g.n[0]);
-    const long long g1 = kPad ? in_row(g, 1, o1 + l1) : wrap(o1 + l1, g.n[1]);
-    const long long g2 = kPad ? in_row(g, 2, o2 + l2) : wrap(o2 + l2, g.n[2]);
-    s[i] = to_f(load<kCg>(src + (g0 * m1 + g1) * m2 + g2));
+    const long long g0 = wrap(o0 + l0, g.n[0]);
+    const long long g1 = wrap(o1 + l1, g.n[1]);
+    const long long g2 = wrap(o2 + l2, g.n[2]);
+    s[i] = to_f(__ldcg(src + (g0 * g.n[1] + g1) * g.n[2] + g2));
   }
 }
 
@@ -119,8 +83,8 @@ __device__ void pass(C* __restrict__ out, const C* __restrict__ in,
 // Analysis of tile `tile`: writes detail band b (b >= 1) to
 // big[band_off + b - 1] and band 0 to approx_out (the next approximation,
 // or big[0] at the final level). lam > 0 soft-thresholds the details in
-// registers. kPad: the input may be halo-padded (g.pad).
-template <bool kCg, bool kPad = false, typename T, typename C>
+// registers.
+template <typename T, typename C>
 __device__ void dec_tile(const T* __restrict__ x, T* __restrict__ big,
                          T* __restrict__ approx_out, const LevelT<C>& g,
                          C (*taps)[2][kMaxTaps], C* smem, long long band_off,
@@ -132,7 +96,7 @@ __device__ void dec_tile(const T* __restrict__ x, T* __restrict__ big,
   C* s0 = smem;               // (e0, e1, e2) input tile
   C* p1 = s0 + e0 * e1 * e2;  // (t0, e1, e2) after axis 0
   C* p2 = p1 + t0 * e1 * e2;  // (t0, t1, e2) after axis 1
-  load_tile<kCg, kPad>(s0, x, g, b[0] - g.left[0], b[1] - g.left[1],
+  load_tile(s0, x, g, b[0] - g.left[0], b[1] - g.left[1],
                        b[2] - g.left[2], e0, e1, e2);
   __syncthreads();
 
@@ -173,8 +137,8 @@ __device__ void dec_tile(const T* __restrict__ x, T* __restrict__ big,
 // Synthesis of tile `tile`: out = scale * sum_b adjoint_b(band b), band b
 // read from y[src.idx[b]] or from approx. The taps arrive reversed, so the
 // adjoint is the same forward correlation over a tile with the mirrored
-// halo. kPad: y and approx may be halo-padded (g.pad).
-template <bool kCg, bool kPad = false, typename T, typename C>
+// halo.
+template <typename T, typename C>
 __device__ void rec_tile(const T* __restrict__ y, const T* __restrict__ approx,
                          T* __restrict__ out, const LevelT<C>& g,
                          const Sources& src, C scale, C (*taps)[2][kMaxTaps],
@@ -188,7 +152,6 @@ __device__ void rec_tile(const T* __restrict__ y, const T* __restrict__ approx,
   C* p2 = p1 + t0 * e1 * e2;  // (t0, t1, e2) sum over the axis-1 bit
   C* acc = p2 + t0 * t1 * e2; // (t0, t1, t2) the output tile
   const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
-  const long long ivox = kPad ? in_vox(g) : vox;  // one input band
   const int ns0 = g.k[0] > 1 ? 2 : 1;
   const int ns1 = g.k[1] > 1 ? 2 : 1;
   const int p1n = t0 * e1 * e2, p2n = t0 * t1 * e2, an = t0 * t1 * t2;
@@ -202,9 +165,9 @@ __device__ void rec_tile(const T* __restrict__ y, const T* __restrict__ approx,
         const int band =
             (s0i << g.bit[0]) | (s1i << g.bit[1]) | (s2i << g.bit[2]);
         const long long idx = src.idx[band];
-        const T* bsrc = idx < 0 ? approx : y + idx * ivox;
+        const T* bsrc = idx < 0 ? approx : y + idx * vox;
         __syncthreads();  // the previous band's tile is consumed
-        load_tile<kCg, kPad>(s0, bsrc, g, b[0] - g.left[0], b[1] - g.left[1],
+        load_tile(s0, bsrc, g, b[0] - g.left[0], b[1] - g.left[1],
                              b[2] - g.left[2], e0, e1, e2);
         __syncthreads();
         pass<0, true>(p1, s0, e0, e1, e2, t0, taps[0][s0i], g.k[0]);

@@ -22,11 +22,13 @@ and direction:
 * ``nddwt_lead_adj`` for ``_lead_adj_call``, ``nddwt_lane_adj`` for
   ``_lane_adj_call``.
 
-``nddwt_rec_level`` and ``nddwt_lead_adj`` run one streamed synthesis body
+``nddwt_rec_level`` and ``nddwt_lead_adj`` run one streamed synthesis body,
+``nddwt_dec_level`` and ``nddwt_lead_dec`` one streamed analysis body
 (``csrc/nddwt_stream.cuh``): a CTA walks a chunk of the slowest halo axis
-plane by plane with a ring of partial output planes; ``_stream_plan``
-lays out its chunk and plane tile, and ``ops/stream_ref.py`` replays that
-schedule on the CPU for the tests.
+plane by plane, copying each plane's window once, with a ring of partial
+output planes (synthesis) or of the last K planes' in-plane bands
+(analysis); ``_stream_plan`` lays out its chunk and plane tile, and
+``ops/stream_ref.py`` replays both schedules on the CPU for the tests.
 
 A 3D level whose filters are too long for the per-level kernels' tile
 (about 30 taps and up on every axis, db15 and longer) runs on the stage
@@ -44,8 +46,7 @@ route from the taps (``stage_route``).
 and whole-solve kernels of small arrays of any ndim, bound in
 ``ops/flat.py``; ``csrc/nddwt_multi.cu`` the one-launch multilevel kernels
 of batches of 2D and 3D arrays, bound in ``ops/multi.py``, which run the
-per-level kernels' tiles (``csrc/nddwt_tile.cuh``) for every level in one
-launch: ``dec_levels``/``rec_levels`` take them where
+tile bodies (``csrc/nddwt_tile.cuh``) for every level in one launch: ``dec_levels``/``rec_levels`` take them where
 ``multi.multi_supported`` holds.
 
 Every kernel takes float32 and bfloat16 arrays, computing in float32, and
@@ -102,25 +103,32 @@ NVCC_FLAGS = (
 _MAX_TAPS = 76  # kMaxTaps in the source
 # Dynamic shared memory a CTA may take: two CTAs fit one SM's 227 KB.
 _SMEM_BUDGET = 100 * 1024
-# The stage kernels' tiles take less, so that more CTAs share an SM and hide
-# each other's window loads: the budgets that were fastest in a sweep of
+# The lane stage's tiles take less, so that more CTAs share an SM and hide
+# each other's window loads: the budget that was fastest in a sweep of
 # tiles at (128, 128, 128, 32) db4 on an H100 (PERF.md).
-_STAGE_SMEM_BUDGET = {"lane": 32 * 1024, "lead": 64 * 1024}
+_LANE_SMEM_BUDGET = 32 * 1024
 _THREADS = 256  # kThreads in the sources
-# The streamed synthesis (csrc/nddwt_stream.cuh: nddwt_rec_level and
-# nddwt_lead_adj): the filter lengths whose tap loops and ring are unrolled
-# (stream_unrolled), the plane elements per thread there (kStreamItems; 1
-# otherwise), the most window buffers in flight (kStreamMaxStages), the
+# The streamed bodies (csrc/nddwt_stream.cuh: the synthesis of
+# nddwt_rec_level and nddwt_lead_adj, the analysis of nddwt_dec_level and
+# nddwt_lead_dec): the filter lengths whose tap loops and ring are unrolled
+# (stream_unrolled), the synthesis's plane elements per thread there
+# (kStreamItems; 1 otherwise), the 32-bit registers the analysis's ring may
+# take there (kAnaRingRegs, which sets its plane elements per thread:
+# ana_items), the most window buffers in flight (kStreamMaxStages), the
 # dynamic shared memory a CTA may take (kStreamSmemBudget: 227 KB less the
-# static tap table), the preferred plane width T2 and the CTAs of one wave
-# (two per SM of an H100), which set the chunk along the streamed slot: the
-# fastest in a sweep of (C, T1, T2) at 256^3 db4 and (128, 128, 128, 32) db4
-# on an H100 (PERF.md, PR 9).
+# static tap table), the synthesis's preferred plane width T2 per kind, the
+# analysis's preferred plane height T1 (the same in every dtype and kind)
+# and the CTAs of one wave (two per SM of an H100), which set the chunk along
+# the streamed slot: the fastest in sweeps of (C, T1, T2) at 256^3 db4 and
+# (128, 128, 128, 32) db4 on an H100 (PERF.md).
 _STREAM_UNROLLED = (2, 4, 6, 8)
 _STREAM_ITEMS = 4
+_ANA_RING_REGS = 64
 _STREAM_MAX_STAGES = 4
 _STREAM_SMEM_BUDGET = 200 * 1024
 _STREAM_T2 = {"rec": 128, "lead": 256}
+_ANA_T1 = 8
+_ANALYSIS = ("dec", "lead_dec")
 _STREAM_CTAS = 2 * 132
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
@@ -232,7 +240,7 @@ def load() -> ctypes.CDLL:
     vp = ctypes.c_void_p
     geom = [ctypes.c_int, ip, ip, ip, ip, ip, vp]  # dtype, n, k, t, left, bit, taps
     lib.nddwt_dec_level.argtypes = [vp, vp, vp] + geom + [
-        ctypes.c_longlong, ctypes.c_double, ip, vp]  # ..., pad, stream
+        ctypes.c_longlong, ctypes.c_double, ctypes.c_int, ip, vp]  # ..., gw, pad, stream
     lib.nddwt_dec_level.restype = ctypes.c_int
     lib.nddwt_rec_level.argtypes = [vp, vp, vp] + geom + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, ip, vp]
@@ -260,7 +268,7 @@ def load4() -> ctypes.CDLL:
     geom = [i, ip, ip, ip, ip, vp]  # dtype, n, k, t, left, taps
     lib.nddwt_lane_dec.argtypes = [vp, vp] + geom + [vp]
     lib.nddwt_lead_dec.argtypes = [vp, vp, vp] + geom + [
-        i, ctypes.c_longlong, f, ip, vp]  # ..., pad, stream
+        i, ctypes.c_longlong, f, i, ip, vp]  # ..., gw, pad, stream
     lib.nddwt_lead_adj.argtypes = [vp, vp, vp] + geom + [
         ctypes.POINTER(ctypes.c_longlong), i, ip, vp]
     lib.nddwt_lane_adj.argtypes = [vp, vp] + geom + [f, vp]
@@ -327,11 +335,14 @@ def halo_widths(taps, rec: bool) -> tuple:
 
 
 def _geometry(shape, taps, rec: bool, dtype=torch.float32):
-    """ctypes arguments describing one level on ``dtype`` arrays: extents,
-    tap counts, tile, left halo (``halo_widths``) and band bit per slot (a
-    2D array is (1, n0, n1)), and the taps in the compute type — reversed
-    for the synthesis, whose adjoint reads the mirrored halo (K//2 left
-    instead of K//2 - 1)."""
+    """ctypes arguments describing one level of the tile bodies
+    (``csrc/nddwt_tile.cuh``: the multilevel kernels, ``ops/multi.py``) on
+    ``dtype`` arrays: extents, tap counts, tile, left halo
+    (``halo_widths``) and band bit per slot (a 2D array is (1, n0, n1)),
+    and the taps in the compute type — reversed for the synthesis, whose
+    adjoint reads the mirrored halo (K//2 left instead of K//2 - 1).
+    ``stage_route`` sizes the synthesis's tile to choose a 3D level's
+    route."""
     pad = 3 - len(shape)
     n = [1] * pad + [int(s) for s in shape]
     k = [1] * pad + [int(np.shape(t)[1]) for t in taps]
@@ -428,6 +439,9 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False, padded=None):
     details into ``big[band_off : band_off + 2^d - 1]``, shrunk by ``lam``;
     the approximation into ``big[0]`` when ``final``, else returned.
 
+    On the card it streams slot 0 (``_dec_stream_geometry``: axis 0 of a 2D
+    or 3D array).
+
     ``padded`` (one flag per axis): the halo-padded mode, which replaces
     the concat and slab "valid" modes of ``_fused_dec_level``
     (``non_decimated_wavelets_tpu/ops/pallas_kernels.py:776``, with
@@ -457,13 +471,14 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False, padded=None):
         )
     out = big[0] if final else torch.empty(shape, dtype=approx.dtype,
                                            device=approx.device)
-    n, k, t, left, bit, arr = _geometry(shape, taps, False, approx.dtype)
+    n, k, t, left, bit, vpad, arr = _dec_stream_geometry(shape, taps, approx.dtype, pad)
     lib = load()
     with torch.cuda.device(approx.device):
         err = lib.nddwt_dec_level(
             approx.data_ptr(), big.data_ptr(), out.data_ptr(),
-            DTYPE_CODE[approx.dtype], n, k, t, left, bit, _taps_ptr(arr),
-            int(band_off), float(lam), _ints((False,) * (3 - len(shape)) + pad),
+            DTYPE_CODE[approx.dtype], _ints(n), _ints(k), _ints(t), _ints(left),
+            _ints(bit), _taps_ptr(arr), int(band_off), float(lam),
+            _walk_bands(k, t, approx.dtype), _ints(vpad),
             torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, err, "nddwt_dec_level")
@@ -504,18 +519,38 @@ def _stream_items(k) -> int:
     return _STREAM_ITEMS if unrolled else 1
 
 
-def _stream_smem(k, t, dtype, stages=None) -> int:
-    """Dynamic shared memory of a streamed synthesis (``stream_layout`` in
-    the source), bytes: the window rows' input offsets (8 bytes a row);
+def _ana_bands(k) -> int:
+    """In-plane bands of a streamed analysis with taps ``k`` per slot (the
+    template parameter G of ``stream_ana``): 2 per halo among slots 1 and
+    2, so 4 in 3D and 2 in 2D and the lead stage."""
+    return (2 if k[1] > 1 else 1) * (2 if k[2] > 1 else 1)
+
+
+def _ana_items(k, dtype=torch.float32) -> int:
+    """Plane elements per thread of a streamed analysis (``ana_items`` in
+    the source): where the taps are unrolled, the most of 4, 2, 1 whose
+    register ring of ``k[0] x G x items`` compute words fits
+    ``_ANA_RING_REGS`` 32-bit registers; else 1."""
+    if _stream_items(k) == 1:
+        return 1
+    regs = k[0] * _ana_bands(k) * _word(dtype) // 4
+    return next(i for i in (4, 2, 1) if i * regs <= _ANA_RING_REGS or i == 1)
+
+
+def _stream_smem(k, t, dtype, stages=None, bands=1) -> int:
+    """Dynamic shared memory of a streamed launch (``stream_layout`` in the
+    source), bytes: the window rows' input offsets (8 bytes a row);
     ``stages`` window buffers of ``t[1] + k[1] - 1`` rows in the storage
     type, each row padded to whole 16-byte pieces; the slot-2 intermediate
-    when slots 1 and 2 both have a halo; the ring of ``k[0]`` planes where
-    the taps are not unrolled. ``stages`` None: as many as the launch takes
-    (``stream_stages``: the most, up to ``_STREAM_MAX_STAGES``, that fit
-    the budget, at least 2)."""
+    when slots 1 and 2 both have a halo, ``(bands + 1) // 2`` slices of it;
+    the ring of ``k[0]`` planes of ``bands`` bands where the taps are not
+    unrolled. ``bands``: the in-plane bands one walk of an analysis keeps
+    (``_walk_bands``), 1 for a synthesis. ``stages`` None: as many as the
+    launch takes (``stream_stages``: the most, up to ``_STREAM_MAX_STAGES``,
+    that fit the budget, at least 2)."""
     if stages is None:
         stages = _STREAM_MAX_STAGES
-        while stages > 2 and _stream_smem(k, t, dtype, stages) > _STREAM_SMEM_BUDGET:
+        while stages > 2 and _stream_smem(k, t, dtype, stages, bands) > _STREAM_SMEM_BUDGET:
             stages -= 1
     store, word = torch.empty((), dtype=dtype).element_size(), _word(dtype)
     vec = 16 // store
@@ -526,34 +561,60 @@ def _stream_smem(k, t, dtype, stages=None) -> int:
     rows = t[1] + k[1] - 1
     ws = -(-(t[2] + k[2] - 1 + vec - 1) // vec) * vec
     win = round16(rows * ws * store)
-    q = round16(rows * t[2] * word) if k[1] > 1 and k[2] > 1 else 0
-    ring = k[0] * t[1] * t[2] * word if _stream_items(k) == 1 else 0
+    q = round16((bands + 1) // 2 * rows * t[2] * word) if k[1] > 1 and k[2] > 1 else 0
+    ring = k[0] * bands * t[1] * t[2] * word if _stream_items(k) == 1 else 0
     return round16(rows * 8) + stages * win + q + ring
 
 
+def _walk_bands(k, t, dtype=torch.float32):
+    """The in-plane bands one walk of a streamed analysis keeps (``gw``):
+    all ``G`` where the taps are unrolled (the ring is in registers); else
+    the most of ``G``, ``G/2``, ``G/4`` whose shared-memory ring fits the
+    budget beside two window buffers, the chunk walked ``G / gw`` times;
+    None if not even one band fits."""
+    G = _ana_bands(k)
+    if _stream_items(k) > 1:
+        return G
+    for gw in (G, G // 2, G // 4):
+        if gw >= 1 and _stream_smem(k, t, dtype, 2, gw) <= _STREAM_SMEM_BUDGET:
+            return gw
+    return None
+
+
 def _stream_plan(n, k, dtype=torch.float32, kind="rec") -> tuple:
-    """``(C, T1, T2)`` of a streamed synthesis over the 3-slot view ``n``
-    with taps ``k``: a plane tile of ``T1 x T2 = 256 * items`` outputs on
-    slots 1 and 2 (``T2`` a power of two, ``_STREAM_T2[kind]`` where the
-    plane is that wide, wider where slot 1 is short; one row when slot 1
-    passes through), whose shared memory fits ``_STREAM_SMEM_BUDGET``, and a
-    chunk of ``C`` outputs along slot 0 that keeps the launch within one
-    wave of ``_STREAM_CTAS`` CTAs where the columns leave room (a second,
-    part-filled wave cost more than the larger chunk's fewer halo planes),
-    but at least ``K0`` (a chunk reads ``C + K0 - 1`` planes)."""
-    tt = _THREADS * _stream_items(k)
+    """``(C, T1, T2)`` of a streamed launch over the 3-slot view ``n``
+    with taps ``k``: the synthesis (``kind`` "rec", "lead") or the analysis
+    ("dec", "lead_dec"). A plane tile of ``T1 x T2 = 256 * items`` outputs
+    on slots 1 and 2 (``items`` the synthesis's ``_stream_items`` or the
+    analysis's ``_ana_items``; ``T2`` a power of two, ``_STREAM_T2[kind]``
+    for the synthesis and ``256 * items / _ANA_T1`` for the analysis where
+    the plane is that wide, wider where slot 1 is short; one row when slot 1
+    passes through), whose shared memory fits ``_STREAM_SMEM_BUDGET``
+    (the analysis's with one band a walk at least, ``_walk_bands``; its
+    other widths are tried from ``T2`` down, which shrinks the window's
+    halo rows), and a chunk of ``C`` outputs along slot 0 that keeps the
+    launch within one wave of ``_STREAM_CTAS`` CTAs where the columns leave
+    room (a second, part-filled wave cost more than the larger chunk's
+    fewer halo planes), but at least ``K0`` (a chunk reads ``C + K0 - 1``
+    planes)."""
+    ana = kind in _ANALYSIS
+    tt = _THREADS * (_ana_items(k, dtype) if ana else _stream_items(k))
     if n[1] == 1:
         cands = [tt]
     else:
-        t2 = min(_STREAM_T2[kind], _pow2_at_least(n[2]), tt)
+        t2 = min(tt // _ANA_T1 if ana else _STREAM_T2[kind], _pow2_at_least(n[2]), tt)
         t2 = min(max(t2, tt // _pow2_at_least(n[1])), tt)
-        cands = [t2] + [1 << i for i in range(tt.bit_length()) if 1 << i != t2]
-    fits = [t2 for t2 in cands if _stream_smem(k, (1, tt // t2, t2), dtype)
-            <= _STREAM_SMEM_BUDGET]
+        others = [1 << i for i in range(tt.bit_length()) if 1 << i != t2]
+        if ana:
+            others = sorted(others, key=lambda c: (c > t2, -c if c < t2 else c))
+        cands = [t2] + others
+    fits = [t2 for t2 in cands
+            if (_walk_bands(k, (1, tt // t2, t2), dtype) is not None if ana
+                else _stream_smem(k, (1, tt // t2, t2), dtype) <= _STREAM_SMEM_BUDGET)]
     if not fits:
         raise NotImplementedError(
-            f"filters of lengths {list(k)} do not fit the streamed synthesis's "
-            "shared memory")
+            f"filters of lengths {list(k)} do not fit the streamed "
+            f"{'analysis' if ana else 'synthesis'}'s shared memory")
     t2 = fits[0]
     t1 = tt // t2
     cols = -(-n[1] // t1) * -(-n[2] // t2)
@@ -561,33 +622,47 @@ def _stream_plan(n, k, dtype=torch.float32, kind="rec") -> tuple:
     return (max(-(-n[0] // chunks), min(n[0], k[0])), t1, t2)
 
 
-def _rec_stream_view(shape, taps, pad):
-    """The 3-slot view ``nddwt_rec_level`` streams over, slot 0 streamed:
-    ``(n0, n1, n2)`` for a 3D level, ``(n0, 1, n1)`` for a 2D one (the
-    middle slot passes through); per slot the extent, the taps (None:
-    pass-through), the band bit and the halo-padded flag."""
+def _stream_view(shape, taps, pad):
+    """The 3-slot view ``nddwt_rec_level`` and ``nddwt_dec_level`` stream
+    over, slot 0 streamed: ``(n0, n1, n2)`` for a 3D level, ``(n0, 1,
+    n1)`` for a 2D one (the middle slot passes through); per slot the
+    extent, the taps (None: pass-through), the band bit and the halo-padded
+    flag."""
     if len(shape) == 3:
         return list(shape), list(taps), [0, 1, 2], list(pad)
     return [shape[0], 1, shape[1]], [taps[0], None, taps[1]], [0, 0, 1], \
         [pad[0], False, pad[1]]
 
 
-def _rec_stream_geometry(shape, taps, dtype=torch.float32, pad=None):
+def _level_stream_geometry(shape, taps, dtype, pad, rec: bool):
     """The view geometry ``(n, k, t, left, bit, pad, tap_array)`` of one
-    ``nddwt_rec_level`` launch whose output has ``shape`` (``pad``: its
-    halo-padded axes): ``_rec_stream_view``, the synthesis halos
-    (``halo_widths``), the plan ``(C, T1, T2)`` and the reversed taps in
-    the compute type."""
+    streamed level launch whose output has ``shape`` (``pad``: its
+    halo-padded axes): ``_stream_view``, the halos (``halo_widths``), the
+    plan ``(C, T1, T2)`` and the taps in the compute type, reversed for the
+    synthesis."""
     pad = _padded_flags(pad, len(shape))
-    n, slot_taps, bit, vpad = _rec_stream_view(shape, taps, pad)
+    n, slot_taps, bit, vpad = _stream_view(shape, taps, pad)
     k = [1 if t is None else int(np.shape(t)[1]) for t in slot_taps]
     if max(k) > _MAX_TAPS:
         raise NotImplementedError(f"filters longer than {_MAX_TAPS} taps")
     if any(K > m and not p for K, m, p in zip(k, n, vpad)):
         raise ValueError(f"filters of lengths {k} are longer than the axes {n}")
-    left = [0 if t is None else halo_widths([t], True)[0][0] for t in slot_taps]
-    return (n, k, _stream_plan(n, k, dtype), left, bit, vpad,
-            _tap_array(slot_taps, True, _compute_dtype(dtype)))
+    left = [0 if t is None else halo_widths([t], rec)[0][0] for t in slot_taps]
+    return (n, k, _stream_plan(n, k, dtype, "rec" if rec else "dec"), left, bit, vpad,
+            _tap_array(slot_taps, rec, _compute_dtype(dtype)))
+
+
+def _rec_stream_geometry(shape, taps, dtype=torch.float32, pad=None):
+    """The view geometry of one ``nddwt_rec_level`` launch
+    (``_level_stream_geometry``): the synthesis halos, reversed taps."""
+    return _level_stream_geometry(shape, taps, dtype, pad, rec=True)
+
+
+def _dec_stream_geometry(shape, taps, dtype=torch.float32, pad=None):
+    """The view geometry of one ``nddwt_dec_level`` launch
+    (``_level_stream_geometry``): the analysis halos, the taps as given;
+    its walk takes ``_walk_bands(k, t, dtype)`` bands."""
+    return _level_stream_geometry(shape, taps, dtype, pad, rec=False)
 
 
 def rec_stream_args(y, approx, band_src, taps, padded=None):
@@ -663,32 +738,27 @@ def _stage_slots(shape, taps, lane: bool):
     return [shape[0], shape[1], int(np.prod(shape[2:]))], [taps[0], taps[1], None]
 
 
-def _stage_words(t, k, halo, adj: bool) -> int:
-    """Shared-memory words of a stage launch: the halo'd window, the
-    intermediate after the first halo pass, and an adjoint's output tile."""
+def _stage_words(t, k, adj: bool) -> int:
+    """Shared-memory words of a lane stage launch: the halo'd window, the
+    intermediate after the slot-1 pass, and an adjoint's output tile."""
     e = [t[a] + k[a] - 1 for a in range(3)]
-    d = list(e)
-    d[halo[0]] = t[halo[0]]
-    w = e[0] * e[1] * e[2] + d[0] * d[1] * d[2]
+    w = e[0] * e[1] * e[2] + e[0] * t[1] * e[2]
     return w + (t[0] * t[1] * t[2] if adj else 0)
 
 
 @functools.lru_cache(maxsize=None)
-def _stage_tiles(n: tuple, k: tuple, lane: bool, adj: bool, word: int = 4) -> tuple:
-    """The stage's output tile: over power-of-two tiles (capped by the
-    extents) of at most 8192 outputs whose shared memory (``word`` bytes a
-    word) fits the budget,
-    the fewest 32-byte sectors of window loaded per output (rows run along
-    the last slot of extent > 1); at equal cost the smaller tile of at least
-    one output per thread. (1, 1, 1) always fits up to kMaxTaps, so there is
-    always a tile."""
-    halo = (1, 2) if lane else (0, 1)
+def _stage_tiles(n: tuple, k: tuple, adj: bool, word: int = 4) -> tuple:
+    """The lane stage's output tile: over power-of-two tiles (capped by
+    the extents) of at most 8192 outputs whose shared memory (``word`` bytes
+    a word) fits the budget, the fewest 32-byte sectors of window loaded per
+    output (rows run along the last slot of extent > 1); at equal cost the
+    smaller tile of at least one output per thread. (1, 1, 1) always fits up
+    to kMaxTaps, so there is always a tile."""
     sizes = [sorted({min(2**i, m) for i in range(14)}) for m in n]
     best = None
     for t in itertools.product(*sizes):
         out = t[0] * t[1] * t[2]
-        words = _stage_words(t, k, halo, adj)
-        if out > 8192 or word * words > _STAGE_SMEM_BUDGET["lane" if lane else "lead"]:
+        if out > 8192 or word * _stage_words(t, k, adj) > _LANE_SMEM_BUDGET:
             continue
         e = [t[a] + k[a] - 1 for a in range(3)]
         rows, run = (e[0], e[1]) if n[2] == 1 else (e[0] * e[1], e[2])
@@ -703,8 +773,9 @@ def _stage_geometry(shape, taps, lane: bool, adj: bool, dtype=torch.float32,
     """ctypes arguments of one stage launch on ``dtype`` arrays: view
     extents, taps, tile and left halo per slot (``halo_widths``), and the
     taps in the compute type (reversed for an adjoint, whose halo is
-    mirrored: K//2 left instead of K//2 - 1). The lead adjoint's "tile" is
-    its streamed plan ``(C, T1, T2)`` (``_stream_plan``). ``padded``: the
+    mirrored: K//2 left instead of K//2 - 1). The lead stages' "tile" is
+    their streamed plan ``(C, T1, T2)`` (``_stream_plan``; the analysis
+    takes ``_walk_bands`` bands a walk). ``padded``: the
     lead stage's halo-padded slots 0 and 1, which may be shorter than their
     filters."""
     n, slot_taps = _stage_slots(shape, taps, lane)
@@ -715,10 +786,10 @@ def _stage_geometry(shape, taps, lane: bool, adj: bool, dtype=torch.float32,
     if any(K > m and not p for K, m, p in zip(k, n, pad)):
         raise ValueError(f"filters of lengths {k} are longer than the axes {n}")
     left = [0 if t is None else halo_widths([t], adj)[0][0] for t in slot_taps]
-    if adj and not lane:  # the lead adjoint streams X (csrc/nddwt_stream.cuh)
-        t = _stream_plan(n, k, dtype, "lead")
+    if not lane:  # the lead stages stream X (csrc/nddwt_stream.cuh)
+        t = _stream_plan(n, k, dtype, "lead" if adj else "lead_dec")
     else:
-        t = _stage_tiles(tuple(n), tuple(k), lane, adj, _word(dtype))
+        t = _stage_tiles(tuple(n), tuple(k), adj, _word(dtype))
     return (_ints(n), _ints(k), _ints(t), _ints(left),
             _tap_array(slot_taps, adj, _compute_dtype(dtype)))
 
@@ -803,7 +874,8 @@ def lead_dec(temp, big, band_off, taps, lam=0.0, final=False, padded=None):
         err = lib.nddwt_lead_dec(
             temp.data_ptr(), big.data_ptr(), out.data_ptr(),
             DTYPE_CODE[temp.dtype], n, k, t, left, _taps_ptr(arr),
-            int(temp.shape[0]), int(band_off), float(lam), _ints(pad + (False,)),
+            int(temp.shape[0]), int(band_off), float(lam),
+            _walk_bands(list(k), list(t), temp.dtype), _ints(pad + (False,)),
             torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, err, "nddwt_lead_dec")

@@ -10,8 +10,8 @@ multilevel cascade over a batch of 2D or 3D arrays:
   (``rec_multi``).
 
 Each runs every level of a whole batch in one cooperative launch, its CTAs
-claiming the per-level kernels' tiles from a per-level counter, with a grid
-barrier between levels. They take float32, bfloat16 (float32 compute) and float64 arrays.
+claiming the tiles (``csrc/nddwt_tile.cuh``) from a per-level counter, with
+a grid barrier between levels. They take float32, bfloat16 (float32 compute) and float64 arrays.
 ``multi_supported`` is the counterpart of ``multi_feasible``: where it holds,
 the level loops (``cuda_kernels.dec_levels``/``rec_levels``), the plan's
 complex and split pairs and ``NDDWT.dec_batched``/``rec_batched`` take one

@@ -1,22 +1,30 @@
-"""A plain-torch replay of the streamed synthesis kernel's schedule.
+"""Plain-torch replays of the streamed kernels' schedules.
 
-``csrc/nddwt_stream.cuh`` is the body of ``nddwt_rec_level`` and
-``nddwt_lead_adj``: over a 3-slot view, each CTA owns a plane tile
-``(T1, T2)`` on slots 1 and 2 and a chunk of ``C`` outputs on slot 0, and
-walks the chunk's ``C + K0 - 1`` input planes. Per plane it runs the
-in-plane adjoint of each band window (slot 2, then slot 1) and scatters the
-result into a ring of ``K0`` partial output planes; the ring's front is
-written once it is complete.
+``csrc/nddwt_stream.cuh`` holds two bodies over a 3-slot view, in which
+each CTA owns a plane tile ``(T1, T2)`` on slots 1 and 2 and a chunk of
+``C`` outputs on slot 0, and walks the chunk's ``C + K0 - 1`` input planes:
 
-``stream_replay`` does the same walk with torch ops, CTA by CTA: the grid
-and chunks the plan function lays out, the windows each CTA loads (the
-wrapped or halo-padded input rows and columns, computed as the kernel
-computes them, with its range assumptions asserted), the two passes, the
-ring and its emits. The tests hold it against the plain versions
-(``level_ref.rec_level_ref``, ``level4_ref.lead_adj_ref``) for the geometry
-that ``cuda_kernels.rec_stream_args`` and ``cuda_kernels._stage_geometry``
-build, so a plan that drops, repeats or misplaces a plane, a row or a band
-fails here. Nothing on the CUDA path calls it.
+* the synthesis (``nddwt_rec_level``, ``nddwt_lead_adj``): per plane the
+  in-plane adjoint of each band window (slot 2, then slot 1), scattered
+  into a ring of ``K0`` partial output planes whose front is written once
+  it is complete;
+* the analysis (``nddwt_dec_level``, ``nddwt_lead_dec``): per plane the
+  in-plane lo/hi passes of the input's window (slot 2, then slot 1) into
+  ``G`` in-plane bands, a ring of the last ``K0`` planes of them, and each
+  output plane's lo/hi along slot 0 gathered from the ring; ``gw`` bands a
+  walk, the chunk walked ``G / gw`` times.
+
+``stream_replay`` and ``stream_ana_replay`` do the same walks with torch
+ops, CTA by CTA: the grid and chunks the plan function lays out, the
+windows each CTA loads (the wrapped or halo-padded input rows and columns,
+computed as the kernel computes them, with its range assumptions asserted),
+the passes, the ring and its emits. The tests hold them against the plain
+versions (``level_ref.rec_level_ref``, ``level4_ref.lead_adj_ref``,
+``level_ref.dec_level_ref``, ``level4_ref.lead_dec_ref``) for the geometry
+that ``cuda_kernels`` builds (``rec_stream_args``, ``_dec_stream_geometry``,
+``_stage_geometry``, ``_walk_bands``), so a plan that drops, repeats or
+misplaces a plane, a row or a band fails here. Nothing on the CUDA path
+calls them.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.denoise import soft_threshold
 from .level_ref import _compute_dtype
 
 THREADS = 256  # kThreads in the sources
@@ -99,3 +108,76 @@ def stream_replay(y, approx, idx, n, k, t, left, bit, pad, arr, groups, scale,
                         ring = torch.cat([ring[1:], torch.zeros_like(ring[:1])])
     assert bool((written == 1).all()), "an output written other than once"
     return out.to(y.dtype)
+
+
+def stream_ana_replay(x, big, approx_out, band_off, n, k, t, gw, left, bit, pad,
+                      arr, groups, lam, items):
+    """Write the launch's bands as the kernel does: band ``d`` into
+    ``big[band_off + d - 1]`` (shrunk by ``lam > 0``), ``d == 0`` into
+    ``approx_out``. ``x`` holds the ``groups`` inputs on the view,
+    ``(groups, m0, m1, m2)`` (``m`` = ``n`` plus ``k - 1`` on a padded
+    slot); ``big`` and ``approx_out`` are views of the outputs,
+    ``(B, *n)`` and ``n``; ``n, k, t, left, bit, pad`` the view geometry
+    with ``t = (C, T1, T2)``, ``gw`` the in-plane bands a walk keeps,
+    ``arr`` the (3, 2, kMaxTaps) tap array, ``items`` the plane elements
+    per thread of the instantiation."""
+    cdt = _compute_dtype(x.dtype)
+    C, T1, T2 = t
+    G = (2 if k[1] > 1 else 1) * (2 if k[2] > 1 else 1)
+    assert C >= 1 and T2 & (T2 - 1) == 0 and T1 * T2 == THREADS * items
+    assert k[0] >= 2 and 1 <= groups <= 4 and G % gw == 0
+    ins = [n[a] + (k[a] - 1 if pad[a] else 0) for a in range(3)]
+    assert tuple(x.shape) == (groups, *ins)
+    taps = torch.as_tensor(np.asarray(arr), dtype=cdt)
+    lgs1 = 1 if k[1] > 1 else 0
+    K0 = k[0]
+    written = torch.zeros((2 * G * groups,) + tuple(n), dtype=torch.int32)
+    for bz in range(-(-n[0] // C)):
+        for by in range(-(-n[1] // T1)):
+            for bx in range(-(-n[2] // T2)):
+                p0, o1, o2 = bz * C, by * T1, bx * T2
+                cc = min(C, n[0] - p0)
+                w1, w2 = min(T1, n[1] - o1), min(T2, n[2] - o2)
+                rows = _window_index(o1 - left[1] + torch.arange(w1 + k[1] - 1),
+                                     n[1], left[1], pad[1])
+                cols = _window_index(o2 - left[2] + torch.arange(w2 + k[2] - 1),
+                                     n[2], left[2], pad[2])
+                for gi in range(groups):
+                    for wk in range(G // gw):
+                        bands = range(wk * gw, (wk + 1) * gw)
+                        ring = []  # the last K0 planes' in-plane bands
+                        for r in range(cc + K0 - 1):
+                            g0 = _window_index(torch.tensor([p0 - left[0] + r]), n[0],
+                                               left[0], pad[0])
+                            w = x[gi, g0[0]][rows][:, cols].to(cdt)
+                            if k[1] > 1 and k[2] > 1:  # slot 2 into Q, then slot 1
+                                q = {h: _corr(w, taps[2, h, :k[2]], 1)
+                                     for h in {b >> 1 for b in bands}}
+                                vals = {b: _corr(q[b >> 1], taps[1, b & 1, :k[1]], 0)
+                                        for b in bands}
+                            elif k[1] == 1:  # 2D: one row, slot 2
+                                vals = {b: _corr(w, taps[2, b, :k[2]], 1) for b in bands}
+                            else:  # the lead stage: slot 1, slot 2 passes through
+                                vals = {b: _corr(w, taps[1, b, :k[1]], 0) for b in bands}
+                            ring = (ring + [vals])[-K0:]
+                            if r < K0 - 1:
+                                continue
+                            q0 = p0 + r - (K0 - 1)
+                            at = (q0, slice(o1, o1 + w1), slice(o2, o2 + w2))
+                            for b in bands:
+                                # both s0 of band b, gathered over the ring
+                                lohi = torch.tensordot(
+                                    taps[0, :, :K0], torch.stack([v[b] for v in ring]),
+                                    dims=([1], [0]))
+                                s1, s2 = b & lgs1, b >> lgs1
+                                for s0 in range(2):
+                                    d = (s0 << bit[0] | s1 << bit[1] | s2 << bit[2]) + 4 * gi
+                                    v = lohi[s0]
+                                    if d == 0:
+                                        approx_out[at] = v.to(approx_out.dtype)
+                                    else:
+                                        if lam > 0:
+                                            v = soft_threshold(v, lam)
+                                        big[(band_off + d - 1,) + at] = v.to(big.dtype)
+                                    written[(d,) + at] += 1
+    assert bool((written == 1).all()), "an output written other than once"

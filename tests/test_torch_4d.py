@@ -414,8 +414,9 @@ def test_stage_geometry(shape, wv, lane, adj):
     """The launch geometry the stage wrappers hand the kernels: the 3-slot
     view, one tap of 1.0 on the pass-through slot, the analysis/adjoint
     halos and tap orientation, and a tile inside the extents and the
-    shared-memory budget (for the lead adjoint its streamed plan, inside
-    the stream budget)."""
+    shared-memory budget (for the lead stages their streamed plan, inside
+    the stream budget: the analysis's with the in-plane bands a walk
+    keeps)."""
     taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
     n, k, t, left, arr = ck._stage_geometry(shape, taps, lane, adj)
     lane_axes = list(range(2, len(shape)))
@@ -435,15 +436,17 @@ def test_stage_geometry(shape, wv, lane, adj):
             assert k[a] == K and left[a] == (K // 2 if adj else K // 2 - 1)
             want = tp[:, ::-1] if adj else tp
             np.testing.assert_array_equal(arr[a, :, :K], want.astype(np.float32))
-    if adj and not lane:  # the lead adjoint streams X: (C, T1, T2)
-        assert t[1] * t[2] == 256 * ck._stream_items(list(k)) and t[2] & (t[2] - 1) == 0
+    if not lane:  # the lead stages stream X: (C, T1, T2)
+        items = ck._stream_items(list(k)) if adj else ck._ana_items(list(k))
+        assert t[1] * t[2] == 256 * items and t[2] & (t[2] - 1) == 0
         assert 1 <= t[0] <= n[0] and 1 <= t[1]
-        assert ck._stream_smem(list(k), list(t), torch.float32) <= ck._STREAM_SMEM_BUDGET
+        bands = 1 if adj else ck._walk_bands(list(k), list(t))
+        assert 2 % bands == 0
+        assert (ck._stream_smem(list(k), list(t), torch.float32, bands=bands)
+                <= ck._STREAM_SMEM_BUDGET)
         return
     assert all(1 <= t[a] <= n[a] for a in range(3))
-    halo = (1, 2) if lane else (0, 1)
-    budget = ck._STAGE_SMEM_BUDGET["lane" if lane else "lead"]
-    assert 4 * ck._stage_words(list(t), list(k), halo, adj) <= budget
+    assert 4 * ck._stage_words(list(t), list(k), adj) <= ck._LANE_SMEM_BUDGET
 
 
 def test_launch_arguments():

@@ -205,7 +205,9 @@ def test_levels_serve_the_ragged_shapes(jx, calls, monkeypatch, shape, wv, level
 def test_f64_tiles_and_stage_route():
     """A float64 launch sizes shared memory at 8 bytes a word: smaller
     tiles, within the budget, and shorter 3D filters take the stage
-    kernels."""
+    kernels; the streamed analysis keeps a ring of 8-byte words, so it
+    takes one plane element a thread at db4 (two in float32) and all four
+    in-plane bands a walk, within the stream budget."""
     shape = (256, 256, 256)
     taps = tw.NDDWT("db4", shape, device="cpu").taps_hp
     for rec in (False, True):
@@ -215,6 +217,12 @@ def test_f64_tiles_and_stage_route():
         e = [t[a] + k[a] - 1 for a in range(3)]
         words = e[0] * e[1] * e[2] + t[0] * e[1] * e[2] + t[0] * t[1] * e[2]
         assert 8 * (words + (t[0] * t[1] * t[2] if rec else 0)) <= ck._SMEM_BUDGET
+    n, k, t, left, bit, pad, arr = ck._dec_stream_geometry(shape, taps, torch.float64)
+    t32 = ck._dec_stream_geometry(shape, taps)[2]
+    assert arr.dtype == np.float64 and left == [3, 3, 3]
+    assert t[1] * t[2] == 256 and t32[1] * t32[2] == 512
+    assert ck._walk_bands(k, t, torch.float64) == 4
+    assert ck._stream_smem(k, t, torch.float64, bands=4) <= ck._STREAM_SMEM_BUDGET
     long = tw.NDDWT("db12", (64, 64, 64), device="cpu").taps_hp
     assert not ck.stage_route((64, 64, 64), long, torch.float32)
     assert ck.stage_route((64, 64, 64), long, torch.float64)
@@ -227,9 +235,7 @@ def test_f64_tiles_and_stage_route():
             assert (ck._stream_smem(list(k), list(t), torch.float64)
                     > ck._stream_smem(list(k), list(t), torch.float32))
             continue
-        halo = (1, 2) if lane else (0, 1)
-        budget = ck._STAGE_SMEM_BUDGET["lane" if lane else "lead"]
-        assert 8 * ck._stage_words(list(t), list(k), halo, adj) <= budget
+        assert 8 * ck._stage_words(list(t), list(k), adj) <= ck._LANE_SMEM_BUDGET
 
 
 def test_f64_elementwise_plain_versions(rng):

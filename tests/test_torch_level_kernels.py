@@ -139,10 +139,13 @@ def test_level_refs_contract():
 def test_kernel_geometry(shape, wv, rec):
     """The launch geometry the wrappers hand the kernels: the 2D slot
     padding, the analysis/adjoint halos and tap orientation, and a tile
-    plan inside the shared-memory budget (the analysis and the multilevel
-    kernels); for the synthesis also the streamed plan that
-    ``nddwt_rec_level`` takes: slot 0 streamed ((n0, 1, n1) in 2D), its
-    shared memory inside the stream budget."""
+    plan inside the shared-memory budget (the multilevel kernels' tile
+    bodies; ``stage_route`` sizes the synthesis's); and the streamed plan
+    that ``nddwt_rec_level`` and ``nddwt_dec_level`` take: slot 0 streamed
+    ((n0, 1, n1) in 2D), the synthesis's taps reversed with a halo of
+    ``K // 2``, the analysis's as given with ``K // 2 - 1``, a plane tile of
+    ``256 * items`` and shared memory inside the stream budget (for the
+    analysis with the in-plane bands a walk keeps)."""
     plan = tw.NDDWT(wv, shape, device="cpu")
     n, k, t, left, bit, arr = cuda_kernels._geometry(shape, plan.taps_hp, rec)
     pad = 3 - len(shape)
@@ -159,20 +162,27 @@ def test_kernel_geometry(shape, wv, rec):
     words += t[0] * t[1] * t[2] if rec else 0
     assert 4 * words <= cuda_kernels._SMEM_BUDGET
     assert all(1 <= t[a] <= n[a] for a in range(3))
-    if rec:
-        n, k, t, left, bit, pad, arr = cuda_kernels._rec_stream_geometry(shape, plan.taps_hp)
-        K = list(plan.filter_lengths)
-        assert n == (list(shape) if len(shape) == 3 else [shape[0], 1, shape[1]])
-        assert k == (K if len(shape) == 3 else [K[0], 1, K[1]])
-        assert left == [0 if x == 1 else x // 2 for x in k] and not any(pad)
-        assert bit == ([0, 1, 2] if len(shape) == 3 else [0, 0, 1])
-        for a, x in enumerate(k):
-            if x > 1:
-                want = plan.taps_hp[a if len(shape) == 3 else a // 2][:, ::-1]
-                np.testing.assert_array_equal(arr[a, :, :x], want.astype(np.float32))
-        assert t[1] * t[2] == 256 * cuda_kernels._stream_items(k) and t[2] & (t[2] - 1) == 0
-        assert 1 <= t[0] <= n[0]
-        assert cuda_kernels._stream_smem(k, t, torch.float32) <= cuda_kernels._STREAM_SMEM_BUDGET
+    geometry = (cuda_kernels._rec_stream_geometry if rec
+                else cuda_kernels._dec_stream_geometry)
+    n, k, t, left, bit, pad, arr = geometry(shape, plan.taps_hp)
+    K = list(plan.filter_lengths)
+    assert n == (list(shape) if len(shape) == 3 else [shape[0], 1, shape[1]])
+    assert k == (K if len(shape) == 3 else [K[0], 1, K[1]])
+    assert left == [0 if x == 1 else (x // 2 if rec else x // 2 - 1) for x in k]
+    assert not any(pad)
+    assert bit == ([0, 1, 2] if len(shape) == 3 else [0, 0, 1])
+    for a, x in enumerate(k):
+        if x > 1:
+            want = plan.taps_hp[a if len(shape) == 3 else a // 2]
+            want = want[:, ::-1] if rec else want
+            np.testing.assert_array_equal(arr[a, :, :x], want.astype(np.float32))
+    items = (cuda_kernels._stream_items(k) if rec
+             else cuda_kernels._ana_items(k, torch.float32))
+    assert t[1] * t[2] == 256 * items and t[2] & (t[2] - 1) == 0
+    assert 1 <= t[0] <= n[0]
+    bands = 1 if rec else cuda_kernels._walk_bands(k, t, torch.float32)
+    assert (cuda_kernels._stream_smem(k, t, torch.float32, bands=bands)
+            <= cuda_kernels._STREAM_SMEM_BUDGET)
 
 
 def test_long_filters_raise_in_3d():

@@ -1,17 +1,23 @@
-"""The streamed synthesis (``csrc/nddwt_stream.cuh``, the body of
-``nddwt_rec_level`` and ``nddwt_lead_adj``) on the CPU.
+"""The streamed bodies (``csrc/nddwt_stream.cuh``: the synthesis of
+``nddwt_rec_level`` and ``nddwt_lead_adj``, the analysis of
+``nddwt_dec_level`` and ``nddwt_lead_dec``) on the CPU.
 
-* Its schedule replayed (``ops/stream_ref.py``) on the geometry the wrappers
-  build (``cuda_kernels.rec_stream_args``, ``cuda_kernels._stage_geometry``)
-  against the plain versions ``level_ref.rec_level_ref`` and
-  ``level4_ref.lead_adj_ref``, which the older tests hold against the JAX
-  package's kernels in interpret mode: filters of 2 to 76 taps, an axis of
-  exactly K, extents that are no multiple of the plane tile or the chunk, a
-  chunk of one plane, the halo-padded mode on the streamed axis and on a
-  fast one, 2D, and the 3D long-filter route of the lead stage. Tolerance
-  relative to max|plain|: float32 1e-5, float64 1e-12, bfloat16 1e-2.
-* The plan: shared memory within the budget for every filter length and
-  dtype, the launch constraints the kernel checks, and chunks and plane
+* Their schedules replayed (``ops/stream_ref.py``) on the geometry the
+  wrappers build (``cuda_kernels.rec_stream_args``,
+  ``cuda_kernels._dec_stream_geometry``, ``cuda_kernels._stage_geometry``,
+  ``cuda_kernels._walk_bands``) against the plain versions
+  ``level_ref.rec_level_ref``, ``level4_ref.lead_adj_ref``,
+  ``level_ref.dec_level_ref`` and ``level4_ref.lead_dec_ref``, which the
+  older tests hold against the JAX package's kernels in interpret mode:
+  filters of 2 to 76 taps, an axis of exactly K, extents that are no
+  multiple of the plane tile or the chunk, a chunk of one plane, the
+  halo-padded mode on the streamed axis and on a fast one, 2D, the 3D
+  long-filter route of the lead stage, and for the analysis also ``lam >
+  0``, ``final``, a band offset past 1 and the split walk (fewer in-plane
+  bands a walk than the plane has). Tolerance relative to max|plain|:
+  float32 1e-5, float64 1e-12, bfloat16 1e-2.
+* The plans: shared memory within the budget for every filter length and
+  dtype, the launch constraints the kernels check, and chunks and plane
   tiles that cover every output once.
 * ``stage_route`` and ``multi.multi_supported`` pinned to their answers on
   a table of shapes, wavelets and dtypes: the new plan moves no route.
@@ -128,29 +134,163 @@ def test_lead_adj_schedule_matches_plain(monkeypatch, shape, wv, dtype, padded, 
     _close(got.reshape(want.shape), want, dtype)
 
 
+# (output shape, wavelet, dtype, halo-padded axes, plan override (C, T1, T2),
+# whether the walk is split: fewer in-plane bands a walk than the plane has)
+DEC_CASES = [
+    ((8, 40, 72), "db4", F32, None, None, False),  # streamed axis of extent K
+    ((8, 40, 72), "db4", BF16, None, None, False),
+    ((8, 12, 16), "db4", F64, None, None, False),
+    ((9, 10, 12), "db1", F32, None, None, False),  # K = 2
+    ((11, 21, 37), "db2", F32, None, (4, 16, 64), False),  # no multiple of tile or chunk
+    ((11, 21, 37), "db2", F64, None, (1, 16, 32), False),  # a chunk of one plane
+    ((10, 12, 14), ("db2", "db3", "db4"), F64, None, None, False),  # mixed: runtime taps
+    ((30, 30, 31), "db10", F32, None, None, False),  # runtime taps, the whole ring
+    ((24, 25, 26), "db11", F64, None, None, True),  # the longest f64 3D filter here
+    ((12, 9, 10), "db2", F32, (True, False, False), None, False),  # padded streamed axis
+    ((10, 12, 9), "db4", BF16, (False, False, True), None, False),  # padded fast axis
+    ((10, 9, 12), "db3", F64, (True, True, False), None, False),
+    ((9, 300), ("db2", "db6"), F32, None, None, False),  # 2D
+    ((32, 40), "db4", BF16, None, None, False),  # 2D, unrolled taps
+    ((9, 40), "db2", F64, (False, True), None, False),  # 2D, padded
+    ((80, 90), "db38", F64, None, None, True),  # 2D, 76 taps
+]
+
+
+def _dec_outputs(rng, nb, shape, dtype):
+    """A band array of 2 levels' worth of bands, filled, and its approx."""
+    big = _randn(rng, (2 * nb - 1,) + shape, dtype)
+    return big, _randn(rng, shape, dtype)
+
+
+@pytest.mark.parametrize("shape,wv,dtype,padded,plan,split", DEC_CASES)
+def test_dec_schedule_matches_plain(monkeypatch, shape, wv, dtype, padded, plan, split):
+    """The replay of ``nddwt_dec_level``'s schedule against
+    ``dec_level_ref``: every band of ``big`` (written at offset ``nb``, the
+    rest untouched) and the approximation, lam 0 and 0.1, ``final`` both
+    ways."""
+    if plan is not None:
+        monkeypatch.setattr(ck, "_stream_plan", lambda *args: plan)
+    rng = np.random.default_rng(len(shape) * 100 + shape[0] + 1)
+    taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
+    x = _randn(rng, _padded_in(shape, taps, padded), dtype)
+    nb = 2 ** len(shape)
+    n, k, t, left, bit, pad, arr = ck._dec_stream_geometry(shape, taps, dtype, padded)
+    gw = ck._walk_bands(k, t, dtype)
+    assert (gw < ck._ana_bands(k)) == split
+    view = tuple(m + (K - 1 if p else 0) for m, K, p in zip(n, k, pad))
+    for lam, final in ((0.0, False), (0.1, True)):
+        big, approx = _dec_outputs(rng, nb, shape, dtype)
+        want_big, want_approx = big.clone(), approx.clone()
+        got_approx = big[0] if final else approx
+        stream_ref.stream_ana_replay(
+            x.reshape((1,) + view), big.view((-1,) + tuple(n)), got_approx.view(n), nb,
+            n, k, t, gw, left, bit, pad, arr, 1, lam, ck._ana_items(k, dtype))
+        ref = level_ref.dec_level_ref(x, want_big, nb, taps, lam, final, padded)
+        _close(big, want_big, dtype)
+        if not final:
+            _close(approx, ref, dtype)
+
+
+LEAD_DEC_CASES = [
+    ((8, 12, 8, 9), "db4", F32, None, None, False),  # X of extent K
+    ((8, 12, 8, 9), "db4", BF16, None, None, False),
+    ((13, 11, 4, 5), "db2", F32, None, (4, 32, 32), False),
+    ((9, 10, 4, 4), "db2", F64, None, (1, 64, 16), False),  # a chunk of one plane
+    ((9, 10, 4, 6), "db2", F32, (True, False), None, False),  # padded X (streamed)
+    ((9, 10, 6, 7), "db3", F64, (False, True), None, False),  # padded Y
+    ((40, 41, 45), "db20", F32, None, None, False),  # the 3D long-filter route
+    ((40, 41, 45), "db20", F64, None, (40, 4, 64), True),  # a plan whose ring must split
+]
+
+
+@pytest.mark.parametrize("shape,wv,dtype,padded,plan,split", LEAD_DEC_CASES)
+def test_lead_dec_schedule_matches_plain(monkeypatch, shape, wv, dtype, padded, plan, split):
+    """The replay of ``nddwt_lead_dec``'s schedule against ``lead_dec_ref``
+    on the (X, Y, Z*T) view, every lane group: the bands at offset ``4 nl``
+    and the approximation, lam 0 and 0.1, ``final`` both ways."""
+    if plan is not None:
+        monkeypatch.setattr(ck, "_stream_plan", lambda *args: plan)
+    rng = np.random.default_rng(shape[0] * 7 + len(shape) + 1)
+    taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
+    pad2 = padded or (False, False)
+    in_shape = _padded_in(shape, taps, pad2 + (False,) * (len(shape) - 2))
+    nl = 2 ** (len(shape) - 2)
+    temp = _randn(rng, (nl,) + in_shape, dtype)
+    n, k, t, left, arr = (list(v) if not isinstance(v, np.ndarray) else v
+                          for v in ck._stage_geometry(shape, taps, False, False, dtype, pad2))
+    gw = ck._walk_bands(k, t, dtype)
+    assert (gw < ck._ana_bands(k)) == split
+    view = (nl, in_shape[0], in_shape[1], int(np.prod(in_shape[2:])))
+    for lam, final in ((0.0, False), (0.1, True)):
+        big, approx = _dec_outputs(rng, 4 * nl, shape, dtype)
+        want_big, want_approx = big.clone(), approx.clone()
+        got_approx = big[0] if final else approx
+        stream_ref.stream_ana_replay(
+            temp.reshape(view), big.view((-1,) + tuple(n)), got_approx.view(n), 4 * nl,
+            n, k, t, gw, left, [0, 1, 0], list(pad2) + [False], arr, nl, lam,
+            ck._ana_items(k, dtype))
+        ref = level4_ref.lead_dec_ref(temp, want_big, 4 * nl, taps, lam, final, pad2)
+        _close(big, want_big, dtype)
+        if not final:
+            _close(approx, ref, dtype)
+
+
 def _views():
-    """(kind, view extents, taps per slot) of the launches the route sends
-    to the streamed synthesis, over every filter length it takes."""
+    """(kind, view extents, taps per slot) of the launches the routes send
+    to the streamed bodies, over every filter length they take; the 3D
+    analysis kinds are cut, in the test, to the lengths the tile bodies
+    took before them (``_tiles``)."""
     for K in range(2, 77, 2):
         yield "2D", [max(K, 9), 1, max(K, 300)], [K, 1, K]
         yield "lead", [max(K, 12), max(K, 20), 200], [K, K, 1]
+        yield "dec 2D", [max(K, 9), 1, max(K, 300)], [K, 1, K]
+        yield "lead_dec", [max(K, 12), max(K, 20), 200], [K, K, 1]
+        yield "dec 3D", [max(K, 40)] * 3, [K, K, K]
+        yield "dec 3D mixed", [max(K, 40)] * 3, [K, 4, 6]
         if K <= 30:  # longer 3D filters take the stage kernels
             yield "3D", [max(K, 40)] * 3, [K, K, K]
             yield "3D mixed", [max(K, 40)] * 3, [K, 4, 6]
 
 
+# The analysis's plane elements a thread where the taps are unrolled, at K =
+# 2, 4, 6, 8: a ring of K x G x items words in 64 registers (G = 4 in 3D, 2
+# in 2D and the lead stage; a float64 word takes two).
+ANA_ITEMS = {(4, 4): (4, 4, 2, 2), (4, 8): (4, 2, 1, 1), (2, 4): (4, 4, 4, 4),
+             (2, 8): (4, 4, 2, 2)}
+
+
 @pytest.mark.parametrize("dtype", [F32, BF16, F64])
 def test_stream_plan_fits_and_covers(dtype):
-    """Every plan: the launch constraints ``launch_stream`` checks, shared
-    memory within the budget, and chunks and plane tiles that cover each
-    output plane and column once; 4 elements a thread exactly where the
-    source unrolls the taps."""
+    """Every plan: the launch constraints ``launch_stream`` and
+    ``launch_stream_ana`` check, shared memory within the budget, and chunks
+    and plane tiles that cover each output plane and column once; for the
+    synthesis 4 elements a thread exactly where the source unrolls the taps,
+    for the analysis the elements of ``ANA_ITEMS`` there and the most
+    in-plane bands a walk that fit (all of them where the taps unroll)."""
+    word = 8 if dtype == F64 else 4
     for kind, n, k in _views():
-        C, T1, T2 = ck._stream_plan(n, k, dtype, "lead" if kind == "lead" else "rec")
-        items = ck._stream_items(k)
-        assert items == (4 if k[0] in (2, 4, 6, 8) and kind != "3D mixed" else 1)
+        ana = kind.startswith("dec") or kind == "lead_dec"
+        if kind.startswith("dec 3D") and ck._tiles(n, k, False, word) is None:
+            continue  # the tile body took no such level
+        plan_kind = {"lead": "lead", "lead_dec": "lead_dec"}.get(kind, "dec" if ana else "rec")
+        C, T1, T2 = ck._stream_plan(n, k, dtype, plan_kind)
+        unrolled = k[0] in (2, 4, 6, 8) and "mixed" not in kind
+        if ana:
+            G = ck._ana_bands(k)
+            assert G == (4 if "3D" in kind else 2)
+            items = ck._ana_items(k, dtype)
+            assert items == (ANA_ITEMS[G, word][k[0] // 2 - 1] if unrolled else 1), (kind, k)
+            gw = ck._walk_bands(k, (C, T1, T2), dtype)
+            assert G % gw == 0 and (gw == G or not unrolled), (kind, k)
+            assert ck._stream_smem(k, (C, T1, T2), dtype, bands=gw) <= ck._STREAM_SMEM_BUDGET
+            if gw < G:  # twice the bands would not fit
+                assert (ck._stream_smem(k, (C, T1, T2), dtype, 2, 2 * gw)
+                        > ck._STREAM_SMEM_BUDGET)
+        else:
+            items = ck._stream_items(k)
+            assert items == (4 if unrolled else 1)
+            assert ck._stream_smem(k, (C, T1, T2), dtype) <= ck._STREAM_SMEM_BUDGET
         assert T2 & (T2 - 1) == 0 and T1 * T2 == 256 * items, (kind, k)
-        assert ck._stream_smem(k, (C, T1, T2), dtype) <= ck._STREAM_SMEM_BUDGET
         assert min(n[0], k[0]) <= C <= n[0]
         for extent, step in ((n[0], C), (n[1], T1), (n[2], T2)):
             starts = range(0, extent, step)
@@ -163,8 +303,10 @@ def test_stream_plan_fits_and_covers(dtype):
 def test_stream_smem_is_the_sources_layout():
     """``_stream_smem`` at a few plans, worked by hand from
     ``stream_layout``: the rows' offsets, rows of whole 16-byte pieces, four
-    window buffers where they fit (fewer where not), the intermediate, the
-    ring where the taps run at runtime."""
+    window buffers where they fit (fewer where not), the intermediate (for
+    the analysis one slice per two in-plane bands a walk keeps), the ring
+    where the taps run at runtime (for the analysis one per band a walk
+    keeps)."""
     # 256^3 db4 f32, (C, 8, 128): 15 offsets (128 B), rows 15 x 140 floats, Q 15 x 128
     assert ck._stream_smem([8, 8, 8], (64, 8, 128), F32) == 128 + 4 * 15 * 140 * 4 + 15 * 128 * 4
     # the same in f64: rows 15 x 136 doubles
@@ -180,6 +322,23 @@ def test_stream_smem_is_the_sources_layout():
     assert ck._stream_smem([76, 76, 1], (76, 16, 16), F64) == (
         736 + 3 * 91 * 18 * 8 + 76 * 256 * 8)
     assert ck._stream_smem([76, 76, 1], (76, 16, 16), F64, 4) > ck._STREAM_SMEM_BUDGET
+    # The analysis. 256^3 db4 f32, (128, 4, 128), 4 bands: 11 offsets (96 B),
+    # rows 11 x 140 floats, Q in two slices of 11 x 128, the ring in registers
+    assert ck._stream_smem([8, 8, 8], (128, 4, 128), F32, bands=4) == (
+        96 + 4 * 11 * 140 * 4 + 2 * 11 * 128 * 4)
+    # f64, (256, 2, 128): 9 offsets (80 B), rows 9 x 136 doubles, Q 2 x 9 x 128
+    assert ck._stream_smem([8, 8, 8], (256, 2, 128), F64, bands=4) == (
+        80 + 4 * 9 * 136 * 8 + 2 * 9 * 128 * 8)
+    # 3D db11 f64, (22, 4, 64): 25 rows of 64 + 21 (-> 86) doubles; two bands
+    # a walk keep one Q slice and a ring of 22 x 2 x 256; all four do not fit
+    assert ck._stream_smem([22, 22, 22], (22, 4, 64), F64, bands=2) == (
+        208 + 4 * 25 * 86 * 8 + 25 * 64 * 8 + 22 * 2 * 256 * 8)
+    assert ck._stream_smem([22, 22, 22], (22, 4, 64), F64, 2, 4) > ck._STREAM_SMEM_BUDGET
+    # 2D db38 f64: one band a walk is the synthesis's layout; two do not fit
+    assert ck._stream_smem([76, 1, 76], (76, 1, 256), F64, bands=1) == 16 + 4 * 332 * 8 + 76 * 256 * 8
+    assert ck._stream_smem([76, 1, 76], (76, 1, 256), F64, 2, 2) > ck._STREAM_SMEM_BUDGET
+    # the lead analysis f32, (128, 16, 64): 23 rows of 64 (+ 3 -> 68) floats, no Q
+    assert ck._stream_smem([8, 8, 1], (128, 16, 64), F32, bands=2) == 192 + 4 * 23 * 68 * 4
 
 
 # (shape, wavelet): (stage_route, multi_supported at L3) in f32, bf16, f64,
