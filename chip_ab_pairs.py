@@ -5,25 +5,35 @@ GPU.
     python3 chip_ab_pairs.py OTHER_CHECKOUT
 
 Times the 256^3 db4 L3 float32 dec+rec pair, the (128, 128, 128, 32) db4
-L3 float32 pair and the 128^3 db20 L2 float32 ``dec_rec`` step (threshold
-0.1: the 3D long-filter route, on the stage kernels) of this checkout's
+L3 pair in float32, float64 and bfloat16 and the 128^3 db20 L2 float32
+``dec_rec`` step (threshold 0.1: the 3D long-filter route, on the stage
+kernels) of this checkout's
 ``non_decimated_wavelets_tpu_torch`` and of OTHER_CHECKOUT's (the root of
 another checkout, e.g. the parent commit unpacked with ``git archive``),
 each in a fresh process that builds that checkout's kernels from its own
 sources, in the order other, this, this, other, so that the card's clock
-drifts against neither. Each process checks its pairs' round trip (1e-4)
-and times each pair with CUDA events: 5 repeats of 10 (3D) or 3 (4D)
-pairs after 3 warm-up pairs. It also times, per call, the four kernels
-the pairs spend most in: one ``nddwt_rec_level`` and one
+drifts against neither. Each process checks its pairs' round trip (1e-4
+of max|x|; float64 1e-10, bfloat16 1e-1) and times each pair with CUDA
+events: 5 repeats of 10 (3D) or 3 (4D) pairs after 3 warm-up pairs. It
+also times, per call, the kernels the pairs spend most in: one
+``nddwt_rec_level`` and one
 ``nddwt_dec_level`` level at 256^3 db4 (float32 and float64, 8 bands in or
 out) and one ``nddwt_lead_adj`` and one ``nddwt_lead_dec`` at (128, 128,
 128, 32) db4 float32 (16 bands in or out, 4 lane bands out or in), each in
 its halo-padded mode on one rank's block of a {"x": 2} mesh (X halved and
-padded by K - 1 = 7 rows, as ``chip_sharded.py`` times them); and the two
-lead stages of the db20 step (2 lane bands, both on their runtime-tap
+padded by K - 1 = 7 rows, as ``chip_sharded.py`` times them); the two
+lane stages at (128, 128, 128, 32) db4 (``nddwt_lane_dec``: 1 array in, 4
+lane bands out; ``nddwt_lane_adj``: 4 in, 1 out); and the two lead and two
+lane stages of the db20 step (2 lane bands, all four on their runtime-tap
 paths). Each is checked once against its plain version (float32 1e-5,
 float64 1e-12, relative to max|plain|) and timed in 5 repeats of 10 calls
-after 3 warm-up calls.
+after 3 warm-up calls. The four lane stages are also timed queued
+(``*_queued_ms``): the 10 calls enqueued behind a ~25 ms ``torch.cuda._sleep``,
+so that the card runs them back to back and the events read the kernels
+alone, never a gap where the card waits for the host; and the host's own
+time per call, wrapper and launch, over those same calls (``*_host_ms``).
+Where a call's host time exceeds its queued time, the unqueued time reads
+the host.
 
 Prints the card's name and power limit first and one JSON object last, with
 every repeat and the median per checkout. It exits non-zero without a CUDA
@@ -34,6 +44,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 SHAPE = (256, 256, 256)
@@ -43,7 +54,11 @@ LEVEL = 3
 KEYS = ("pair_3d_ms", "pair_4d_ms", "step_db20_ms", "rec_level_f32_ms", "rec_level_f64_ms", "lead_adj_ms",
         "rec_level_padded_ms", "lead_adj_padded_ms", "dec_level_f32_ms", "dec_level_f64_ms",
         "lead_dec_ms", "dec_level_padded_ms", "lead_dec_padded_ms", "lead_dec_db20_ms",
-        "lead_adj_db20_ms")
+        "lead_adj_db20_ms", "pair_4d_f64_ms", "pair_4d_bf16_ms", "lane_dec_ms", "lane_adj_ms",
+        "lane_dec_db20_ms", "lane_adj_db20_ms")
+LANE_KEYS = ("lane_dec_ms", "lane_adj_ms", "lane_dec_db20_ms", "lane_adj_db20_ms")
+KEYS += tuple(k.replace("_ms", suffix) for suffix in ("_queued_ms", "_host_ms")
+              for k in LANE_KEYS)
 
 
 def child(root: str) -> int:
@@ -72,12 +87,19 @@ def child(root: str) -> int:
                     ("dec_level_padded_ms", "dec", SHAPE, "db4", torch.float32, True),
                     ("lead_dec_padded_ms", "lead_dec", SHAPE4, "db4", torch.float32, True),
                     ("lead_dec_db20_ms", "lead_dec", SHAPE20, "db20", torch.float32, False),
-                    ("lead_adj_db20_ms", "lead_adj", SHAPE20, "db20", torch.float32, False))
-    for key, shape, wv, n_call in (("pair_3d_ms", SHAPE, "db4", 10),
-                                   ("pair_4d_ms", SHAPE4, "db4", 3),
-                                   ("step_db20_ms", SHAPE20, "db20", 10)):
-        plan = tw.NDDWT(wv, shape, device="cuda")
-        x = torch.randn(shape, generator=gen, device="cuda")
+                    ("lead_adj_db20_ms", "lead_adj", SHAPE20, "db20", torch.float32, False),
+                    ("lane_dec_ms", "lane_dec", SHAPE4, "db4", torch.float32, False),
+                    ("lane_adj_ms", "lane_adj", SHAPE4, "db4", torch.float32, False),
+                    ("lane_dec_db20_ms", "lane_dec", SHAPE20, "db20", torch.float32, False),
+                    ("lane_adj_db20_ms", "lane_adj", SHAPE20, "db20", torch.float32, False))
+    for key, shape, wv, n_call, dtype in (("pair_3d_ms", SHAPE, "db4", 10, torch.float32),
+                                          ("pair_4d_ms", SHAPE4, "db4", 3, torch.float32),
+                                          ("step_db20_ms", SHAPE20, "db20", 10, torch.float32),
+                                          ("pair_4d_f64_ms", SHAPE4, "db4", 3, torch.float64),
+                                          ("pair_4d_bf16_ms", SHAPE4, "db4", 3,
+                                           torch.bfloat16)):
+        plan = tw.NDDWT(wv, shape, dtype=dtype, device="cuda")
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         if wv == "db20":
             def pair():
                 return plan.dec_rec(x, 2, threshold=0.1, band_axis=0)[1]
@@ -86,8 +108,8 @@ def child(root: str) -> int:
                 return plan.rec(plan.dec(x, LEVEL, band_axis=0), band_axis=0)
 
         err = (plan.rec(plan.dec(x, 2 if wv == "db20" else LEVEL, band_axis=0),
-                        band_axis=0) - x).abs().max().item()
-        if err > 1e-4:
+                        band_axis=0).double() - x.double()).abs().max().item()
+        if err > {torch.float64: 1e-10, torch.bfloat16: 1e-1}.get(dtype, 1e-4) * x.abs().max().item():
             print(f"{key}: round trip {err}", file=sys.stderr)
             return 1
         for _ in range(3):
@@ -115,7 +137,17 @@ def child(root: str) -> int:
         pad = (padded,) + (False,) * (len(shape) - 1)
         block = (shape[0] // 2 + 7,) + shape[1:] if padded else shape
         out_shape = (shape[0] // 2,) + shape[1:] if padded else shape
-        if kind in ("dec", "lead_dec"):  # the analysis: 1 or nl inputs, nb bands out
+        if kind in ("lane_dec", "lane_adj"):  # 1 array in and nl lane bands out, or back
+            adj = kind == "lane_adj"
+            y = torch.randn(((nl,) if adj else ()) + shape, generator=gen, device="cuda",
+                            dtype=dtype)
+            if adj:
+                call = lambda: ck.lane_adj(y, taps, 1 / nb)  # noqa: E731
+                want = level4_ref.lane_adj_ref(y, taps, 1 / nb)
+            else:
+                call = lambda: ck.lane_dec(y, taps)  # noqa: E731
+                want = level4_ref.lane_dec_ref(y, taps)
+        elif kind in ("dec", "lead_dec"):  # the analysis: 1 or nl inputs, nb bands out
             lead = kind == "lead_dec"
             y = torch.randn(((nl,) if lead else ()) + block, generator=gen,
                             device="cuda", dtype=dtype)
@@ -154,6 +186,24 @@ def child(root: str) -> int:
             torch.cuda.synchronize()
             times.append(s.elapsed_time(e) / 10)
         out[key] = times
+        if key in LANE_KEYS:  # the kernels alone, and the host's time a call
+            queued, host = [], []
+            for _ in range(5):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                torch.cuda._sleep(50_000_000)  # cycles: about 25 ms
+                s.record()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    call()
+                t1 = time.perf_counter()
+                e.record()
+                torch.cuda.synchronize()
+                queued.append(s.elapsed_time(e) / 10)
+                host.append((t1 - t0) * 1e3 / 10)
+            out[key.replace("_ms", "_queued_ms")] = queued
+            out[key.replace("_ms", "_host_ms")] = host
         del y, call
         torch.cuda.empty_cache()
     print(json.dumps(out))

@@ -7,27 +7,33 @@ Builds this checkout's ``ops/csrc/nddwt_4d.cu`` and ``nddwt_level.cu`` and
 every variant given: a directory (a copy of ``csrc/`` with a change; both
 sources are built from it) or one source file (a copy of ``nddwt_4d.cu`` or
 ``nddwt_level.cu`` with a change, by its name's prefix; built with the
-checkout's ``csrc/`` on the include path). Five variants of the streamed
-bodies (``csrc/nddwt_stream.cuh``: the synthesis and the analysis) are
-built in (``BUILT_IN``): "ring in shared memory" sends every filter length
+checkout's ``csrc/`` on the include path). Five variants are built in
+(``BUILT_IN``), of the streamed bodies (``csrc/nddwt_stream.cuh``: the
+synthesis and the analysis) and the lane body (``csrc/nddwt_lane.cuh``):
+"ring in shared memory" sends every filter length of the streamed bodies
 to the runtime-tap path (the ring in shared memory, one plane element a
-thread, instead of in registers); "two stages" keeps one window copy in
-flight instead of up to three; "one CTA per SM" drops the two-CTA register
-cap; and two diagnostic builds whose outputs are wrong, timed only:
-"copies only" skips the passes and "passes only" skips the copies (in both
-bodies), which shows what each part costs alone and whether the two
-overlap.
+thread, instead of in registers); "two stages" keeps one window copy of
+the streamed bodies in flight instead of up to three (the lane body's
+buffers are its plan's, swept below); "one CTA per SM" drops the two-CTA
+register cap of all three bodies; and two diagnostic builds whose outputs
+are wrong, timed only: "copies only" skips the passes and "passes only"
+skips the copies (in all three bodies: the lane body's bulk copies are not
+issued, its windows left as they are), which shows what each part costs
+alone and whether the two overlap.
 
 Each build but the diagnostic ones is held against the kernels' plain
 versions at small shapes (an A/B never times a wrong kernel). Then it
 times, per build, the four stage kernels at (128, 128, 128, 32) db4
-float32, ``nddwt_lead_dec`` at 128^3 db20 (the 3D long-filter route) and
-``nddwt_rec_level`` and ``nddwt_dec_level`` at 256^3 db4 float32 and
-float64 with CUDA events: every build once in the order given,
-then once in reverse, so the card's clock drifts against no one build.
-Then it times this checkout's kernels over forced launch plans (the plan
-functions bypassed): the stage tiles of ``nddwt_lane_dec`` and
-``nddwt_lane_adj``, the streamed plans ``(C, T1, T2)`` of
+float32 (the two lane stages in float64 too), ``nddwt_lead_dec`` and the
+two lane stages at 128^3 db20 (the 3D
+long-filter route) and ``nddwt_rec_level`` and ``nddwt_dec_level`` at
+256^3 db4 float32 and float64 with CUDA events: every build once in the
+order given, then once in reverse, so the card's clock drifts against no
+one build. Then it times this checkout's kernels over forced launch plans
+(the plan functions bypassed): the lane body's plans ``(R, Zc, stages)``
+of ``nddwt_lane_dec`` and ``nddwt_lane_adj`` (units of R whole slabs, or
+chunks of Zc outputs along Z, and the unit buffers), the streamed plans
+``(C, T1, T2)`` of
 ``nddwt_lead_adj``, ``nddwt_rec_level``, ``nddwt_lead_dec`` and
 ``nddwt_dec_level``, and the ring-in-shared-memory build's
 ``nddwt_rec_level`` at its own plans (``T1 x T2 = 256``).
@@ -47,7 +53,18 @@ from pathlib import Path
 
 SHAPE = (128, 128, 128, 32)
 SHAPE3 = (256, 256, 256)
-LANE_TILES = [(1, 128, 32), (1, 64, 32), (2, 64, 32), (1, 32, 32)]
+# The lane body's plans (R, Zc, stages): Zc >= Z (128) marks units of R whole
+# slabs, else chunks of Zc outputs along Z (their windows Zc + 7 rows).
+LANE_DEC_PLANS = [(1, 128, 4), (1, 128, 3), (1, 128, 2), (2, 128, 2), (1, 64, 4),
+                  (1, 64, 2), (1, 32, 4)]
+LANE_ADJ_PLANS = [(1, 64, 2), (1, 128, 2), (1, 128, 1), (1, 32, 4), (1, 32, 3), (1, 43, 3),
+                  (1, 16, 4)]
+# float64 (twice the bytes: whole slabs with two buffers take one CTA an SM)
+LANE_DEC64_PLANS = [(1, 128, 1), (1, 128, 2), (1, 64, 4), (1, 64, 2)]
+LANE_ADJ64_PLANS = [(1, 64, 1), (1, 32, 2), (1, 128, 1), (1, 32, 4)]
+# the 3D db20 route's lane view (16384, 128, 1): units of R whole 128-rows
+LANE20_PLANS = [(15, 128, 4), (8, 128, 4), (32, 128, 4), (4, 128, 4), (15, 128, 2),
+                (64, 128, 3)]
 # Streamed plans (C, T1, T2); T1 * T2 = 256 * 4 where the taps are unrolled.
 LEAD_ADJ_PLANS = [(128, 4, 256), (128, 8, 128), (128, 16, 64), (64, 4, 256),
                   (128, 2, 512)]
@@ -66,21 +83,26 @@ LEAD_DEC20_PLANS = [(40, 8, 32), (64, 8, 32), (128, 8, 32), (64, 16, 16), (128, 
                     (64, 32, 8), (128, 32, 8), (40, 16, 16)]
 RING_SMEM = "ring in shared memory"
 RING_SMEM_PLANS = [(64, 2, 128), (64, 4, 64), (32, 2, 128)]  # T1 * T2 = 256
-# The built-in variants: name -> (text of csrc/nddwt_stream.cuh, replacement),
-# every occurrence replaced (both bodies where the text is in both).
+# The built-in variants: name -> [(header in csrc/, text, replacement)],
+# every occurrence replaced (both streamed bodies where the text is in both).
+STREAM, LANE = "nddwt_stream.cuh", "nddwt_lane.cuh"
 BUILT_IN = {
-    RING_SMEM: ("  if (K != 2 && K != 4 && K != 6 && K != 8) return 0;",
-                "  if (K > 0) return 0;"),
-    "two stages": ("constexpr int kStreamMaxStages = 4;",
-                   "constexpr int kStreamMaxStages = 2;"),
-    "one CTA per SM": ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads)"),
-    "copies only": ("    cp_commit();\n\n    const int gi = at.gi",
-                    "    cp_commit();\n    if (nw > 0) continue;\n\n    const int gi = at.gi"),
-    "passes only": ("      for (int i = lane; i < hd; i += 32) copy_elem(srow + i, row + col(c0 + i));\n"
-                    "      for (int u = lane; u < nv; u += 32)\n"
-                    "        copy16(srow + hd + u * V, row + col(c0 + hd + u * V));\n"
-                    "      for (int i = tail + lane; i < E2; i += 32) "
-                    "copy_elem(srow + i, row + col(c0 + i));\n", ""),
+    RING_SMEM: [(STREAM, "  if (K != 2 && K != 4 && K != 6 && K != 8) return 0;",
+                 "  if (K > 0) return 0;")],
+    "two stages": [(STREAM, "constexpr int kStreamMaxStages = 4;",
+                    "constexpr int kStreamMaxStages = 2;")],
+    "one CTA per SM": [(STREAM, "__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads)"),
+                       (LANE, "__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads)")],
+    "copies only": [(STREAM, "    cp_commit();\n\n    const int gi = at.gi",
+                     "    cp_commit();\n    if (nw > 0) continue;\n\n    const int gi = at.gi"),
+                    (LANE, "    if (cx.windows(c + k * G, buf, wins)) __syncthreads();\n",
+                     "    continue;\n")],
+    "passes only": [(STREAM, "      for (int i = lane; i < hd; i += 32) copy_elem(srow + i, row + col(c0 + i));\n"
+                     "      for (int u = lane; u < nv; u += 32)\n"
+                     "        copy16(srow + hd + u * V, row + col(c0 + hd + u * V));\n"
+                     "      for (int i = tail + lane; i < E2; i += 32) "
+                     "copy_elem(srow + i, row + col(c0 + i));\n", ""),
+                    (LANE, "if (bk.hi > bk.lo)", "if (false)")],
 }
 DIAGNOSTIC = ("copies only", "passes only")
 
@@ -101,16 +123,16 @@ def timed(fn, reps=8):
 
 
 def _built_in_sources(ck, into: Path, name: str) -> Path:
-    """A copy of ``csrc/`` with the built-in variant ``name`` applied to
-    ``nddwt_stream.cuh``."""
+    """A copy of ``csrc/`` with the built-in variant ``name`` applied to its
+    headers."""
     d = into / name.replace(" ", "_")
     shutil.copytree(ck.CSRC, d)
-    p = d / "nddwt_stream.cuh"
-    old, new = BUILT_IN[name]
-    src = p.read_text()
-    if old not in src:
-        raise RuntimeError(f"nddwt_stream.cuh has changed: cannot build {name!r}")
-    p.write_text(src.replace(old, new))
+    for header, old, new in BUILT_IN[name]:
+        p = d / header
+        src = p.read_text()
+        if old not in src:
+            raise RuntimeError(f"{header} has changed: cannot build {name!r}")
+        p.write_text(src.replace(old, new))
     return d
 
 
@@ -236,6 +258,8 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
     x64, b64 = x32.double(), torch.empty_like(y64)
     taps20 = tw.NDDWT("db20", SHAPE20, device=dev).taps_hp
     temp20 = torch.randn((2,) + SHAPE20, generator=gen, device=dev)
+    x20 = torch.randn(SHAPE20, generator=gen, device=dev)
+    x64d, temp64 = x.double(), temp.double()
     big20 = torch.empty((8,) + SHAPE20, device=dev)
     src16, src8 = [("y", b) for b in range(16)], [("y", b) for b in range(8)]
     calls = {
@@ -244,12 +268,17 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
         "nddwt_lead_adj": lambda: ck.lead_adj(big, None, src16, taps),
         "nddwt_lead_dec db20": lambda: ck.lead_dec(temp20, big20, 1, taps20),
         "nddwt_lane_adj": lambda: ck.lane_adj(temp, taps, 1 / 16),
+        "nddwt_lane_dec db20": lambda: ck.lane_dec(x20, taps20),
+        "nddwt_lane_adj db20": lambda: ck.lane_adj(temp20, taps20, 1 / 8),
+        "nddwt_lane_dec f64": lambda: ck.lane_dec(x64d, taps),
+        "nddwt_lane_adj f64": lambda: ck.lane_adj(temp64, taps, 1 / 16),
         "nddwt_rec_level f32": lambda: ck.rec_level(y32, None, src8, taps3, 0.125),
         "nddwt_rec_level f64": lambda: ck.rec_level(y64, None, src8, taps3, 0.125),
         "nddwt_dec_level f32": lambda: ck.dec_level(x32, b32, 1, taps3, 0.0, True),
         "nddwt_dec_level f64": lambda: ck.dec_level(x64, b64, 1, taps3, 0.0, True),
     }
-    out = {"card": smi, "shape": SHAPE, "shape3": SHAPE3, "ms": {}, "tiles": {}, "plans": {}}
+    out = {"card": smi, "shape": SHAPE, "shape3": SHAPE3, "ms": {}, "lane_plans": {},
+           "plans": {}}
     order = [name for name in libs if name != RING_SMEM]
     for name in order + order[::-1]:
         use(name)
@@ -258,15 +287,19 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
     for name, per in out["ms"].items():
         print(f"{name}: " + "; ".join(f"{k} {v}" for k, v in per.items()), flush=True)
     use("checkout")
-    plan_tiles = ck._stage_tiles
-    for kernel, tiles in (("nddwt_lane_dec", LANE_TILES), ("nddwt_lane_adj", LANE_TILES)):
+    lane_plan = ck._lane_plan
+    for kernel, plans in (("nddwt_lane_dec", LANE_DEC_PLANS), ("nddwt_lane_adj", LANE_ADJ_PLANS),
+                          ("nddwt_lane_dec db20", LANE20_PLANS),
+                          ("nddwt_lane_adj db20", LANE20_PLANS),
+                          ("nddwt_lane_dec f64", LANE_DEC64_PLANS),
+                          ("nddwt_lane_adj f64", LANE_ADJ64_PLANS)):
         row = {}
-        for t in tiles:
-            ck._stage_tiles = lambda n, k, adj, word, t=t: t
+        for t in plans:
+            ck._lane_plan = lambda *a, t=t: t
             row[str(t)] = timed(calls[kernel])
-        ck._stage_tiles = plan_tiles
-        out["tiles"][kernel] = row
-        print(f"tiles {kernel}: {row}", flush=True)
+        ck._lane_plan = lane_plan
+        out["lane_plans"][kernel] = row
+        print(f"lane plans {kernel}: {row}", flush=True)
     for name, kernel, plans in (
             ("checkout", "nddwt_lead_adj", LEAD_ADJ_PLANS),
             ("checkout", "nddwt_rec_level f32", REC_PLANS),

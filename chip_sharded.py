@@ -20,7 +20,9 @@ spawned on one card.
     exchange timed on its own.
 ``time_padded``
     each padded-mode kernel per call in one process, beside the same
-    kernel's wrap mode on the same block and its plain version, with the
+    kernel's wrap mode on the same block, its plain version and one
+    PyTorch call computing the same function (cuDNN ``conv3d`` for the
+    level kernels, a depthwise ``F.conv2d`` for the lead stages), with the
     bytes bound.
 
 Run it through ``chip_smoke.py``; it needs a CUDA device and the kernels
@@ -498,13 +500,15 @@ def run_sharded(check, check_launches, failures, card):
 # ------------------------------------------------------------------ phase 4
 
 
-def time_padded(timed, bound_ms, conv_weights, check, card):
+def time_padded(timed, bound_ms, conv_weights, lead_conv, check, card):
     """Each padded-mode kernel per call beside the same kernel's wrap mode
     on the same block (the main paths' {"x": 2} blocks, float32), its plain
-    version and, for the 3D level kernels, one cuDNN ``conv3d`` computing
-    the same padded level (checked once against the plain version); the
+    version and one PyTorch call computing the same padded function
+    (checked once against the plain version, TF32 off by the caller): a
+    cuDNN ``conv3d`` for the 3D level kernels, a depthwise ``F.conv2d``
+    (``lead_conv``, valid along the padded X) for the lead stages; the
     bound counts the padded input once. Returns ``{name: {"ms",
-    "plain_ms", "wrap_ms", "library_ms", "bound_ms", "bound_by",
+    "plain_ms", "wrap_ms", "library_ms", "library", "bound_ms", "bound_by",
     "shape"}}``."""
     import torch
     import torch.nn.functional as F
@@ -564,6 +568,8 @@ def time_padded(timed, bound_ms, conv_weights, check, card):
           _err(F.conv3d(yc, wrec)[0, 0], r), F32_TOL * r.abs().max().item())
     out["nddwt_dec_level"]["library_ms"] = timed(lambda: F.conv3d(xc, wdec), 5)
     out["nddwt_rec_level"]["library_ms"] = timed(lambda: F.conv3d(yc, wrec), 5)
+    for name in ("nddwt_dec_level", "nddwt_rec_level"):
+        out[name]["library"] = "cuDNN conv3d"
     del x, xp, big, y, yp, xc, yc, conv, approx, r
     torch.cuda.empty_cache()
     taps4 = tw.NDDWT("db4", SHAPE4, device=dev).taps_hp
@@ -586,9 +592,16 @@ def time_padded(timed, bound_ms, conv_weights, check, card):
     }
     for name, (k, p, w, bnd) in runs.items():
         out[name] = {"ms": timed(k, 10), "plain_ms": timed(p, 2, warm=1),
-                     "wrap_ms": timed(w, 10), "library_ms": None, "bound_ms": bnd[0],
+                     "wrap_ms": timed(w, 10), "bound_ms": bnd[0],
                      "bound_by": bnd[1], "shape": local4}
-    del temp, temp_p
+    del temp
+    # The yardstick: one depthwise F.conv2d, valid along the padded X.
+    call, bands = lead_conv(temp_p, taps4, False, padded=True)
+    big4[0] = level4_ref.lead_dec_ref(temp_p, big4, 1, taps4, padded=(True, False))
+    check("depthwise F.conv2d as one halo-padded nddwt_lead_dec",
+          _err(bands(call()), big4), F32_TOL * big4.abs().max().item())
+    out["nddwt_lead_dec"].update(library_ms=timed(call, 5), library="depthwise F.conv2d")
+    del temp_p, call
     torch.cuda.empty_cache()
     y4 = torch.randn((16,) + local4, generator=gen, device=dev)
     y4p = torch.randn((16, local4[0] + 7) + local4[1:], generator=gen, device=dev)
@@ -598,17 +611,21 @@ def time_padded(timed, bound_ms, conv_weights, check, card):
         "plain_ms": timed(lambda: level4_ref.lead_adj_ref(y4p, None, src16, taps4,
                                                           (True, False)), 2, warm=1),
         "wrap_ms": timed(lambda: ck.lead_adj(y4, None, src16, taps4), 10),
-        "library_ms": None,  # PyTorch has no 4D convolution
         **dict(zip(("bound_ms", "bound_by"),
                    bound_ms((16 * vox4_p + 4 * vox4) * f32, lead_flops))),
         "shape": local4,
     }
-    del y4, y4p, big4
+    del y4, big4
+    call, bands = lead_conv(y4p, taps4, True, padded=True)
+    r = level4_ref.lead_adj_ref(y4p, None, src16, taps4, (True, False))
+    check("depthwise F.conv2d as one halo-padded nddwt_lead_adj",
+          _err(bands(call()), r), F32_TOL * r.abs().max().item())
+    out["nddwt_lead_adj"].update(library_ms=timed(call, 5), library="depthwise F.conv2d")
+    del y4p, call, r
     torch.cuda.empty_cache()
     for name in PADDED:
         t = out[name]
-        lib = (f"cuDNN conv3d {t['library_ms']:.4f} ms" if t["library_ms"] is not None
-               else "library none (no 4D convolution in PyTorch)")
+        lib = f"{t['library']} {t['library_ms']:.4f} ms"
         print(f"  {name} halo-padded, block {t['shape']} of a {{'x': 2}} mesh, db4 f32 per "
               f"call: kernel {t['ms']:.4f} ms, wrap mode on the same block "
               f"{t['wrap_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, {lib}, bound "

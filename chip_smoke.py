@@ -40,7 +40,9 @@ batch of two 128^3 volumes on {"data": 2, "x": 2}, ``dec_rec_split`` at
 Phases:
 
 1. the card's name and power limit; build every CUDA kernel from this
-   checkout's sources (one ``nvcc`` per source, all at once);
+   checkout's sources (one ``nvcc`` per source, all at once), with the
+   build time, ``nddwt_4d.cu``'s kernel instantiations and the lane body's
+   registers and local memory (``cuobjdump -res-usage``);
 2. each kernel against its plain torch version on the card, at the paths'
    shapes and at small, odd, mixed-wavelet, 2D and bfloat16 shapes; the
    stage kernels also at odd Z/T, T > 128 and on a 3D db20 plan (the
@@ -63,7 +65,13 @@ Phases:
    (``nddwt_dec_level``, ``nddwt_lead_dec``) the same way
    (``STREAM_DEC_CASES``, ``STREAM_LEAD_DEC_CASES``: also runtime taps,
    the split walk, 2D and padded slots 0 and 1), lam 0 and 0.1, ``final``
-   both ways, one line per case;
+   both ways, one line per case; and the lane body (``nddwt_lane_dec``,
+   ``nddwt_lane_adj``) at the cases its plan and copies can get wrong
+   (``LANE_CASES``: units and chunks ending ragged, a chunk split at the
+   periodic wrap, inputs at an odd element offset with odd Z*T, Z = K,
+   T = 1, T > 128 and > 256, K = 76, one unit buffer, fewer units than
+   CTAs and many times more, and the tile body's class) in float32,
+   bfloat16 and float64, one line per case and direction with its plan;
 3. the main path at 256^3 (both normalizations) against the plain path on
    the card, the threshold-0 round trip, and the 64^3 flagship step of
    ``__graft_entry__.entry`` against the float64 NumPy oracle; the kernels'
@@ -95,8 +103,11 @@ Phases:
 4. timings with CUDA events: each kernel per call, the dec+rec pair, the
    fused dec_rec step and one iteration of each solver, each beside its
    plain version, in 3D and 4D; for the level kernels also one cuDNN
-   convolution computing the same level (the yardstick ``library_ms``;
-   PyTorch has no 4D convolution, so the stage kernels have none); the 1D
+   convolution computing the same level (the yardstick ``library_ms``),
+   for the stage kernels one ``F.conv2d`` (the lane stages: a 2D
+   convolution over (Z, T) with X*Y as the batch; the lead stages: a
+   depthwise one over (X, Y) in channels-last memory, the Z*T lane columns
+   the groups), each checked once against the plain version; the 1D
    kernels at 2^23 db6 and the float64 level kernels at 256^3 db4 the same
    way (``F.conv1d``, ``F.conv3d`` in float64), and the float64 and 1D
    pairs and steps; the flat kernels beside the per-level route (no
@@ -109,8 +120,10 @@ Phases:
    ``chip_flat_crossover.py`` (the multilevel columns and the batched table
    among them); the sharded 256^3 step per rank with its halo exchange
    timed on its own, and each halo-padded kernel beside its wrap mode on
-   the same block (the 3D level kernels also beside one cuDNN ``conv3d``
-   of the padded level).
+   the same block and one PyTorch call computing the padded function
+   (a cuDNN ``conv3d`` of the padded level, a depthwise ``F.conv2d`` of
+   the padded lead stage, valid along X), checked once against the plain
+   version.
 
 It exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -120,9 +133,8 @@ bounds (the float64 instantiations of the per-level and 1D kernels in a
 time in ``per_level_route_ms``, the multilevel kernels' flat-kernel time in
 ``flat_route_ms``, the four kernels with a halo-padded mode their sharded
 path's numbers in a ``valid`` entry, with the wrap mode's time on the same
-block in ``wrap_ms`` and, for the 3D level kernels, one cuDNN ``conv3d`` of
-the padded level in ``library_ms``); the line before that the card's name and power
-limit.
+block in ``wrap_ms`` and the padded function's library call in
+``library_ms``); the line before that the card's name and power limit.
 """
 
 import contextlib
@@ -130,6 +142,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SHAPE = (256, 256, 256)
 LEVEL = 3
@@ -187,6 +200,24 @@ STREAM_DEC_CASES = [((8, 40, 72), "db4", None), ((37, 41, 45), "db2", None),
 STREAM_LEAD_DEC_CASES = [((8, 64, 20, 10), "db4", None), ((37, 41, 20, 10), "db2", None),
                          ((40, 41, 45), "db20", None), ((9, 10, 4, 6), "db2", (True, False)),
                          ((9, 10, 6, 7), "db3", (False, True))]
+# The lane body (nddwt_lane_dec, nddwt_lane_adj, built from nddwt_4d.cu) is
+# written in this header, and the cases its plan and copies can get wrong:
+# (shape, wavelet, forced plan (R, Zc, stages) or None, the input's element
+# offset in its buffer): units of whole slabs and chunks of Z that end
+# ragged, a chunk split at the periodic wrap, odd Z*T at an odd offset
+# (ragged head and tail pieces; in bfloat16 a slab at an odd element),
+# Z = K, T = 1 (the 3D long-filter route), T > 128 and > 256, K = 76, one
+# unit buffer, mixed filters, fewer units than CTAs and many times more,
+# and a T row too long for the lane body (the tile body's class).
+LANE_SOURCE = "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_lane.cuh"
+LANE_CASES = [((5, 3, 11, 9), "db2", (4, 11, 2), 1), ((3, 2, 13, 7), "db2", (1, 4, 2), 3),
+              ((3, 2, 13, 7), "db3", (1, 5, 1), 1), ((4, 3, 8, 9), "db4", None, 1),
+              ((4, 3, 8, 9), "db4", (1, 1, 2), 0), ((6, 5, 44), "db20", None, 1),
+              ((16, 16, 44), "db20", (1, 5, 3), 0), ((2, 3, 4, 136), "db2", None, 0),
+              ((6, 4, 4, 300), "db2", None, 1), ((3, 2, 76, 77), "db38", None, 1),
+              ((8, 16, 8, 16), ("db1", "db2", "db3", "db2"), None, 0),
+              ((2, 2, 20, 10), "db2", None, 0), ((256, 256, 20, 10), "db2", None, 1),
+              ((4, 4, 8, 1600), "db4", None, 0)]
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nddwt_dec_level": (STREAM_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_kernels.py:519"),
     "nddwt_rec_level": (STREAM_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_kernels.py:1389"),
@@ -196,8 +227,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nddwt_fista_step": (
         "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_elemwise.cu",
         "non_decimated_wavelets_tpu/ops/pallas_elemwise.py:108"),
-    **{name: (STREAM_SOURCE if name in ("nddwt_lead_dec", "nddwt_lead_adj")
-              else "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_4d.cu",
+    **{name: (STREAM_SOURCE if name in ("nddwt_lead_dec", "nddwt_lead_adj") else LANE_SOURCE,
               f"non_decimated_wavelets_tpu/ops/pallas_4d.py:{line}")
        for name, line in zip(STAGE_KERNELS, (503, 592, 882, 998))},
     "nddwt_dec1_level": ("non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_1d.cu",
@@ -333,6 +363,132 @@ def conv_pad(x, taps, rec):
     return F.pad(x[None], pads, mode="circular")
 
 
+LIBRARY_CALL = {"nddwt_lane_dec": "F.conv2d", "nddwt_lane_adj": "F.conv2d",
+                "nddwt_lead_dec": "depthwise F.conv2d", "nddwt_lead_adj": "depthwise F.conv2d"}
+
+
+def _stage_halo(K, rec):
+    """(left, right) circular pad of one axis: the analysis halo (K/2 - 1,
+    K/2), mirrored for the adjoint."""
+    left = K // 2 - 1
+    return (K - 1 - left, left) if rec else (left, K - 1 - left)
+
+
+def _band_weights(rows, cols, rec):
+    """The 4 bands of a 2D stage, band b = bit0 + 2 bit1: outer(rows[bit0],
+    cols[bit1]), flipped for the adjoint."""
+    import numpy as np
+
+    w = np.stack([np.outer(rows[b & 1], cols[b >> 1]) for b in range(4)])
+    return np.ascontiguousarray(w[:, ::-1, ::-1] if rec else w)
+
+
+def lead_conv(v, taps, rec, padded=False):
+    """A 4D lead stage as one depthwise ``F.conv2d`` over (X, Y) in
+    channels-last memory, the Z*T lane columns the groups (4 outputs a
+    group, or 4 inputs for the adjoint); the caller turns TF32 off. ``v``:
+    the 4 lane bands (4, X, Y, Z, T), or for the adjoint (``rec``) the 16
+    bands; ``padded``: X carries the halo of the halo-padded mode
+    (``halo_widths``), so the convolution is valid along X, else X is padded
+    circularly; Y is padded circularly. The input is padded and laid out
+    here, before any timer. Returns ``(call, bands)``: ``call()`` runs the
+    convolution, ``bands(out)`` views its output as the plain version's
+    (16 or 4, X, Y, Z, T), band ``4 c + a`` of lane band ``c``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    nb, Xp, Y, Z, T = v.shape
+    zt, (tx, ty) = Z * T, taps[:2]
+    kx, ky = len(tx[0]), len(ty[0])
+    X = Xp - (kx - 1) if padded else Xp
+    pads = _stage_halo(ky, rec) + ((0, 0) if padded else _stage_halo(kx, rec))
+    if rec:  # (4, 4 Z*T, X, Y), channel 4 zt + a, groups Z*T -> (4, Z*T, X, Y)
+        w = np.tile(_band_weights(tx, ty, True)[None], (zt, 1, 1, 1))
+        lay = v.view(4, 4, Xp, Y, zt).permute(0, 2, 3, 4, 1).reshape(4, Xp, Y, 4 * zt)
+        lay = lay.permute(0, 3, 1, 2)
+
+        def bands(out):
+            return out.permute(0, 2, 3, 1).reshape(4, X, Y, Z, T)
+    else:  # (4, Z*T, X, Y), groups Z*T -> (4, 4 Z*T, X, Y), channel 4 zt + a
+        w = np.tile(_band_weights(tx, ty, False), (zt, 1, 1))[:, None]
+        lay = v.view(4, Xp, Y, zt).permute(0, 3, 1, 2)
+
+        def bands(out):
+            return out.view(4, zt, 4, X, Y).permute(0, 2, 3, 4, 1).reshape(16, X, Y, Z, T)
+    cl = torch.channels_last
+    inp = F.pad(lay, pads, mode="circular").contiguous(memory_format=cl)
+    del lay
+    w = torch.from_numpy(w).to(v.device, v.dtype).contiguous(memory_format=cl)
+    return (lambda: F.conv2d(inp, w, groups=zt)), bands
+
+
+def stage_library(x, temp, big, taps):
+    """One PyTorch call computing each 4D stage on the kernels' arrays (the
+    yardstick ``library_ms``, TF32 off), each checked once against its plain
+    version (``level4_ref``): the lane stage is a 2D convolution over (Z,
+    T) on the (X*Y, Z, T) view, X*Y the batch (the analysis 4 output
+    channels of the lo/hi outer products, the adjoint 4 input channels of
+    the reversed ones); the lead stage a depthwise 2D convolution over (X,
+    Y) in channels-last memory (``lead_conv``). The inputs are padded
+    circularly and laid out before the timer. ``x`` (X, Y, Z, T), ``temp``
+    its lane bands, ``big`` 16 bands."""
+    import torch
+    import torch.nn.functional as F
+
+    from non_decimated_wavelets_tpu_torch.ops import level4_ref
+
+    X, Y, Z, T = x.shape
+    xy = X * Y
+
+    def pad(v, k_h, k_w, rec):
+        return F.pad(v, _stage_halo(k_w, rec) + _stage_halo(k_h, rec), mode="circular")
+
+    out = {}
+    tz, tt = taps[2], taps[3]
+    kz, kt = len(tz[0]), len(tt[0])
+    # lane analysis: (X*Y, 1, Z, T) -> (X*Y, 4, Z, T)
+    w = torch.from_numpy(_band_weights(tz, tt, False)[:, None].copy()).float().cuda()
+    xp = pad(x.reshape(xy, 1, Z, T), kz, kt, False)
+    want = level4_ref.lane_dec_ref(x, taps)
+    check("F.conv2d as nddwt_lane_dec",
+          max_err(F.conv2d(xp, w), want.view(4, xy, Z, T).transpose(0, 1)),
+          F32_TOL * want.abs().max().item())
+    del want
+    out["nddwt_lane_dec"] = timed(lambda: F.conv2d(xp, w), 3, warm=1)
+    del xp
+    # lane adjoint, scale 1/16: (X*Y, 4, Z, T) -> (X*Y, 1, Z, T)
+    w = torch.from_numpy(_band_weights(tz, tt, True)[None] / 16).float().cuda()
+    tp = pad(temp.view(4, xy, Z, T).transpose(0, 1), kz, kt, True)
+    want = level4_ref.lane_adj_ref(temp, taps, 1 / 16)
+    check("F.conv2d as nddwt_lane_adj", max_err(F.conv2d(tp, w).view(x.shape), want),
+          F32_TOL * want.abs().max().item())
+    del want
+    out["nddwt_lane_adj"] = timed(lambda: F.conv2d(tp, w), 3, warm=1)
+    del tp
+    torch.cuda.empty_cache()
+    # lead analysis
+    call, bands = lead_conv(temp, taps, False)
+    want = torch.empty((16,) + tuple(x.shape), device=x.device)
+    want[0] = level4_ref.lead_dec_ref(temp, want, 1, taps)
+    check("depthwise F.conv2d as nddwt_lead_dec", max_err(bands(call()), want),
+          F32_TOL * want.abs().max().item())
+    del want
+    out["nddwt_lead_dec"] = timed(call, 2, warm=1)
+    del call
+    torch.cuda.empty_cache()
+    # lead adjoint
+    call, bands = lead_conv(big, taps, True)
+    want = level4_ref.lead_adj_ref(big, None, [("y", b) for b in range(16)], taps)
+    check("depthwise F.conv2d as nddwt_lead_adj", max_err(bands(call()), want),
+          F32_TOL * want.abs().max().item())
+    del want
+    out["nddwt_lead_adj"] = timed(call, 2, warm=1)
+    del call
+    torch.cuda.empty_cache()
+    return out
+
+
 def _stop_children() -> list:
     """Stops every child of this process that is still there when the
     script ends (it must leave no process running); returns their command
@@ -412,6 +568,19 @@ def main() -> int:
     multi.load()
     print(f"  built and loaded {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
+    # The kernels each library holds (cuobjdump's resource usage): the
+    # instantiations a source costs the build, and the lane body's registers
+    # and local memory (spills) per instantiation.
+    usage = subprocess.run([str(Path(ck._nvcc()).parent / "cuobjdump"), "-res-usage",
+                            str(ck.library_path("nddwt_4d"))],
+                           capture_output=True, text=True, timeout=120).stdout.splitlines()
+    funcs = [(line.split("Function ", 1)[1].rstrip(":"), usage[i + 1].strip())
+             for i, line in enumerate(usage[:-1]) if line.strip().startswith("Function ")]
+    lane_funcs = [f for f in funcs if "lane_body" in f[0]]
+    print(f"  nddwt_4d.cu: {len(funcs)} kernel instantiations, {len(lane_funcs)} of the "
+          "lane body (nddwt_lane.cuh)")
+    for name, res in lane_funcs:
+        print(f"    {name[:64]}: {res}")
 
     # ---------------------------------------------------------- phase 2
     print("phase 2: each kernel against its plain version on the card")
@@ -582,6 +751,43 @@ def main() -> int:
             main_err.update(errs)
         del x, temp
         torch.cuda.empty_cache()
+
+    # The lane body's edge cases (LANE_CASES) in each dtype; one line per case
+    # and direction, with the route and plan it took (a forced plan replaces
+    # the plan function for that case), the adjoint at two scales.
+    lane_plan = ck._lane_plan
+    for seed, ((shape, wv, plan, off), dt) in enumerate(
+            (c, d) for c in LANE_CASES
+            for d in (torch.float32, torch.bfloat16, torch.float64)):
+        gen.manual_seed(1800 + seed)
+        taps = tw.NDDWT(wv, (80,) * len(shape), device=dev).taps_hp  # K <= 80 on any axis
+        nl = 2 ** (len(shape) - 2)
+        vox = int(np.prod(shape))
+        x = randn((vox + off,), dt)[off:].view(shape)
+        part = randn((nl * vox + off,), dt)[off:].view((nl,) + shape)
+        if plan:
+            ck._lane_plan = lambda *a, p=plan: p
+        try:
+            routes_of = [ck._stage_geometry(shape, taps, True, adj, dt)[2] for adj in (0, 1)]
+            k = ck.lane_dec(x, taps)
+            r = level4_ref.lane_dec_ref(x, taps)
+            torch.cuda.synchronize()
+            err_dec, tol_dec = max_err(k, r), rel_tol(r, dt)
+            err = tol = 0.0
+            for scale in (1.0, 1.0 / (4 * nl)):
+                k = ck.lane_adj(part, taps, scale)
+                r = level4_ref.lane_adj_ref(part, taps, scale)
+                torch.cuda.synchronize()
+                err, tol = max(err, max_err(k, r)), max(tol, rel_tol(r, dt))
+        finally:
+            ck._lane_plan = lane_plan
+        tag = f"{shape} {wv} offset {off} {str(dt).removeprefix('torch.')}"
+        for name, e, t, geo in (("nddwt_lane_dec", err_dec, tol_dec, routes_of[0]),
+                                ("nddwt_lane_adj", err, tol, routes_of[1])):
+            how = f"plan {tuple(geo)}" if geo[2] > 0 else f"tile body {tuple(geo)}"
+            check(f"{name} lane {tag}, {how}", e, t)
+        del x, part, k, r
+    torch.cuda.empty_cache()
 
     # The streamed synthesis' edge cases (STREAM_REC_CASES, STREAM_LEAD_CASES)
     # in each dtype; one line per case, both band sources (y only, and band 0
@@ -1438,6 +1644,7 @@ def main() -> int:
             timed(lambda: ck.lane_adj(temp, taps4, 1 / 16), 10),
             timed(lambda: level4_ref.lane_adj_ref(temp, taps4, 1 / 16), 3)),
     })
+    library.update(stage_library(x4, temp, big4, taps4))
     del temp, big4
     torch.cuda.empty_cache()
     vox4 = int(np.prod(SHAPE4))
@@ -1454,11 +1661,11 @@ def main() -> int:
         "nddwt_lead_adj": bound_ms(20 * vox4 * f32, lead_flops),
         "nddwt_lane_adj": bound_ms(5 * vox4 * f32, lane_flops),
     })
-    library.update(dict.fromkeys(STAGE_KERNELS))  # PyTorch has no 4D convolution
     for name in STAGE_KERNELS:
         k, p = ms[name]
+        lib = library[name]
         print(f"  {name} {SHAPE4} db4 f32 per call: kernel {k:.4f} ms, plain "
-              f"{p:.4f} ms, library none (no 4D convolution in PyTorch), bound "
+              f"{p:.4f} ms, {LIBRARY_CALL[name]} {lib:.4f} ms, bound "
               f"{bound[name][0]:.4f} ms ({bound[name][1]}) {card}")
 
     def plain_pair4(thr):
@@ -1716,7 +1923,8 @@ def main() -> int:
         "flat_no_slower_up_to", "one_launch_solve_no_slower_up_to",
         "multi_no_slower_than_per_level_up_to", "multi_10pct_faster_than_flat_from",
         "batched_multi_no_slower_than_per_level_up_to")}))
-    padded_ms = chip_sharded.time_padded(timed, bound_ms, conv_weights, check, card)
+    padded_ms = chip_sharded.time_padded(timed, bound_ms, conv_weights, lead_conv,
+                                           check, card)
     ms.update(ms1[torch.float32])
     bound.update(bound1[torch.float32])
     library.update(library1[torch.float32])

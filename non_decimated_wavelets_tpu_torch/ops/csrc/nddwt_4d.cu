@@ -34,13 +34,21 @@
 // launch per level with halos on all four axes does not fit 100 KB at db4,
 // and reads its input 25 times).
 //
-// The lane stages load a tile's halo'd window into shared memory and run the
-// K-tap passes there, consecutive threads on consecutive addresses; the
-// analysis computes both halves of the second pass from one read of the
-// intermediate, and flat indices are split by multiply-high, not by
-// division. They run at 16-30 % of the bound on an H100: every pass waits at
-// a barrier for its window. Every index wraps periodically, so any extent
-// >= K runs: odd Z and T, T > 128.
+// The lane stages run the lane body (nddwt_lane.cuh): persistent CTAs walk
+// units of whole (Z, T) slabs (or, where slabs are too large, chunks of Z
+// with their halo rows), each copied once into a ring of unit buffers by
+// bulk asynchronous copies (cp.async.bulk on an mbarrier), the periodic
+// halo wrapped inside shared memory. Every index wraps periodically, so any
+// extent >= K runs: odd Z and T, T > 128.
+//
+// A lane stage whose smallest unit does not fit shared memory (a T row too
+// long for K rows of every input array: for the adjoint T beyond 1504 at
+// db4 in float32, beyond 167 at db38 in float32) runs on the tile body
+// below instead (ops/cuda_kernels.py: _lane_plan finds no plan): a CTA
+// loads a tile's halo'd window and runs the two K-tap passes there, flat
+// indices split by multiply-high. The wrapper marks it with t[2] < 0. At
+// db38 in float64 no tile fits that body's 32 KB either, and the wrapper
+// raises (the adjoint beyond T = 83, the analysis beyond 112).
 //
 // The lead stages stream X instead (nddwt_stream.cuh over the (X, Y, Z*T)
 // view, slot 2 the pass-through): a CTA owns (T1 rows of Y) x (T2 of Z*T)
@@ -70,6 +78,7 @@
 //        -Xcompiler -fPIC  (ops/cuda_kernels.py does this at first use).
 
 #include "nddwt_common.cuh"
+#include "nddwt_lane.cuh"
 #include "nddwt_stream.cuh"
 
 namespace {
@@ -333,11 +342,73 @@ struct Geom {
   const void* taps;
 };
 
+// The lane body's launch (nddwt_lane.cuh): t = (R, Zc, stages); one wave
+// of persistent CTAs (as many as fit the SMs at this shared memory), at
+// most one a unit.
+template <typename T, typename C, typename... KArgs, typename... Args>
+int launch_lane(void (*kernel)(KArgs...), const LevelT<C>& g, int nin, bool adj,
+                cudaStream_t stream, Args... args) {
+  const LanePlan p = lane_plan(g);
+  const size_t smem = lane_smem<T, C>(p, nin, adj);
+  if (p.stages < 1 || p.stages > kLaneMaxStages || p.Zc < 1 || g.k[1] < 2 ||
+      p.Z < g.k[1] || p.T < g.k[2] || p.Ew > p.Z || p.units < 1 ||
+      smem > kStreamSmemBudget)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                         smem)) != cudaSuccess)
+    return (int)e;
+  const int grid = per_sm * sms < p.units ? per_sm * sms : p.units;
+  if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename C = compute_t<T>>
+auto lane_dec_kernel_for(int kt) {
+  switch (kt) {
+    case 2: return lane_body_dec_kernel<T, 2, C>;
+    case 4: return lane_body_dec_kernel<T, 4, C>;
+    case 6: return lane_body_dec_kernel<T, 6, C>;
+    case 8: return lane_body_dec_kernel<T, 8, C>;
+    default: return lane_body_dec_kernel<T, 0, C>;
+  }
+}
+
+template <typename T, typename C = compute_t<T>>
+auto lane_adj_kernel_for(int kt) {
+  switch (kt) {
+    case 2: return lane_body_adj_kernel<T, 2, C>;
+    case 4: return lane_body_adj_kernel<T, 4, C>;
+    case 6: return lane_body_adj_kernel<T, 6, C>;
+    case 8: return lane_body_adj_kernel<T, 8, C>;
+    default: return lane_body_adj_kernel<T, 0, C>;
+  }
+}
+
+// The tile body's plan arrives as (t0, t1, -t2).
+template <typename C>
+LevelT<C> tile_level(const Geom& v) {
+  const int t[3] = {v.t[0], v.t[1], -v.t[2]};
+  return stage_level<C>(v.n, v.k, t, v.left, v.pad, v.taps);
+}
+
 template <typename T, typename C = compute_t<T>>
 int lane_dec(const void* x, void* temp, const Geom& v, cudaStream_t s) {
+  if (v.t[2] < 0) {
+    const LevelT<C> g = tile_level<C>(v);
+    return launch(lane_dec_kernel<T, C>, g, stage_smem(g, 1, false), s,
+                  (const T*)x, (T*)temp, g);
+  }
   const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.pad, v.taps);
-  return launch(lane_dec_kernel<T, C>, g, stage_smem(g, 1, false), s,
-                (const T*)x, (T*)temp, g);
+  return launch_lane<T>(lane_dec_kernel_for<T, C>(lane_unrolled(g.k)), g, 1, false, s,
+                        (const T*)x, (T*)temp, g);
 }
 
 // The lead analysis streams X (nddwt_stream.cuh) over the (X, Y, Z*T) view:
@@ -367,17 +438,24 @@ int lead_adj(const void* y, const void* approx, void* partial, const Geom& v,
 template <typename T, typename C = compute_t<T>>
 int lane_adj(const void* partial, void* out, const Geom& v, const Sources& src,
              double scale, cudaStream_t s) {
+  if (v.t[2] < 0) {
+    const LevelT<C> g = tile_level<C>(v);
+    return launch(lane_adj_kernel<T, C>, g, stage_smem(g, 1, true), s,
+                  (const T*)partial, (T*)out, g, src, (C)scale);
+  }
   const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.pad, v.taps);
-  return launch(lane_adj_kernel<T, C>, g, stage_smem(g, 1, true), s,
-                (const T*)partial, (T*)out, g, src, (C)scale);
+  return launch_lane<T>(lane_adj_kernel_for<T, C>(lane_unrolled(g.k)), g,
+                        g.k[2] > 1 ? 4 : 2, true, s, (const T*)partial, (T*)out, g,
+                        (C)scale);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
 // 2 = float64. n, k, t, left: 3 ints each, the stage's view (slot 0
-// slowest; n the output extents); t: the tile, or the lead stages' streamed
-// plan (C, T1, T2); gw (the lead analysis): its in-plane bands a walk; pad
+// slowest; n the output extents); t: the lane stages' plan (R, Zc, stages)
+// of the lane body, or the tile body's tile (t0, t1, -t2); the lead stages'
+// streamed plan (C, T1, T2); gw (the lead analysis): its in-plane bands a walk; pad
 // (the lead stages, last before the stream): 3 ints, 1 on a halo-padded
 // slot, whose inputs then have extent n + k - 1; taps:
 // 3 * 2 * 76 of the compute type (float for dtypes 0 and 1,

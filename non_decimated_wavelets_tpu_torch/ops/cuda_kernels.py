@@ -29,6 +29,13 @@ plane by plane, copying each plane's window once, with a ring of partial
 output planes (synthesis) or of the last K planes' in-plane bands
 (analysis); ``_stream_plan`` lays out its chunk and plane tile, and
 ``ops/stream_ref.py`` replays both schedules on the CPU for the tests.
+``nddwt_lane_dec`` and ``nddwt_lane_adj`` run the lane body
+(``csrc/nddwt_lane.cuh``): persistent CTAs walk units of whole (Z, T)
+slabs of the (X*Y, Z, T) view (or chunks of Z with their halo rows), each
+copied once by bulk asynchronous copies into a ring of unit buffers;
+``_lane_plan`` lays out the unit and ``stream_ref.lane_replay`` replays
+it. A lane stage whose T row is too long for it runs on the older tile
+body (where ``_lane_plan`` finds no plan).
 
 A 3D level whose filters are too long for the per-level kernels' tile
 (about 30 taps and up on every axis, db15 and longer) runs on the stage
@@ -103,10 +110,18 @@ NVCC_FLAGS = (
 _MAX_TAPS = 76  # kMaxTaps in the source
 # Dynamic shared memory a CTA may take: two CTAs fit one SM's 227 KB.
 _SMEM_BUDGET = 100 * 1024
-# The lane stage's tiles take less, so that more CTAs share an SM and hide
-# each other's window loads: the budget that was fastest in a sweep of
-# tiles at (128, 128, 128, 32) db4 on an H100 (PERF.md).
+# The tile body's lane-stage tiles (csrc/nddwt_4d.cu: the class no plan of
+# the lane body fits, _lane_plan) take less, so that more CTAs share an SM
+# and hide each other's window loads: the budget that was fastest in a sweep
+# of tiles at (128, 128, 128, 32) db4 on an H100 (PERF.md).
 _LANE_SMEM_BUDGET = 32 * 1024
+# The lane body (csrc/nddwt_lane.cuh): the most unit buffers in flight
+# (kLaneMaxStages), the elements a unit of whole slabs aims at, and the
+# dynamic shared memory at which two CTAs still share an SM (228 KB less
+# each CTA's static tap table and reserve).
+_LANE_MAX_STAGES = 4
+_LANE_UNIT = 4096
+_LANE_TWO_PER_SM = 108 * 1024
 _THREADS = 256  # kThreads in the sources
 # The streamed bodies (csrc/nddwt_stream.cuh: the synthesis of
 # nddwt_rec_level and nddwt_lead_adj, the analysis of nddwt_dec_level and
@@ -747,13 +762,13 @@ def _stage_words(t, k, adj: bool) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _stage_tiles(n: tuple, k: tuple, adj: bool, word: int = 4) -> tuple:
-    """The lane stage's output tile: over power-of-two tiles (capped by
-    the extents) of at most 8192 outputs whose shared memory (``word`` bytes
-    a word) fits the budget, the fewest 32-byte sectors of window loaded per
-    output (rows run along the last slot of extent > 1); at equal cost the
-    smaller tile of at least one output per thread. (1, 1, 1) always fits up
-    to kMaxTaps, so there is always a tile."""
+def _stage_tiles(n: tuple, k: tuple, adj: bool, word: int = 4):
+    """The tile body's lane-stage output tile: over power-of-two tiles
+    (capped by the extents) of at most 8192 outputs whose shared memory
+    (``word`` bytes a word) fits ``_LANE_SMEM_BUDGET``, the fewest 32-byte
+    sectors of window loaded per output (rows run along the last slot of
+    extent > 1); at equal cost the smaller tile of at least one output per
+    thread. None if no tile fits (db38 in float64)."""
     sizes = [sorted({min(2**i, m) for i in range(14)}) for m in n]
     best = None
     for t in itertools.product(*sizes):
@@ -765,17 +780,100 @@ def _stage_tiles(n: tuple, k: tuple, adj: bool, word: int = 4) -> tuple:
         key = (rows * -(-run // 8) * 8 / out, out < _THREADS, out)
         if best is None or key < best[0]:
             best = (key, t)
-    return best[1]
+    return None if best is None else best[1]
+
+
+def _lane_smem(n, k, plan, dtype=torch.float32, adj=False) -> int:
+    """Dynamic shared memory of a lane body launch (``lane_smem`` in
+    ``csrc/nddwt_lane.cuh``), bytes: ``stages`` unit buffers, each holding
+    one window per input array (1, or the 4 lane bands of an adjoint, 2 in
+    3D) of the unit's ``R x Ew x T`` elements in the storage type, rounded
+    to 16 bytes, plus 3 x 16 bytes of slack for the pieces' offsets; then
+    the two halves of Q in the compute type (the analysis's T pass of every
+    window row, the adjoint's Z adjoints of every output row; none in 3D).
+    ``plan = (R, Zc, stages)``; ``Zc >= Z``: units of ``R`` whole slabs,
+    else chunks of ``Zc`` outputs with ``Zc + K1 - 1`` window rows (and one
+    slab a unit)."""
+    Z, T = n[1], n[2]
+    R, Zc, stages = plan
+    whole = Zc >= Z
+    R = R if whole else 1
+    ew = Z if whole else Zc + k[1] - 1
+    store = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // store
+    wb = -(-R * ew * T // vec) * vec + 3 * vec
+    nin = (4 if k[2] > 1 else 2) if adj else 1
+    q = 0 if k[2] == 1 else R * (min(Zc, Z) if adj else ew) * T
+    return stages * nin * wb * store + 2 * q * _word(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_plan(n: tuple, k: tuple, dtype=torch.float32, adj: bool = False):
+    """The lane body's plan ``(R, Zc, stages)`` over the lane view ``n =
+    (X*Y, Z, T)`` with taps ``k``, or None where none fits: where even one
+    Z row chunk (K1 rows of the whole T row of every input array, 4 lane
+    bands in an adjoint, one buffer) overflows ``_STREAM_SMEM_BUDGET`` (for
+    the adjoint a T row beyond 1504 at db4 in float32, or 83 at db38 in
+    float64). That class runs on the tile body (``_stage_geometry``). In
+    order of preference, the first that fits:
+
+    1. units of ``R`` whole slabs (``R`` of at most ``_LANE_UNIT``
+       elements an array), with 4, 3, 2 or 1 unit buffers, two CTAs an SM
+       (``_LANE_TWO_PER_SM``; with one buffer the other CTA's passes hide
+       a CTA's copy: at (128, 128, 128, 32) db4 f32 on an H100 the
+       adjoint's whole slabs with one buffer were faster than with two at
+       one CTA an SM, and than chunks of Z): the fewest slabs on the
+       busiest CTA of the wave of ``_STREAM_CTAS``, then the most buffers,
+       then the largest ``R`` (at 128^3 db20, units of 15 slabs left 37 of
+       264 CTAs a fifth unit and took 16 % longer than units of 32);
+    2. chunks of ``Zc`` outputs along Z (Z cut into the fewest equal
+       chunks whose windows fit; a window of ``Zc + K1 - 1`` rows, fewer
+       than Z and at most ``2 Zc``), 4 to 1 buffers, two CTAs an SM (the
+       larger chunk before more buffers: the float64 adjoint at (128, 128,
+       128, 32) db4 took 1.56 ms in chunks of 64 with one buffer, 1.90 in
+       chunks of 32 with two);
+    3. one whole slab a unit, 4 to 2 buffers, in ``_STREAM_SMEM_BUDGET``;
+    4. chunks (a window of fewer than Z rows) with 4 to 2 buffers, then one
+       whole slab with one buffer (no copy in flight), then chunks (a
+       window of at most Z rows) with one buffer, in that budget."""
+    n0, Z, T = n
+    K1 = k[1]
+
+    def first(plans, budget):
+        return next((t for t in plans if _lane_smem(n, k, t, dtype, adj) <= budget), None)
+
+    def chunks(stage_counts, rows_at_most):
+        for nch in range(2, Z + 1):
+            zc = -(-Z // nch)
+            if zc + K1 - 1 <= rows_at_most(zc):
+                yield from ((1, zc, st) for st in stage_counts)
+
+    def busiest_first(t):  # the busiest CTA's slabs, then buffers, then R
+        units = -(-n0 // t[0])
+        return (-(-units // _STREAM_CTAS) * t[0], -t[2], -t[0])
+
+    deep = (4, 3, 2)
+    whole = sorted(((r, Z, st) for r in range(1, max(1, _LANE_UNIT // (Z * T)) + 1)
+                    for st in deep + (1,)), key=busiest_first)
+    return (first(whole, _LANE_TWO_PER_SM)
+            or first(chunks(deep + (1,), lambda zc: min(2 * zc, Z - 1)), _LANE_TWO_PER_SM)
+            or first(((1, Z, st) for st in deep), _STREAM_SMEM_BUDGET)
+            or first(chunks(deep, lambda zc: Z - 1), _STREAM_SMEM_BUDGET)
+            or first([(1, Z, 1)], _STREAM_SMEM_BUDGET)
+            or first(chunks((1,), lambda zc: Z), _STREAM_SMEM_BUDGET))
 
 
 def _stage_geometry(shape, taps, lane: bool, adj: bool, dtype=torch.float32,
                     padded=(False, False)):
     """ctypes arguments of one stage launch on ``dtype`` arrays: view
-    extents, taps, tile and left halo per slot (``halo_widths``), and the
+    extents, taps, plan and left halo per slot (``halo_widths``), and the
     taps in the compute type (reversed for an adjoint, whose halo is
-    mirrored: K//2 left instead of K//2 - 1). The lead stages' "tile" is
-    their streamed plan ``(C, T1, T2)`` (``_stream_plan``; the analysis
-    takes ``_walk_bands`` bands a walk). ``padded``: the
+    mirrored: K//2 left instead of K//2 - 1). The lane stages' plan is the
+    lane body's ``(R, Zc, stages)`` (``_lane_plan``), or, for the class no
+    plan fits, the tile body's tile ``(t0, t1, -t2)`` (``_stage_tiles``;
+    NotImplementedError where none fits that body's budget either); the
+    lead stages' is their streamed plan ``(C, T1, T2)`` (``_stream_plan``;
+    the analysis takes ``_walk_bands`` bands a walk). ``padded``: the
     lead stage's halo-padded slots 0 and 1, which may be shorter than their
     filters."""
     n, slot_taps = _stage_slots(shape, taps, lane)
@@ -788,8 +886,15 @@ def _stage_geometry(shape, taps, lane: bool, adj: bool, dtype=torch.float32,
     left = [0 if t is None else halo_widths([t], adj)[0][0] for t in slot_taps]
     if not lane:  # the lead stages stream X (csrc/nddwt_stream.cuh)
         t = _stream_plan(n, k, dtype, "lead" if adj else "lead_dec")
-    else:
-        t = _stage_tiles(tuple(n), tuple(k), adj, _word(dtype))
+    else:  # the lane body's plan, or the tile body's tile as (t0, t1, -t2)
+        t = _lane_plan(tuple(n), tuple(k), dtype, adj)
+        if t is None:
+            tile = _stage_tiles(tuple(n), tuple(k), adj, _word(dtype))
+            if tile is None:
+                raise NotImplementedError(
+                    f"a lane stage of {k[1]}-tap filters on the view {tuple(n)} "
+                    f"in {dtype} fits neither the lane body nor the tile body")
+            t = (tile[0], tile[1], -tile[2])
     return (_ints(n), _ints(k), _ints(t), _ints(left),
             _tap_array(slot_taps, adj, _compute_dtype(dtype)))
 

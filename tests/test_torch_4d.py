@@ -413,10 +413,10 @@ def test_stage_route(wv, stages):
 def test_stage_geometry(shape, wv, lane, adj):
     """The launch geometry the stage wrappers hand the kernels: the 3-slot
     view, one tap of 1.0 on the pass-through slot, the analysis/adjoint
-    halos and tap orientation, and a tile inside the extents and the
-    shared-memory budget (for the lead stages their streamed plan, inside
-    the stream budget: the analysis's with the in-plane bands a walk
-    keeps)."""
+    halos and tap orientation, and a plan inside the shared-memory budget:
+    for the lane stages the lane body's (R, Zc, stages), whose units cover
+    the view, for the lead stages their streamed plan, inside the stream
+    budget (the analysis's with the in-plane bands a walk keeps)."""
     taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
     n, k, t, left, arr = ck._stage_geometry(shape, taps, lane, adj)
     lane_axes = list(range(2, len(shape)))
@@ -445,8 +445,11 @@ def test_stage_geometry(shape, wv, lane, adj):
         assert (ck._stream_smem(list(k), list(t), torch.float32, bands=bands)
                 <= ck._STREAM_SMEM_BUDGET)
         return
-    assert all(1 <= t[a] <= n[a] for a in range(3))
-    assert 4 * ck._stage_words(list(t), list(k), adj) <= ck._LANE_SMEM_BUDGET
+    R, Zc, stages = t
+    assert 1 <= stages <= ck._LANE_MAX_STAGES and 1 <= R <= n[0] and Zc >= 1
+    assert Zc >= n[1] or (R == 1 and Zc + k[1] - 1 <= n[1])
+    assert (ck._lane_smem(tuple(n), tuple(k), tuple(t), torch.float32, adj)
+            <= ck._STREAM_SMEM_BUDGET)
 
 
 def test_launch_arguments():

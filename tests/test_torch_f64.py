@@ -235,7 +235,12 @@ def test_f64_tiles_and_stage_route():
             assert (ck._stream_smem(list(k), list(t), torch.float64)
                     > ck._stream_smem(list(k), list(t), torch.float32))
             continue
-        assert 8 * ck._stage_words(list(t), list(k), adj) <= ck._LANE_SMEM_BUDGET
+        # the lane body's windows (whole slabs, 3 x 2 doubles of slack) and
+        # Q are 8-byte words, within the two-CTA budget
+        e = t[0] * n[1] * n[2]
+        smem = ck._lane_smem(tuple(n), tuple(k), tuple(t), torch.float64)
+        assert t[1] >= n[1] and smem == t[2] * (e + 6) * 8 + 2 * e * 8
+        assert smem <= ck._LANE_TWO_PER_SM
 
 
 def test_f64_elementwise_plain_versions(rng):
