@@ -35,6 +35,24 @@ time per call, wrapper and launch, over those same calls (``*_host_ms``).
 Where a call's host time exceeds its queued time, the unqueued time reads
 the host.
 
+The one-launch flat kernels are timed through the plan, per call, the
+same three ways: the 100-iteration 256^2 db4 L3 ``fista_inpaint`` and
+``fista_inpaint_split`` solves (preserve_l2, lam 0.05, 40 % sampling; one
+``nddwt_flat_iter`` each), 20 ``dec_rec_n`` sweeps at 264^2 (db1, db3) L3
+(one ``nddwt_flat_iter``), and the ``dec_rec`` step (threshold 0.1) at
+256^2 and at 64^3 db4 L3 (one ``nddwt_flat_pair`` each); each is held once
+against the plan's direct path (1e-4 of max|plain|; the solves 2e-3) and
+its launches are counted.
+
+The other families the flat kernel serves are timed on ``nddwt_flat_pair``
+itself (``ops/flat.pair_flat``, the wrapper both checkouts have), plain
+and queued, 5 repeats of 3 calls: the ``dec_rec`` pair (threshold 0.1) at
+the largest count the plan sends there, 2^20 in 1D (db4 L3), 2048^2 in 2D
+(db4 L3 in float32, bfloat16 and, at 1024^2, float64; db20 L2), 160^3 in
+3D (db4 L3), 64^3 at db20 L2 (the stage route's 2^18), (32, 32, 16, 16)
+db4 L3 in 4D and (16, 16, 8, 8, 8) db2 L2 in 5D; each checked once by its
+round trip at threshold 0 (1e-4 of max|x|; bfloat16 1e-1, float64 1e-10).
+
 Prints the card's name and power limit first and one JSON object last, with
 every repeat and the median per checkout. It exits non-zero without a CUDA
 device or if a process fails.
@@ -57,8 +75,141 @@ KEYS = ("pair_3d_ms", "pair_4d_ms", "step_db20_ms", "rec_level_f32_ms", "rec_lev
         "lead_adj_db20_ms", "pair_4d_f64_ms", "pair_4d_bf16_ms", "lane_dec_ms", "lane_adj_ms",
         "lane_dec_db20_ms", "lane_adj_db20_ms")
 LANE_KEYS = ("lane_dec_ms", "lane_adj_ms", "lane_dec_db20_ms", "lane_adj_db20_ms")
+FLAT_KEYS = ("fista_256_ms", "fista_split_256_ms", "chain_264_ms", "flat_pair_256_ms",
+             "flat_pair_64_ms")
+KEYS += FLAT_KEYS
+# (key, shape, wavelet, level, dtype name): the flat kernel's other families
+FAMILIES = (("flat_1d_2p20_ms", (2**20,), "db4", 3, "float32"),
+            ("flat_2d_2p22_ms", (2048, 2048), "db4", 3, "float32"),
+            ("flat_2d_2p22_bf16_ms", (2048, 2048), "db4", 3, "bfloat16"),
+            ("flat_2d_2p20_f64_ms", (1024, 1024), "db4", 3, "float64"),
+            ("flat_2d_2p22_db20_ms", (2048, 2048), "db20", 2, "float32"),
+            ("flat_3d_160_ms", (160, 160, 160), "db4", 3, "float32"),
+            ("flat_3d_64_db20_ms", (64, 64, 64), "db20", 2, "float32"),
+            ("flat_4d_2p18_ms", (32, 32, 16, 16), "db4", 3, "float32"),
+            ("flat_5d_ms", (16, 16, 8, 8, 8), "db2", 2, "float32"))
+KEYS += tuple(f[0] for f in FAMILIES) + tuple(f[0].replace("_ms", "_queued_ms")
+                                              for f in FAMILIES)
 KEYS += tuple(k.replace("_ms", suffix) for suffix in ("_queued_ms", "_host_ms")
-              for k in LANE_KEYS)
+              for k in LANE_KEYS + FLAT_KEYS)
+
+
+def three_ways(fn, reps):
+    """Per call, 5 repeats of ``reps`` calls each: the unqueued time, the
+    time queued behind a sleep (the kernels alone) and the host's time."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    plain, queued, host = [], [], []
+    for _ in range(5):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        plain.append(s.elapsed_time(e) / reps)
+    for _ in range(5):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)  # cycles: about 25 ms
+        s.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        e.record()
+        torch.cuda.synchronize()
+        queued.append(s.elapsed_time(e) / reps)
+        host.append((t1 - t0) * 1e3 / reps)
+    return plain, queued, host
+
+
+def flat_calls(tw, torch, gen, out) -> int:
+    """Time the one-launch flat kernels' calls through the plan into
+    ``out``; 1 if one disagrees with the direct path or launches other
+    kernels."""
+    from non_decimated_wavelets_tpu_torch.models import fista_inpaint, fista_inpaint_split
+    from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
+
+    shape = (256, 256)
+    plan = tw.NDDWT("db4", shape, preserve_l2=True, device="cuda")
+    direct = tw.NDDWT("db4", shape, preserve_l2=True, path="direct", device="cuda")
+    mask = (torch.rand(shape, generator=gen, device="cuda") < 0.4).float()
+    xs = torch.randn((2,) + shape, generator=gen, device="cuda")
+    cplan = tw.NDDWT(("db1", "db3"), (264, 264), device="cuda")
+    cdirect = tw.NDDWT(("db1", "db3"), (264, 264), path="direct", device="cuda")
+    xc = torch.randn((264, 264), generator=gen, device="cuda")
+    lams_n = [0.2 * 0.1 ** (i / 19) for i in range(20)]
+    cube = tw.NDDWT("db4", (64, 64, 64), device="cuda")
+    cdir = tw.NDDWT("db4", (64, 64, 64), path="direct", device="cuda")
+    x3 = torch.randn((64, 64, 64), generator=gen, device="cuda")
+
+    def chain_ref():
+        y = xc
+        for lam in lams_n:
+            y = cdirect.dec_rec(y, 3, threshold=lam, band_axis=0)[1]
+        return y
+
+    calls = (  # (key, kernel, calls a repeat, tolerance, the call on a plan)
+        ("fista_256_ms", "nddwt_flat_iter", 3, 2e-3,
+         lambda p: fista_inpaint(p, mask * xs[0], mask, 0.05, 3, 100)),
+        ("fista_split_256_ms", "nddwt_flat_iter", 3, 2e-3,
+         lambda p: fista_inpaint_split(p, mask * xs, mask, 0.05, 3, 100)),
+        ("chain_264_ms", "nddwt_flat_iter", 5, 1e-4, None),
+        ("flat_pair_256_ms", "nddwt_flat_pair", 20, 1e-4,
+         lambda p: p.dec_rec(xs[0], 3, threshold=0.1, band_axis=0)[1]),
+        ("flat_pair_64_ms", "nddwt_flat_pair", 20, 1e-4, None),
+    )
+    for key, kernel, reps, tol, solve in calls:
+        if key == "chain_264_ms":
+            fn, want = (lambda: cplan.dec_rec_n(xc, 3, lams_n)), chain_ref()
+        elif key == "flat_pair_64_ms":
+            fn = lambda: cube.dec_rec(x3, 3, threshold=0.1, band_axis=0)[1]  # noqa: E731
+            want = cdir.dec_rec(x3, 3, threshold=0.1, band_axis=0)[1]
+        else:
+            fn, want = (lambda s=solve: s(plan)), solve(direct)
+        ck.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ck.launch_counts.items() if v}
+        err = (got - want).abs().max().item()
+        if launched != {kernel: 1} or err > tol * want.abs().max().item():
+            print(f"{key}: launched {launched}, {err} against the direct path",
+                  file=sys.stderr)
+            return 1
+        plain, queued, host = three_ways(fn, reps)
+        out[key] = plain
+        out[key.replace("_ms", "_queued_ms")] = queued
+        out[key.replace("_ms", "_host_ms")] = host
+    return 0
+
+
+def family_calls(tw, torch, gen, out) -> int:
+    """Time ``nddwt_flat_pair`` on the families of ``FAMILIES`` into
+    ``out``; 1 if a round trip misses."""
+    from non_decimated_wavelets_tpu_torch.ops import flat
+
+    for key, shape, wv, level, dtype in FAMILIES:
+        dt = getattr(torch, dtype)
+        taps = tw.NDDWT(wv, shape, device="cuda").taps_hp
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        err = (flat.pair_flat(x, taps, level, False, 0.0)[1].double()
+               - x.double()).abs().max().item()
+        tol = {"bfloat16": 1e-1, "float64": 1e-10}.get(dtype, 1e-4)
+        if err > tol * x.abs().max().item():
+            print(f"{key}: round trip {err}", file=sys.stderr)
+            return 1
+        plain, queued, _ = three_ways(lambda: flat.pair_flat(x, taps, level, False, 0.1), 3)
+        out[key] = plain
+        out[key.replace("_ms", "_queued_ms")] = queued
+        del x
+        torch.cuda.empty_cache()
+    return 0
 
 
 def child(root: str) -> int:
@@ -206,6 +357,8 @@ def child(root: str) -> int:
             out[key.replace("_ms", "_host_ms")] = host
         del y, call
         torch.cuda.empty_cache()
+    if flat_calls(tw, torch, gen, out) or family_calls(tw, torch, gen, out):
+        return 1
     print(json.dumps(out))
     return 0
 

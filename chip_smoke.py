@@ -49,8 +49,10 @@ Phases:
    long-filter route); every kernel in float64 too, and the 1D kernels at
    1M, 54321, 8 (N = K) and 2^23 samples in float32, bfloat16 and float64;
    the two flat kernels in every mode, with and without the split pair,
-   at the JAX flat tests' shapes, two 5D shapes, N = K and the one-launch
-   paths' shapes, in float32, bfloat16 and float64; the two multilevel
+   at the JAX flat tests' shapes, two 5D shapes, N = K, the one-launch
+   paths' shapes, a 3D shape whose plan takes its axes in groups and two
+   db10 shapes whose windows are longer than their extents, in float32,
+   bfloat16 and float64; the two multilevel
    kernels at the JAX multilevel tests' cases (mixed wavelets, L2-L4) and
    odd extents (37, 29, 41) and (50, 33), batches of 1, 2 and 3, lam 0 and
    0.1, both normalizations, in float32, bfloat16 and float64, and at the
@@ -111,7 +113,8 @@ Phases:
    kernels at 2^23 db6 and the float64 level kernels at 256^3 db4 the same
    way (``F.conv1d``, ``F.conv3d`` in float64), and the float64 and 1D
    pairs and steps; the flat kernels beside the per-level route (no
-   PyTorch call computes a multilevel transform), the whole solve per
+   PyTorch call computes a multilevel transform) and queued behind a sleep
+   (the kernel alone, beside the call's own time), the whole solve per
    iteration beside one stepped iteration, ``dec_rec_n`` per sweep beside
    one per-level ``dec_rec``, the 128^3 db20 step on the stage and the
    flat kernels; the multilevel kernels per call at the multi-coil batch
@@ -130,7 +133,8 @@ phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
 before it a JSON list of the kernels with their launches, errors, times and
 bounds (the float64 instantiations of the per-level and 1D kernels in a
 ``float64`` entry each, the flat and multilevel kernels' per-level route
-time in ``per_level_route_ms``, the multilevel kernels' flat-kernel time in
+time in ``per_level_route_ms``, the flat kernels' queued time in
+``queued_ms``, the multilevel kernels' flat-kernel time in
 ``flat_route_ms``, the four kernels with a halo-padded mode their sharded
 path's numbers in a ``valid`` entry, with the wrap mode's time on the same
 block in ``wrap_ms`` and the padded function's library call in
@@ -177,6 +181,7 @@ MULTI_CASES = [((64, 128), "db2", 3), ((32, 16, 128), "db4", 3),
 SOLVE_SHAPE, SOLVE_ITERS = (256, 256), 100  # the one-launch FISTA solves
 CHAIN_SHAPE, CHAIN_WV, CHAIN_SWEEPS = (264, 264), ("db1", "db3"), 20  # nd_dwt_2D's
 SPLIT_SHAPE = (128, 128)  # the one-launch dec_rec_split
+FLAT_GROUPS_SHAPE = (48, 40, 36)  # a 3D flat launch whose plan takes its axes in groups
 FIVE_D = (((12, 10, 8, 6, 5), "db1", 2), ((8, 8, 8, 8, 8), "db2", 1))
 # The streamed synthesis (nddwt_rec_level, built from nddwt_level.cu, and
 # nddwt_lead_adj, from nddwt_4d.cu) is written in this header, and the cases
@@ -305,6 +310,27 @@ def timed(fn, reps, warm=2):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_queued(fn, reps, warm=2):
+    """Mean ms per call of ``reps`` calls enqueued behind a ~25 ms
+    ``torch.cuda._sleep``: the card runs them back to back, so the events
+    read the kernels alone and never a gap where the card waits for the
+    host."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -889,14 +915,28 @@ def main() -> int:
 
     # The one-launch kernels: every mode, with and without the split pair,
     # at the JAX flat tests' shapes (tests/test_pallas.py:284-291), two 5D
-    # shapes, N = K and the one-launch paths' shapes; one line per case.
+    # shapes, N = K, the one-launch paths' shapes, a 3D shape whose plan
+    # takes the axes in groups (FLAT_GROUPS_SHAPE) and a long filter whose
+    # windows are longer than the extents (they wrap on both sides), also
+    # on a last extent whose rows are copied in 16-byte pieces; one line
+    # per case.
     flat_cases = [
         ((64, 64), "db2", 2), ((54,), "db4", 3), ((26, 26), ("db1", "db3"), 2),
         ((24, 18, 10), ("db2", "db3", "db2"), 2), ((264, 264), "db4", 1),
         ((14, 10, 6, 6), "db1", 2), *FIVE_D, ((8,), "db4", 3), ((8, 8), "db4", 2),
         (SOLVE_SHAPE, "db4", LEVEL), (CHAIN_SHAPE, CHAIN_WV, LEVEL),
-        (SPLIT_SHAPE, "db4", LEVEL),
+        (SPLIT_SHAPE, "db4", LEVEL), (FLAT_GROUPS_SHAPE, "db4", 2), ((20, 22), "db10", 2),
+        ((20, 24), "db10", 2),
     ]
+    for shape, wv, lvl in flat_cases[-3:]:
+        k = tuple(len(t[0]) for t in tw.NDDWT(wv, shape, device=dev).taps_hp)
+        plans = {(dt, b): flat._flat_plan(shape, k, dt, b)
+                 for dt in (torch.float32, torch.bfloat16, torch.float64) for b in (0, 2)}
+        print(f"  flat plans at {shape} {wv}: " + "; ".join(
+            f"{str(dt).removeprefix('torch.')} batch {b}: groups {p.ends} tile {p.tile}"
+            for (dt, b), p in plans.items()))
+        if shape == FLAT_GROUPS_SHAPE and all(len(p.ends) == 1 for p in plans.values()):
+            failures.append(f"{shape}: no plan takes the axes in groups")
     lams3, moms3 = [0.3, 0.12, 0.05], [0.0, 0.28, 0.43]
     for seed, (shape, wv, lvl) in enumerate(flat_cases):
         # The tight frame's taps: the iterates (preserve_l2) keep their scale.
@@ -1824,6 +1864,12 @@ def main() -> int:
         timed(lambda: flat.fista_flat(b0, smask, taps_s, LEVEL, True, lams_s, moms_s, 1.0), 5),
         timed(lambda: flat_ref.flat_iter_ref("fista", b0, smask, taps_s, LEVEL, True, lams_s,
                                              moms_s, 1.0), 1, warm=1))
+    queued = {  # the kernels alone, behind a sleep
+        "nddwt_flat_pair": timed_queued(
+            lambda: flat.pair_flat(x0, taps_s, LEVEL, True, THRESHOLD), 50),
+        "nddwt_flat_iter": timed_queued(
+            lambda: flat.fista_flat(b0, smask, taps_s, LEVEL, True, lams_s, moms_s, 1.0), 5),
+    }
     with xover.limits(0, 0, 0):  # the per-level route at the same shapes
         per_level_route = {
             "nddwt_flat_pair": timed(
@@ -1853,8 +1899,9 @@ def main() -> int:
                        ("nddwt_flat_iter", f"one {SOLVE_ITERS}-iteration fista_inpaint")):
         k, p = ms[name]
         print(f"  {name} {SOLVE_SHAPE} db4 L{LEVEL} f32 per call ({what}): kernel {k:.4f} ms, "
-              f"plain {p:.4f} ms, per-level route {per_level_route[name]:.4f} ms, library "
-              f"none, bound {bound[name][0]:.4f} ms ({bound[name][1]}) {card}")
+              f"queued {queued[name]:.4f} ms, plain {p:.4f} ms, per-level route "
+              f"{per_level_route[name]:.4f} ms, library none, bound {bound[name][0]:.4f} ms "
+              f"({bound[name][1]}) {card}")
     print(f"  fista_inpaint {SOLVE_SHAPE} per iteration: one launch "
           f"{ms['nddwt_flat_iter'][0] / SOLVE_ITERS:.4f} ms, per-level stepped "
           f"{per_level_route['nddwt_flat_iter'] / SOLVE_ITERS:.4f} ms {card}")
@@ -1957,6 +2004,8 @@ def main() -> int:
             k["float64"] = entry(*f64_entry[name])
         if name in per_level_route:  # in place of a library call
             k["per_level_route_ms"] = per_level_route[name]
+        if name in queued:  # the kernel alone, behind a sleep
+            k["queued_ms"] = queued[name]
         if name in flat_route:
             k["flat_route_ms"] = flat_route[name]
         if name in padded_ms:  # the halo-padded mode, on the sharded path

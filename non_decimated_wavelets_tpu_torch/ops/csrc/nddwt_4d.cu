@@ -89,36 +89,18 @@ struct Sources {
   long long idx[kMaxBands];  // band d's index into y; -1 reads the approx array
 };
 
-// i / d by one multiply-high, m = ceil(2^32 / d): exact for 0 <= i < 2^16
-// and d < 2^16 (i = q d + r: i m / 2^32 = q + (r + i e / 2^32) / d with
-// e = m d - 2^32 < d, and i e < 2^32). Every flat index inside a CTA's
-// window, intermediate or tile is under 2^16: shared memory (227 KB) holds
-// fewer words, and the wrapper keeps a tile to 8192 outputs. d == 1 gives
-// m = 0, one = ~0.
-struct FastDiv {
-  int d;
-  unsigned m, one;
-  __device__ explicit FastDiv(int divisor)
-      : d(divisor),
-        m(divisor == 1 ? 0u : 0xFFFFFFFFu / (unsigned)divisor + 1u),
-        one(divisor == 1 ? ~0u : 0u) {}
-  __device__ __forceinline__ int div(int i) const {
-    return (int)(__umulhi((unsigned)i, m) + ((unsigned)i & one));
-  }
-};
-
 // A flat index over (., n1, n2), slot 2 fastest, split into (c0, c1, c2)
-// without a hardware division: the index loops below would otherwise spend
-// most of their instructions on it.
+// without a hardware division (FastDiv, nddwt_common.cuh): the index loops
+// below would otherwise spend most of their instructions on it.
 struct Split3 {
   FastDiv f1, f2;
-  __device__ Split3(int n1, int n2) : f1(n1), f2(n2) {}
+  __device__ Split3(int n1, int n2) : f1(make_div(n1)), f2(make_div(n2)) {}
   __device__ __forceinline__ void operator()(int i, int& c0, int& c1,
                                              int& c2) const {
-    const int r = f2.div(i);
-    c2 = i - r * f2.d;
-    c0 = f1.div(r);
-    c1 = r - c0 * f1.d;
+    const int r = fdiv(f2, i);
+    c2 = i - r * (int)f2.d;
+    c0 = fdiv(f1, r);
+    c1 = r - c0 * (int)f1.d;
   }
 };
 

@@ -144,6 +144,28 @@ __host__ __device__ unsigned int num_tiles(const LevelT<C>& g) {
   return c;
 }
 
+// n / d for 0 <= n < 2^31 and 1 <= d < 2^31 by a multiply-high, an add and a
+// shift (Granlund and Montgomery); make_div computes the magic number, once
+// per divisor, on the host or the device.
+struct FastDiv {
+  unsigned d, m, s;
+};
+
+__host__ __device__ inline FastDiv make_div(unsigned d) {
+  FastDiv f{d, 0u, 0u};
+#ifdef __CUDA_ARCH__
+  f.s = d > 1 ? 32 - __clz(d - 1) : 0;
+#else
+  while ((1ull << f.s) < d) ++f.s;
+#endif
+  f.m = (unsigned)(((1ull << 32) * ((1ull << f.s) - d)) / d + 1);
+  return f;
+}
+
+__device__ __forceinline__ int fdiv(const FastDiv& f, int n) {
+  return (int)((__umulhi((unsigned)n, f.m) + (unsigned)n) >> f.s);
+}
+
 // The dynamic shared memory of a kernel over compute type C, typed: one
 // extern array for every instantiation (two extern arrays of different
 // types in one translation unit would conflict).

@@ -21,6 +21,13 @@ rows), each copied by bulk copies into a ring of unit buffers, then the
 T and Z passes (the analysis) or the Z and T adjoints (the adjoint) run on
 the unit in shared memory. ``lane_replay`` replays it.
 
+``csrc/nddwt_flat.cu`` holds the body of ``nddwt_flat_pair`` and
+``nddwt_flat_iter``: one pass per axis group, level and direction, each
+CTA copying a tile's window (the tile and its halo on the group's axes)
+into shared memory and running the level's band tree there, on the plan
+``flat._flat_plan`` lays out. ``flat_replay`` replays it, held against
+``flat_ref.flat_pair_ref``/``flat_iter_ref``.
+
 ``stream_replay`` and ``stream_ana_replay`` do the same walks with torch
 ops, CTA by CTA: the grid and chunks the plan function lays out, the
 windows each CTA loads (the wrapped or halo-padded input rows and columns,
@@ -359,3 +366,410 @@ def lane_replay(src, n, k, t, left, arr, adj, scale=1.0, ctas=264, shift=0):
                 written[at] += 1
     assert bool((written == 1).all()), "an output written other than once"
     return out.to(src.dtype)
+
+
+def _flat_steps(tile, k, a0, a1, pitch):
+    """The in-tile steps of axis group ``[a0, a1)`` (``flat_layout`` in
+    ``csrc/nddwt_flat.cu``): per axis ``(inner, t, outer, w, in_size,
+    out_size)``, the arrays shaped ``outer x w x inner`` before the axis
+    and ``outer x t x inner`` after it; the window's rows ``pitch`` words
+    apart until the last axis is done."""
+    cur = [t + (kk - 1 if a0 <= ax < a1 else 0) for ax, (t, kk) in enumerate(zip(tile, k))]
+    cur[-1] = pitch
+    steps = []
+    for ax in range(a0, a1):
+        inner = int(np.prod(cur[ax + 1:], dtype=np.int64))
+        outer = int(np.prod(cur[:ax], dtype=np.int64))
+        steps.append((inner, tile[ax], outer, cur[ax], outer * cur[ax] * inner,
+                      outer * tile[ax] * inner))
+        cur[ax] = tile[ax]
+    return steps
+
+
+def flat_replay(mode, arr, taps, level, preserve_l2=False, lam=0.0, batch=0, mask=None,
+                lams=(), moms=None, step=0.0, plan=None, ctas=264, stats=None):
+    """One ``nddwt_flat_pair`` or ``nddwt_flat_iter`` launch
+    (``csrc/nddwt_flat.cu``), pass by pass and CTA by CTA, with its
+    contract: mode ``'dec'``, ``'rec'``, ``'pair'`` as ``flat_pair_ref``
+    (``arr`` the array, or the bands for ``'rec'``; ``lam`` the shrink),
+    ``'chain'`` and ``'fista'`` as ``flat_iter_ref`` (``lams``, ``moms``,
+    ``step``, ``mask``); ``batch`` 0, or 2 for a leading pair. ``plan``
+    (``flat.FlatPlan``) defaults to ``flat._flat_plan``'s; ``ctas`` is the
+    grid's bound (one wave of the card).
+
+    The plan is checked as the kernel checks it (its shared memory and units
+    recomputed by ``flat.flat_layout``). Per pass, the CTAs walk the units
+    ``c, c + grid, ...`` (asserted to cover each unit once); each unit
+    builds the kernel's tables (window row offsets and columns, wrapped;
+    output rows, -1 past the array), copies its windows into a stage buffer
+    of the plan's words that holds nothing else (NaN), rows
+    ``flat.window_pitch`` apart and shifted as the kernel shifts them, in
+    the kernel's pieces (a whole 16-byte piece reads consecutive source
+    elements from its first column's, asserted to be the columns' own;
+    ``stats``, a dict, counts the elements copied whole and one by one),
+    runs the in-tile
+    steps on the kernel's flat indices (every read asserted inside the
+    buffer's words, every stage's writes inside the other buffer) and
+    writes the pass's outputs, each asserted written exactly once; then
+    the shrink, the rounding to the storage type where the kernel stores,
+    and the epilogue."""
+    from . import flat
+
+    T = arr.dtype
+    cdt = _compute_dtype(T)
+    B = max(batch, 1)
+    lead = 1 if batch else 0
+    shape = tuple(int(s) for s in arr.shape[lead + (1 if mode == "rec" else 0):])
+    d = len(shape)
+    nb = 2 ** d
+    k = tuple(int(np.shape(t)[1]) for t in taps)
+    tp = [torch.as_tensor(np.asarray(t), dtype=cdt) for t in taps]
+    word = torch.empty((), dtype=cdt).element_size()
+    vw = 16 // word  # the words of a 16-byte piece
+    plan = plan or flat._flat_plan(shape, k, T, batch)
+    lay = flat.flat_layout(shape, k, plan.tile, plan.ends, B, word)
+    assert lay["smem"] == plan.smem and lay["units"] == plan.units, "plan disagrees"
+    assert plan.smem <= 227 * 1024 - 2 * flat.MAX_DIM * 76 * word, "beyond shared memory"
+    assert all(1 <= t <= n for t, n in zip(plan.tile, shape)) and plan.ends[-1] == d
+    xw, yw, tile = lay["xw"], lay["yw"], plan.tile
+    numel = int(np.prod(shape))
+    stride = [int(np.prod(shape[ax + 1:], dtype=np.int64)) for ax in range(d)]
+    nt = [-(-n // t) for n, t in zip(shape, tile)]
+    ntiles = int(np.prod(nt))
+    tile_elems = int(np.prod(tile))
+    out_rows = int(np.prod(tile[:-1], dtype=np.int64))
+    nbands = nb + (nb - 1) * (level - 1)
+    grid = min(ctas, plan.units)
+    groups = list(zip((0,) + plan.ends[:-1], plan.ends))
+
+    def walk(units):
+        """The units of a pass, CTA by CTA."""
+        us = [u for c in range(grid) for u in range(c, units, grid)]
+        assert sorted(us) == list(range(units)), "a unit dropped or repeated"
+        return torch.tensor(us, dtype=torch.int64)
+
+    def origins(tiles):
+        o = torch.zeros((len(tiles), d), dtype=torch.int64)
+        rest = tiles.clone()
+        for ax in range(d - 1, -1, -1):
+            o[:, ax] = (rest % nt[ax]) * tile[ax]
+            rest = rest // nt[ax]
+        return o
+
+    def tables(o, a0, a1, adj):
+        """rowt (U, rows), colt (U, cols), outr (U, out_rows), the kernel's."""
+        e = [t + (kk - 1 if a0 <= ax < a1 else 0) for ax, (t, kk) in enumerate(zip(tile, k))]
+        left = [kk // 2 - (0 if adj else 1) if a0 <= ax < a1 else 0 for ax, kk in enumerate(k)]
+        rows = int(np.prod(e[:-1], dtype=np.int64))
+        r = torch.arange(rows)
+        rowt = torch.zeros((len(o), rows), dtype=torch.int64)
+        for ax in range(d - 2, -1, -1):
+            ia = r % e[ax]
+            r = r // e[ax]
+            rowt += ((o[:, ax:ax + 1] + ia - left[ax]) % shape[ax]) * stride[ax]
+        colt = (o[:, -1:] + torch.arange(e[-1]) - left[-1]) % shape[-1]
+        cols, pitch, shift = flat.window_pitch(shape, k, tile, a0, a1, word)
+        assert cols == e[-1]
+        j = torch.arange(out_rows)
+        outr = o[:, -1:].repeat(1, out_rows)
+        inside = torch.ones_like(outr, dtype=torch.bool)
+        for ax in range(d - 2, -1, -1):
+            c = o[:, ax:ax + 1] + j % tile[ax]
+            j = j // tile[ax]
+            inside &= c < shape[ax]
+            outr = outr + c * stride[ax]
+        outr = torch.where(inside, outr, torch.full_like(outr, -1))
+        sh = colt[:, 0] % vw if shift else torch.zeros(len(o), dtype=torch.int64)
+        assert rowt.min() >= 0 and rowt.max() < numel and colt.max() < shape[-1]
+        return rowt, colt, outr, cols, pitch, sh, shift
+
+    def windows(rowt, colt, cols, pitch, sh, shift, nwin, src_of):
+        """The stage buffer X (U, xw) after the copy: window kk's column c of
+        row r, from rowt[r] + colt[c] of the sources src_of(kk) gives
+        [(flat source, (U,) base offsets, (U,) units that read it)], at
+        kk win + r pitch + sh + c. The kernel's two loops a row (its
+        RowCopy for the unit's sh): nw whole pieces of vw columns from
+        column `head` on, each at a vw-aligned word and starting vw-aligned
+        in the source, whose vw source elements are read from the first
+        one's on (asserted to be the columns' own); then the other columns
+        one by one. Every column is asserted copied once."""
+        rows = rowt.shape[1]
+        win = rows * pitch
+        assert nwin * win <= xw, "windows beyond the stage buffer"
+        assert int((sh + cols).max()) <= pitch, "a shifted row beyond its pitch"
+        vec = shape[-1] % vw == 0 and pitch % vw == 0
+        srcc = torch.full_like(colt, -1)
+        n_whole = 0
+        for s_ in sh.unique().tolist():
+            ui = torch.nonzero(sh == s_).flatten()[:, None]
+            lead = (vw - s_ % vw) % vw
+            nw = ((cols - lead) // vw if vec and s_ < vw and (shift or s_ == 0)
+                  and cols >= lead + vw else 0)
+            head = lead if nw else cols
+            cover = torch.zeros(cols, dtype=torch.int64)
+            for q in range(nw):
+                c = head + q * vw
+                assert (s_ + c) % vw == 0, "a piece off 16-byte alignment in shared memory"
+                f = colt[ui, c]
+                assert bool((f % vw == 0).all()) and int(f.max()) + vw <= shape[-1], \
+                    "a piece off alignment or across the wrap in the source"
+                srcc[ui, c + torch.arange(vw)] = f + torch.arange(vw)
+                cover[c:c + vw] += 1
+            j = torch.arange(cols - nw * vw)
+            c = torch.where(j < head, j, j + nw * vw)
+            srcc[ui, c] = colt[ui, c]
+            cover.index_add_(0, c, torch.ones_like(c))
+            assert bool((cover == 1).all()), "a window column copied other than once"
+            n_whole += len(ui) * nw * vw
+        assert bool((srcc == colt).all()), "a whole piece reads other columns than its own"
+        if stats is not None:
+            stats["whole"] = stats.get("whole", 0) + nwin * rows * n_whole
+            stats["single"] = stats.get("single", 0) + nwin * rows * (colt.numel() - n_whole)
+        pos = torch.arange(cols)[None, :] + sh[:, None]  # (U, cols): word in the row
+        row = torch.arange(rows).repeat_interleave(cols)
+        col = torch.arange(cols).repeat(rows)
+        at = rowt[:, row] + srcc[:, col]  # (U, rows * cols)
+        dst = row * pitch + pos[:, col]
+        X = torch.full((rowt.shape[0], xw), float("nan"), dtype=cdt)
+        for w in range(nwin):
+            for src, base, units in src_of(w):
+                if not bool(units.any()):
+                    continue
+                ui = torch.nonzero(units).flatten()
+                X[ui] = X[ui].scatter(1, w * win + dst[ui], src[base[ui, None] + at[ui]].to(cdt))
+        return X
+
+    def gather(buf, idx, words):
+        assert int(idx.max()) < words, "a read beyond the stage's words"
+        return buf[:, idx]
+
+    def gather_u(buf, idx, words):
+        """buf[u, idx[u]] for each unit u: reads at a unit's own shift."""
+        assert int(idx.max()) < words, "a read beyond the stage's words"
+        return buf.gather(1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
+
+    def ana_step(cur, st, narr, ax, words_in, words_out):
+        inner, t, outer, w, in_size, out_size = st
+        items = narr * out_size
+        assert 2 * items <= words_out, "a stage beyond its buffer"
+        i = torch.arange(items)
+        rest, ii = i // inner, i % inner
+        r2, c = rest // t, rest % t
+        idx = ((r2 * w + c) * inner + ii)[:, None] + torch.arange(k[ax]) * inner
+        v = gather(cur, idx, words_in)
+        nxt = torch.full((cur.shape[0], words_out), float("nan"), dtype=cdt)
+        nxt[:, :items] = v @ tp[ax][0]
+        nxt[:, items:2 * items] = v @ tp[ax][1]
+        return nxt
+
+    def syn_step(cur, st, nout, ax, words_in, words_out):
+        inner, t, outer, w, in_size, out_size = st
+        items = nout * out_size
+        assert items <= words_out, "a stage beyond its buffer"
+        i = torch.arange(items)
+        rest, ii = i // inner, i % inner
+        r2, c = rest // t, rest % t
+        h, oo = r2 // outer, r2 % outer
+        base = 2 * h * in_size + (oo * w + c) * inner + ii
+        idx = base[:, None] + (k[ax] - 1 - torch.arange(k[ax])) * inner
+        lo = gather(cur, idx, words_in) @ tp[ax][0]
+        hi = gather(cur, idx + in_size, words_in) @ tp[ax][1]
+        nxt = torch.full((cur.shape[0], words_out), float("nan"), dtype=cdt)
+        nxt[:, :items] = lo + hi
+        return nxt
+
+    def positions(outr, o, items_p):
+        """Tile positions p (items,) -> global offsets (U, items) and their
+        validity (ragged tiles: rows past the end, columns past lastlim)."""
+        row, col = items_p // tile[-1], items_p % tile[-1]
+        orow = outr[:, row]
+        lastlim = torch.clamp(shape[-1] - o[:, -1:], max=tile[-1])
+        valid = (orow >= 0) & (col < lastlim)
+        return orow + col, valid
+
+    def last_base(st, p):
+        inner, t, outer, w, in_size, out_size = st
+        rest, ii = p // inner, p % inner
+        r2, c = rest // t, rest % t
+        return (r2 * w + c) * inner + ii
+
+    nbe = B * numel
+    bands = (arr.reshape(-1).clone() if mode == "rec"
+             else torch.full((B * nbands * numel,), float("nan"), dtype=T))
+    out = torch.full((nbe,), float("nan"), dtype=T)
+    z = torch.full((nbe,), float("nan"), dtype=T)
+    V = torch.full((nbe,), float("nan"), dtype=cdt)
+    A = [torch.full((nbe,), float("nan"), dtype=cdt) for _ in range(2)]
+    half = 2 ** (d - 1) if d > 1 else 0
+    P = [torch.full((half * nbe,), float("nan"), dtype=cdt) for _ in range(2)]
+
+    def ana_pass(g, src, pout, nxt_a, final, off, lam_i):
+        a0, a1 = groups[g]
+        m = a1 - a0
+        us = walk(ntiles << a0)
+        r0, o = us // ntiles, origins(us % ntiles)
+        rowt, colt, outr, cols, pitch, sh, shift = tables(o, a0, a1, False)
+        everyone = torch.ones_like(r0, dtype=torch.bool)
+        X = windows(rowt, colt, cols, pitch, sh, shift, B,
+                    lambda bi: [(src, (r0 * B + bi) * numel, everyone)])
+        steps = _flat_steps(tile, k, a0, a1, pitch)
+        cur, cw = X, xw
+        for s in range(m - 1):  # the stages alternate between X and Y
+            ow = yw if s % 2 == 0 else xw
+            cur, cw = ana_step(cur, steps[s], B << s, a0 + s, cw, ow), ow
+        st, ax = steps[-1], a1 - 1
+        par = 2 ** (m - 1)
+        i = torch.arange(par * tile_elems)
+        q, p = i // tile_elems, i % tile_elems
+        gi, valid = positions(outr, o, p)
+        base = last_base(st, p)[None, :] + sh[:, None]  # (U, items)
+        jj = torch.arange(k[ax]) * st[0]
+        v = torch.stack([gather_u(cur, ((q * B + bi) * st[4] + base)[..., None] + jj, cw)
+                         for bi in range(B)], dim=-2)  # (U, items, B, K)
+        lohi = torch.stack([v @ tp[ax][0], v @ tp[ax][1]], dim=-1)  # (U, items, B, 2)
+        parent = r0[:, None] + (q << a0)  # (U, items)
+        written = {}
+        for s in range(2):
+            if a1 < d:
+                node = parent + (s << (a1 - 1))
+                for bi in range(B):
+                    at = ((node * B + bi) * numel + gi)[valid]
+                    pout[at] = lohi[..., bi, s][valid]
+                    written.setdefault("p", []).append(at)
+                continue
+            b = parent + (s << (d - 1))
+            zero = valid & (b == 0)
+            det = valid & (b != 0)
+            for bi in range(B):
+                at = (bi * numel + gi)[zero]
+                if final:
+                    bands[bi * nbands * numel + gi[zero]] = lohi[..., bi, s][zero].to(T)
+                else:
+                    nxt_a[at] = lohi[..., bi, s][zero]
+                written.setdefault("a", []).append(at)
+            vals = lohi[..., s]  # (U, items, B)
+            if lam_i > 0:
+                mag = vals.pow(2).sum(-1).sqrt() if B == 2 else vals[..., 0].abs()
+                f = torch.clamp(mag - lam_i, min=0) / torch.clamp(mag, min=1e-30)
+                vals = vals * f[..., None]
+            for bi in range(B):
+                at = (bi * nbands + off + b - 1) * numel + gi
+                bands[at[det]] = vals[..., bi][det].to(T)
+                written.setdefault("b", []).append(at[det])
+        want = {"p": (2 ** a1) * B * numel, "a": B * numel, "b": B * (nb - 1) * numel}
+        for key, ats in written.items():
+            cnt = torch.bincount(torch.cat(ats), minlength=1)
+            assert int((cnt > 1).sum()) == 0 and int((cnt == 1).sum()) == want[key], \
+                f"an output of the analysis written other than once ({key})"
+
+    def epilogue(at_bi, gi, r, mom_i):
+        idx = at_bi * numel + gi
+        if mode == "fista":
+            xo = out[idx].to(cdt)
+            zt = (r + mom_i * (r - xo)).to(T)
+            out[idx] = r.to(T)
+            z[idx] = zt
+            m_ = mask.reshape(-1)[gi].to(cdt)
+            zv = zt.to(cdt)
+            V[idx] = zv - step * (m_ * (m_ * zv - b_flat[idx].to(cdt)))
+            return
+        xt = r.to(T)
+        out[idx] = xt
+        if mode == "chain":
+            V[idx] = xt.to(cdt)
+
+    def syn_pass(g, lvl, last, mom_i, scale):
+        a0, a1 = groups[g]
+        m = a1 - a0
+        end = g + 1 == len(groups)
+        us = walk((ntiles * B) << (d - a1))
+        rest_u = us // ntiles
+        bi, gq, o = rest_u % B, rest_u // B, origins(us % ntiles)
+        rowt, colt, outr, cols, pitch, sh, shift = tables(o, a0, a1, True)
+        acc_in = A[(lvl - 1) % 2] if lvl > 0 else None
+        pin = P[(g - 1) % 2] if g > 0 else None
+
+        def src_of(kk):
+            """The input node (gq << m) + kk of each unit: the previous
+            group's partial sums, or the bands (rec_band_index), or band
+            0 from the previous level's output."""
+            node = (gq << m) + kk  # (U,)
+            if a0 > 0:
+                return [(pin, (node * B + bi) * numel, torch.ones_like(node, dtype=torch.bool))]
+            assert bool((node < nb).all())
+            from_acc = (node == 0) & (lvl > 0)
+            ridx = node if lvl == 0 else nb + (nb - 1) * (lvl - 1) + node - 1
+            return [(acc_in, bi * numel, from_acc),
+                    (bands, (bi * nbands + ridx) * numel, ~from_acc)]
+
+        X = windows(rowt, colt, cols, pitch, sh, shift, 2 ** m, src_of)
+        steps = _flat_steps(tile, k, a0, a1, pitch)
+        cur, cw = X, xw
+        for s in range(m - 1):
+            ow = yw if s % 2 == 0 else xw
+            cur, cw = syn_step(cur, steps[s], 2 ** (m - s - 1), a0 + s, cw, ow), ow
+        st, ax = steps[-1], a1 - 1
+        p = torch.arange(tile_elems)
+        gi, valid = positions(outr, o, p)
+        base = last_base(st, p)[None, :] + sh[:, None]  # (U, items)
+        idx = base[..., None] + (k[ax] - 1 - torch.arange(k[ax])) * st[0]
+        total = gather_u(cur, idx, cw) @ tp[ax][0] + gather_u(cur, idx + st[4], cw) @ tp[ax][1]
+        bi2 = bi[:, None].expand_as(gi)
+        if not end:
+            at = ((gq[:, None] * B + bi2) * numel + gi)[valid]
+            P[g % 2][at] = total[valid]
+            want = (2 ** (d - a1)) * B * numel
+        elif last:
+            at = (bi2 * numel + gi)[valid]
+            epilogue(bi2[valid], gi[valid], total[valid] * scale, mom_i)
+            want = B * numel
+        else:
+            at = (bi2 * numel + gi)[valid]
+            A[lvl % 2][at] = total[valid] * scale
+            want = B * numel
+        cnt = torch.bincount(at)
+        assert int((cnt > 1).sum()) == 0 and int((cnt == 1).sum()) == want, \
+            "an output of the synthesis written other than once"
+
+    def analysis(lam_i):
+        for lvl in range(level):
+            approx = V if lvl == 0 else A[(lvl - 1) % 2]
+            final = lvl == level - 1
+            off = nbands - (nb - 1) * (lvl + 1)
+            for g in range(len(groups)):
+                ana_pass(g, approx if g == 0 else P[(g - 1) % 2], P[g % 2], A[lvl % 2],
+                         final, off, lam_i)
+
+    def synthesis(mom_i):
+        scale = 1.0 if preserve_l2 else 1.0 / nb
+        for lvl in range(level):
+            for g in range(len(groups)):
+                syn_pass(g, lvl, lvl == level - 1, mom_i, scale)
+
+    b_flat = arr.reshape(-1)
+    if mode == "rec":
+        synthesis(0.0)
+        return out.reshape(arr.shape[:lead] + shape)
+    if mode == "fista":
+        m_ = mask.reshape(-1).to(cdt).repeat(B)
+        bv = b_flat.to(cdt)
+        x0 = (m_ * bv).to(T)
+        out[:] = x0
+        z[:] = x0
+        zv = x0.to(cdt)
+        V[:] = zv - step * (m_ * (m_ * zv - bv))
+    else:
+        V[:] = b_flat.to(cdt)
+    lead_shape = arr.shape[:lead]
+    if mode in ("dec", "pair"):
+        analysis(lam)
+        y = bands.reshape(lead_shape + (nbands,) + shape)
+        if mode == "dec":
+            return y
+        synthesis(0.0)
+        return y, out.reshape(lead_shape + shape)
+    moms = [0.0] * len(lams) if moms is None else list(moms)
+    for lam_i, mom_i in zip(lams, moms):
+        analysis(lam_i)
+        synthesis(mom_i)
+    return out.reshape(lead_shape + shape)

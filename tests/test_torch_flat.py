@@ -374,8 +374,8 @@ class _OnCard(torch.Tensor):
 def test_flat_cuda_branches_against_a_stub_library(monkeypatch, dtype, code, ctype):
     """The flat wrappers' CUDA branches against a library stub that records
     each call: mode, pointers, geometry, the taps and schedule on the
-    device in the compute type, the scale, the scratch sized by the
-    library, the launch counts."""
+    device in the compute type, the scale, the plan last (``_flat_plan``),
+    the scratch sized by the library, the launch counts."""
     launched = []
 
     class Stub:
@@ -398,8 +398,9 @@ def test_flat_cuda_branches_against_a_stub_library(monkeypatch, dtype, code, cty
     assert y.shape == (2, 15) + shape and xr.shape == (2,) + shape
     assert launched[-2] == ("nddwt_flat_work_words", (3, 2 * 120))
     name, args = launched[-1]
-    (mode, px, pb, po, pw, pt, dt, nd, batch, lvl, n, k, lam, scale, _) = args
+    (mode, px, pb, po, pw, pt, dt, nd, batch, lvl, n, k, lam, scale, _, plan) = args
     assert name == "nddwt_flat_pair" and (mode, dt, nd, batch, lvl) == (2, code, 3, 2, 2)
+    assert tuple(plan) == flat._flat_plan(shape, (2, 4, 2), dtype, 2).ints()
     assert (px, pb, po) == (x.data_ptr(), y.data_ptr(), xr.data_ptr())
     assert list(n[:3]) == [6, 5, 4] and list(k[:3]) == [2, 4, 2]
     assert (lam, scale) == (0.25, 1 / 8)
@@ -408,7 +409,7 @@ def test_flat_cuda_branches_against_a_stub_library(monkeypatch, dtype, code, cty
     assert np.array_equal(tp_host[1, :, :4].numpy(), taps[1].astype(cdt))
     flat.rec_flat(on_card(torch.zeros((15,) + shape, dtype=dtype)), taps, level, True)
     assert launched[-1][1][0] == 1 and launched[-1][1][3] is not None
-    assert launched[-1][1][-2] == 1.0  # preserve_l2: no per-level scale
+    assert launched[-1][1][-3] == 1.0  # preserve_l2: no per-level scale
     flat.dec_flat(on_card(torch.zeros(shape, dtype=dtype)), taps, level)
     assert launched[-1][1][0] == 0 and launched[-1][1][3] is None
     mask = on_card(torch.ones(shape, dtype=dtype))
@@ -416,7 +417,7 @@ def test_flat_cuda_branches_against_a_stub_library(monkeypatch, dtype, code, cty
     name, args = launched[-1]
     assert name == "nddwt_flat_iter" and args[0] == 4
     assert args[2] == mask.data_ptr() and args[5] is not None  # mask, z
-    assert args[9:14] == (code, 3, 2, 2, 2) and args[-3] == 0.9
+    assert args[9:14] == (code, 3, 2, 2, 2) and args[-4] == 0.9
     flat.chain_flat(on_card(torch.zeros(shape, dtype=dtype)), taps, level, False, [0.1])
     assert launched[-1][1][0] == 3 and launched[-1][1][2] is None
     assert ck.launch_counts["nddwt_flat_pair"] == before["nddwt_flat_pair"] + 3
@@ -472,7 +473,9 @@ def _close(k, r, dt):
 @pytest.mark.parametrize("shape,wv,level", [((64, 64), "db2", 2), ((54,), "db4", 3),
                                             ((24, 18, 10), ("db2", "db3", "db2"), 2),
                                             ((12, 10, 8, 6, 5), "db1", 2),
-                                            ((8, 8), "db4", 2)])
+                                            ((8, 8), "db4", 2), ((40, 36), "db4", 3),
+                                            ((20, 22), "db10", 2), ((48, 40, 36), "db4", 2),
+                                            ((20, 24), "db10", 2)])
 def test_cuda_flat_kernels_match_plain_versions(shape, wv, level, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
