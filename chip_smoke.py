@@ -54,8 +54,10 @@ Phases:
    db10 shapes whose windows are longer than their extents, in float32,
    bfloat16 and float64; the two multilevel
    kernels at the JAX multilevel tests' cases (mixed wavelets, L2-L4) and
-   odd extents (37, 29, 41) and (50, 33), batches of 1, 2 and 3, lam 0 and
-   0.1, both normalizations, in float32, bfloat16 and float64, and at the
+   odd extents (37, 29, 41) and (50, 33), batches of 1, 2 and 3, and at
+   ``MULTI_DEEP_CASES`` (L4 and L5, odd extents, an extent equal to K,
+   batches of 1 to 16, runtime tap loops, 2D and 3D), lam 0 and 0.1, both
+   normalizations, in float32, bfloat16 and float64, and at the
    multi-coil batch; the halo-padded mode of the level and lead-stage
    kernels on one rank's padded block cut from a global array (one and two
    padded axes; float32, bfloat16, float64), also against the wrap mode on
@@ -110,16 +112,18 @@ Phases:
    convolution over (Z, T) with X*Y as the batch; the lead stages: a
    depthwise one over (X, Y) in channels-last memory, the Z*T lane columns
    the groups), each checked once against the plain version; the 1D
-   kernels at 2^23 db6 and the float64 level kernels at 256^3 db4 the same
-   way (``F.conv1d``, ``F.conv3d`` in float64), and the float64 and 1D
-   pairs and steps; the flat kernels beside the per-level route (no
-   PyTorch call computes a multilevel transform) and queued behind a sleep
+   kernels at 2^23 db6 (also queued behind a sleep) and the float64 level
+   kernels at 256^3 db4 the same way (``F.conv1d``, ``F.conv3d`` in
+   float64), and the float64 and 1D pairs and steps; the flat kernels
+   beside the per-level route (no PyTorch call computes a multilevel
+   transform) and queued behind a sleep
    (the kernel alone, beside the call's own time), the whole solve per
    iteration beside one stepped iteration, ``dec_rec_n`` per sweep beside
    one per-level ``dec_rec``, the 128^3 db20 step on the stage and the
    flat kernels; the multilevel kernels per call at the multi-coil batch
-   (16 real 256^2 components) beside the same batch on the per-level route
-   and the flat kernel; and the crossover tables of
+   (16 real 256^2 components), also queued behind a sleep, beside the same
+   batch on the per-level route and the flat kernel; the elementwise
+   kernels also queued; and the crossover tables of
    ``chip_flat_crossover.py`` (the multilevel columns and the batched table
    among them); the sharded 256^3 step per rank with its halo exchange
    timed on its own, and each halo-padded kernel beside its wrap mode on
@@ -133,8 +137,9 @@ phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
 before it a JSON list of the kernels with their launches, errors, times and
 bounds (the float64 instantiations of the per-level and 1D kernels in a
 ``float64`` entry each, the flat and multilevel kernels' per-level route
-time in ``per_level_route_ms``, the flat kernels' queued time in
-``queued_ms``, the multilevel kernels' flat-kernel time in
+time in ``per_level_route_ms``, the kernel alone queued behind a sleep in
+``queued_ms`` (the flat, multilevel, 1D and elementwise kernels), the
+multilevel kernels' flat-kernel time in
 ``flat_route_ms``, the four kernels with a halo-padded mode their sharded
 path's numbers in a ``valid`` entry, with the wrap mode's time on the same
 block in ``wrap_ms`` and the padded function's library call in
@@ -178,6 +183,16 @@ MULTI_VOLUME, COILS, COIL_SHAPE, CPLX_VOLUME = (128, 128, 128), 8, (256, 256), (
 MULTI_CASES = [((64, 128), "db2", 3), ((32, 16, 128), "db4", 3),
                ((16, 16, 256), ("db1", "db3", "db2"), 2), ((24, 8, 128), ("db6", "db2", "db4"), 4),
                ((37, 29, 41), "db4", 3), ((50, 33), ("db2", "db6"), 4)]
+# (shape, wavelet, level, batches) where the multilevel kernels' persistent
+# schedule could go wrong: L4 and L5 (level 3 reads the ping slot that level
+# 1 read and level 2 rewrote), odd extents, an extent equal to K, batches of
+# 1 and 16 (a 2D batch fills the view's pass-through slot, four items' rows
+# a plane tile), runtime tap loops (db5, mixed wavelets) in 2D and 3D.
+MULTI_DEEP_CASES = [((37, 29, 41), "db4", 4, (1, 3)), ((37, 29, 41), "db4", 5, (2,)),
+                    ((45, 61), "db4", 4, (1, 16)), ((45, 61), "db4", 5, (5,)),
+                    ((40, 36, 20), "db5", 4, (2,)), ((100, 90), "db5", 5, (1, 16)),
+                    ((24, 30, 28), ("db2", "db3", "db1"), 5, (1,)),
+                    ((9, 300), ("db2", "db6"), 4, (16,)), ((8, 40), "db4", 4, (3,))]
 SOLVE_SHAPE, SOLVE_ITERS = (256, 256), 100  # the one-launch FISTA solves
 CHAIN_SHAPE, CHAIN_WV, CHAIN_SWEEPS = (264, 264), ("db1", "db3"), 20  # nd_dwt_2D's
 SPLIT_SHAPE = (128, 128)  # the one-launch dec_rec_split
@@ -985,16 +1000,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # The multilevel kernels: the JAX multilevel tests' cases, odd extents,
-    # batches of 1-3, lam 0 and 0.1, both normalizations, every dtype; and
+    # batches of 1-3, and the deeper cases (L4, L5, batches of 1 and 16,
+    # runtime taps), lam 0 and 0.1, both normalizations, every dtype; and
     # the multi-coil path's batch (2 N real components of 256^2), its main
     # path, in float32.
-    for seed, (shape, wv, lvl) in enumerate(
-            MULTI_CASES + [(COIL_SHAPE, "db4", LEVEL)]):
+    for seed, (shape, wv, lvl, batches) in enumerate(
+            [case + ((1, 2, 3),) for case in MULTI_CASES] + MULTI_DEEP_CASES
+            + [(COIL_SHAPE, "db4", LEVEL, (2 * COILS,))]):
         taps = tw.NDDWT(wv, shape, device=dev).taps_hp
         main = shape == COIL_SHAPE
         for dt in ((torch.float32,) if main else (torch.float32, torch.bfloat16,
                                                   torch.float64)):
-            for batch in ((2 * COILS,) if main else (1, 2, 3)):
+            for batch in batches:
                 gen.manual_seed(60 + seed)
                 tag = f"{(batch,) + shape} {wv} L{lvl} {str(dt).removeprefix('torch.')}"
                 errs = dict.fromkeys(MULTI_KERNELS, 0.0)
@@ -1584,6 +1601,12 @@ def main() -> int:
             timed(lambda: elemwise_ref.fista_step_ref(xn, xp, mask, b, 0.6, 1.0), 5),
         ),
     }
+    queued = {  # the kernels alone, behind a sleep
+        "nddwt_mag_shrink_pair": timed_queued(
+            lambda: elemwise.mag_shrink_pair(ypair, THRESHOLD), 20),
+        "nddwt_fista_step": timed_queued(
+            lambda: elemwise.fista_step(xn, xp, mask, b, 0.6, 1.0), 20),
+    }
     split_step = (
         timed(lambda: elemwise.fista_step(pn, pp, mask, pb, 0.6, 1.0), 20),
         timed(lambda: elemwise_ref.fista_step_ref(pn, pp, mask, pb, 0.6, 1.0), 5),
@@ -1625,7 +1648,8 @@ def main() -> int:
     del xpad, ypad, conv, approx, r
     for name, (k, p) in ms.items():  # the 3D and solver kernels
         lib = f", cuDNN conv3d {library[name]:.4f} ms" if library[name] else ""
-        print(f"  {name} {SHAPE} db4 f32 per call: kernel {k:.4f} ms, plain "
+        alone = f", queued {queued[name]:.4f} ms" if name in queued else ""
+        print(f"  {name} {SHAPE} db4 f32 per call: kernel {k:.4f} ms{alone}, plain "
               f"{p:.4f} ms{lib}, bound {bound[name][0]:.4f} ms "
               f"({bound[name][1]}) {card}")
     print(f"  nddwt_fista_step split pair {(2,) + SHAPE} f32 per call: kernel "
@@ -1798,7 +1822,7 @@ def main() -> int:
     # The 1D kernels at 2^23 db6, float32 (the top-level entries) and float64.
     taps1 = plan1l.taps_hp
     k1 = len(taps1[0][0])
-    ms1, bound1, library1 = {}, {}, {}
+    ms1, bound1, library1, queued1 = {}, {}, {}, {}
     for dt, word, rate in ((torch.float32, 4, F32_FLOPS), (torch.float64, 8, F64_FLOPS)):
         gen.manual_seed(1100)
         x1d = randn((N1,), dt)
@@ -1811,6 +1835,11 @@ def main() -> int:
             "nddwt_rec1_level": (
                 timed(lambda: ck.rec1_level(big1, None, s1, taps1, 0.5), 50),
                 timed(lambda: level_ref.rec_level_ref(big1, None, s1, taps1, 0.5), 10)),
+        }
+        queued1[dt] = {  # the kernels alone, behind a sleep
+            "nddwt_dec1_level": timed_queued(lambda: ck.dec1_level(x1d, big1, 4, taps1), 50),
+            "nddwt_rec1_level": timed_queued(
+                lambda: ck.rec1_level(big1, None, s1, taps1, 0.5), 50),
         }
         # 1 array in, 2 out (or 2 in, 1 out); 2 K multiply-adds per sample
         bound1[dt] = dict.fromkeys(LEVEL1, bound_ms(3 * N1 * word, 4 * k1 * N1, rate))
@@ -1830,7 +1859,8 @@ def main() -> int:
                         "nddwt_rec1_level": timed(lambda: F.conv1d(ypad, wrec), 20)}
         for name, (k, p) in ms1[dt].items():
             print(f"  {name} ({N1},) db6 {str(dt).removeprefix('torch.')} per call: kernel "
-                  f"{k:.4f} ms, plain {p:.4f} ms, F.conv1d {library1[dt][name]:.4f} ms, "
+                  f"{k:.4f} ms, queued {queued1[dt][name]:.4f} ms, plain {p:.4f} ms, "
+                  f"F.conv1d {library1[dt][name]:.4f} ms, "
                   f"bound {bound1[dt][name][0]:.4f} ms ({bound1[dt][name][1]}) {card}")
         del x1d, big1, xpad, ypad, conv, approx, r
 
@@ -1864,12 +1894,12 @@ def main() -> int:
         timed(lambda: flat.fista_flat(b0, smask, taps_s, LEVEL, True, lams_s, moms_s, 1.0), 5),
         timed(lambda: flat_ref.flat_iter_ref("fista", b0, smask, taps_s, LEVEL, True, lams_s,
                                              moms_s, 1.0), 1, warm=1))
-    queued = {  # the kernels alone, behind a sleep
+    queued.update({  # the kernels alone, behind a sleep
         "nddwt_flat_pair": timed_queued(
             lambda: flat.pair_flat(x0, taps_s, LEVEL, True, THRESHOLD), 50),
         "nddwt_flat_iter": timed_queued(
             lambda: flat.fista_flat(b0, smask, taps_s, LEVEL, True, lams_s, moms_s, 1.0), 5),
-    }
+    })
     with xover.limits(0, 0, 0):  # the per-level route at the same shapes
         per_level_route = {
             "nddwt_flat_pair": timed(
@@ -1936,6 +1966,9 @@ def main() -> int:
     ms["nddwt_rec_multi"] = (
         timed(lambda: multi.rec_multi(ybm, taps_c, LEVEL, False), 50),
         timed(lambda: multi_ref.rec_multi_ref(ybm, taps_c, LEVEL, 0.25), 5))
+    queued["nddwt_dec_multi"] = timed_queued(lambda: multi.dec_multi(xbm, taps_c, LEVEL), 50)
+    queued["nddwt_rec_multi"] = timed_queued(
+        lambda: multi.rec_multi(ybm, taps_c, LEVEL, False), 50)
     flat_route = {}
     nitems = 2 * COILS
     for route, caps, per_item, store in (
@@ -1959,7 +1992,8 @@ def main() -> int:
     for name in MULTI_KERNELS:
         k, p = ms[name]
         print(f"  {name} {(nitems,) + COIL_SHAPE} db4 L{LEVEL} f32 per call: kernel {k:.4f} ms, "
-              f"plain {p:.4f} ms, per-level route {per_level_route[name]:.4f} ms, flat "
+              f"queued {queued[name]:.4f} ms, plain {p:.4f} ms, per-level route "
+              f"{per_level_route[name]:.4f} ms, flat "
               f"kernel {flat_route[name]:.4f} ms, library none, bound {bound[name][0]:.4f} ms "
               f"({bound[name][1]}) {card}")
     del xbm, ybm
@@ -1973,6 +2007,7 @@ def main() -> int:
     padded_ms = chip_sharded.time_padded(timed, bound_ms, conv_weights, lead_conv,
                                            check, card)
     ms.update(ms1[torch.float32])
+    queued.update(queued1[torch.float32])
     bound.update(bound1[torch.float32])
     library.update(library1[torch.float32])
     f64_entry = {  # name: (replaces, launches, error, times, bound, library)
@@ -2002,6 +2037,8 @@ def main() -> int:
                      library[name])}
         if name in f64_entry:  # the float64 instantiation
             k["float64"] = entry(*f64_entry[name])
+            if name in LEVEL1:
+                k["float64"]["queued_ms"] = queued1[torch.float64][name]
         if name in per_level_route:  # in place of a library call
             k["per_level_route_ms"] = per_level_route[name]
         if name in queued:  # the kernel alone, behind a sleep

@@ -1,8 +1,8 @@
 // What the per-level kernels (nddwt_level.cu, nddwt_stream.cuh), the 4D
-// stage kernels (nddwt_4d.cu) and the multilevel kernels (nddwt_multi.cu,
-// nddwt_tile.cuh) share: the geometry of one launch over a 3-slot view of
-// the array, the storage <-> compute conversions, the taps' copy into
-// shared memory and the tile order.
+// stage kernels (nddwt_4d.cu) and the multilevel kernels (nddwt_multi.cu)
+// share: the geometry of one launch over a 3-slot view of the array, the
+// storage <-> compute conversions, the taps' copy into shared memory and
+// the tile order.
 //
 // Every kernel has a storage type T and a compute type C = compute_t<T>:
 // float for float and bfloat16 storage, double for double. The taps of a

@@ -51,7 +51,7 @@ __host__ __device__ __forceinline__ int rec_band_index(int nb, int lvl, int b) {
 // `smem` bytes of dynamic shared memory each: as many as fit the device at
 // once, capped at what `max_items` work items need, `per_cta` of them to a
 // CTA (a thread's worth, `threads`, unless given: the flat kernels; one
-// tile, 1: the multilevel kernels). Returns the launch's cudaError_t (0 on
+// unit, 1: the multilevel kernels). Returns the launch's cudaError_t (0 on
 // success): a shared-memory size or grid the device refuses is an error,
 // never a smaller launch.
 template <typename Args>

@@ -46,6 +46,14 @@
 // both bodies read its flags once per CTA and per window, never per
 // element, so it is a runtime flag.
 //
+// A CTA's unit is its origin (o2, o1, p0) in the view: the level and
+// lead-stage kernels take their block's (o2 = -1), one unit a CTA; the
+// multilevel kernels (nddwt_multi.cu) walk a persistent grid over the units
+// of every level and item. Their 2D view (n0, N, n1) folds a batch of N items into
+// the pass-through slot 1 (FOLD): a window row is then an item, each array
+// steps from item to item by its own stride (Fold), and a plane tile covers
+// T1 items' rows.
+//
 // Filter lengths 2, 4, 6, 8 (db1-db4, the same K on every slot that has a
 // halo: stream_unrolled) run with the tap loops unrolled, the taps of the
 // current pass in registers, the ring in registers and 4 plane elements a
@@ -64,6 +72,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "nddwt_common.cuh"
 
@@ -77,6 +86,14 @@ constexpr size_t kStreamSmemBudget = 200 * 1024;
 
 struct StreamSources {
   long long idx[kStreamBands];  // band d's index into y; -1 reads approx
+};
+
+// The item strides (elements) of a folded view (n0, N, n1): the input (the
+// analysis's x, the synthesis's bands y), the synthesis's approx array, the
+// output (the analysis's bands, the synthesis's out) and the analysis's
+// approximation. Within an item a band is n0 n1 elements and a plane n1.
+struct Fold {
+  long long src, approx, dst, adst;
 };
 
 // Elements of P per thread: the register ring holds items * KT words.
@@ -155,6 +172,9 @@ __device__ __forceinline__ void copy_elem(double* dst, const double* src) {
                "l"(src)
                : "memory");
 }
+// A plain load: the multilevel kernels read in one level what other CTAs
+// wrote in the level before, so no load of theirs may take the read-only
+// path (ld.global.nc); chip_ab_multi.py counts such loads in each build.
 __device__ __forceinline__ void copy_elem(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src) {
   *dst = *src;
@@ -187,8 +207,10 @@ __device__ __forceinline__ void cp_wait(int n) {
 // the same in every plane and band); a row is copied in 16-byte pieces where
 // the input rows are 16-byte aligned (a piece never straddles the periodic
 // wrap then: n2 is a multiple of V, so the wrap falls between pieces, and
-// only its first column is wrapped), element by element otherwise.
-template <typename T>
+// only its first column is wrapped), element by element otherwise. FOLD: a
+// window row is an item, row_off holds its index and issue() its array's
+// item stride.
+template <typename T, bool FOLD = false>
 struct StreamCopy {
   const long long* row_off;  // the input offset of each window row (shared)
   int E1, E2, c0, n2, sh, head, ws;
@@ -199,8 +221,10 @@ struct StreamCopy {
   }
 
   // Issue the asynchronous copies of the window of the input plane at
-  // `plane`, of an array based at `base`, into W.
-  __device__ __forceinline__ void issue(T* W, const T* base, const T* plane) const {
+  // `plane`, of an array based at `base` (folded: whose items are `item`
+  // elements apart), into W.
+  __device__ __forceinline__ void issue(T* W, const T* base, const T* plane,
+                                        long long item = 0) const {
     constexpr int V = 16 / sizeof(T);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const bool v = vec && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
@@ -208,7 +232,7 @@ struct StreamCopy {
     const int nv = v ? (E2 - hd) / V : 0;
     const int tail = hd + nv * V;
     for (int l1 = warp; l1 < E1; l1 += kThreads / 32) {
-      const T* row = plane + row_off[l1];
+      const T* row = plane + (FOLD ? row_off[l1] * item : row_off[l1]);
       T* srow = W + l1 * ws + sh;
       for (int i = lane; i < hd; i += 32) copy_elem(srow + i, row + col(c0 + i));
       for (int u = lane; u < nv; u += 32)
@@ -220,19 +244,19 @@ struct StreamCopy {
 
 // A CTA's copies, whose window of E1 x E2 starts at rows o1 - left1 and
 // columns o2 - left2 (on a halo-padded slot at o1 and o2 of the padded
-// input, unwrapped); m2 is the input's row length. Fills row_off and waits
-// for it.
-template <typename T, typename C>
-__device__ StreamCopy<T> stream_copy(const LevelT<C>& g, long long* row_off, int o1,
-                                     int o2, int E1, int E2, int ws, long long m2,
-                                     bool pad1, bool pad2) {
+// input, unwrapped); m2 is the input's row length (folded: 1, row_off holds
+// the items). Fills row_off and waits for it.
+template <typename T, bool FOLD = false, typename C>
+__device__ StreamCopy<T, FOLD> stream_copy(const LevelT<C>& g, long long* row_off, int o1,
+                                           int o2, int E1, int E2, int ws, long long m2,
+                                           bool pad1, bool pad2) {
   constexpr int V = 16 / sizeof(T);
   for (int l1 = threadIdx.x; l1 < E1; l1 += kThreads) {
     const int q = o1 - g.left[1] + l1;
     row_off[l1] = (pad1 ? q + g.left[1] : wrap2(q, g.n[1])) * m2;
   }
   __syncthreads();
-  StreamCopy<T> cp;
+  StreamCopy<T, FOLD> cp;
   cp.row_off = row_off;
   cp.E1 = E1;
   cp.E2 = E2;
@@ -242,7 +266,7 @@ __device__ StreamCopy<T> stream_copy(const LevelT<C>& g, long long* row_off, int
   cp.sh = ((cp.c0 % V) + V) % V;  // column c0 sits at row offset sh
   cp.head = (V - cp.sh) % V;      // elements before the first 16-byte piece
   cp.ws = ws;
-  cp.vec = m2 % V == 0;
+  cp.vec = (FOLD ? g.n[2] : m2) % V == 0;  // folded: item strides are multiples of n1
   return cp;
 }
 
@@ -280,13 +304,17 @@ struct Taps {
   }
 };
 
-template <typename T, int KT, typename C>
+// The synthesis of the unit at (o2, o1, p0), or of the CTA's block where
+// o2 < 0; fold: the item strides of a folded view (FOLD only).
+template <typename T, int KT, bool FOLD, typename C>
 __device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx,
                            T* __restrict__ out, const LevelT<C>& g,
                            const StreamSources& src, int groups, C scale,
                            int stages, C (*taps)[2][kMaxTaps],
-                           unsigned char* smem) {
+                           unsigned char* smem, int o2, int o1, int p0,
+                           const Fold& fold) {
   constexpr int NI = stream_items<KT>();
+  using Off = std::conditional_t<FOLD, long long, int>;  // an element's output offset
   const StreamLayout L = stream_layout<T>(g, KT == 0, stages);
   long long* const row_off = reinterpret_cast<long long*>(smem);
   unsigned char* const wins = smem + L.rows;
@@ -298,16 +326,21 @@ __device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx
   const int T1 = g.t[1], T2 = g.t[2];
   const int lg2 = 31 - __clz(T2);
   const int tid = threadIdx.x;
-  const int o2 = blockIdx.x * T2, o1 = blockIdx.y * T1, p0 = blockIdx.z * g.t[0];
+  if (o2 < 0) {  // the level kernels' unit: their block's
+    o2 = blockIdx.x * T2, o1 = blockIdx.y * T1, p0 = blockIdx.z * g.t[0];
+  }
   const int w2 = min(T2, g.n[2] - o2), w1 = min(T1, g.n[1] - o1);
   const int cc = min(g.t[0], g.n[0] - p0);
   const int E1 = w1 + K1 - 1, E2 = w2 + K2 - 1;  // the window loaded
   const bool pad0 = g.pad[0];
-  const long long m2 = in_extent(g, 2);
-  const long long plane_in = (long long)in_extent(g, 1) * m2;
-  const long long ivox = in_vox(g);
-  const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
-  const long long nplane = (long long)g.n[1] * g.n[2];
+  // Input row, plane and band strides, output band and plane strides; a
+  // folded view's rows are items (each array's own stride, fold) and its bands
+  // and planes an item's.
+  const long long m2 = FOLD ? 1 : in_extent(g, 2);
+  const long long plane_in = FOLD ? g.n[2] : (long long)in_extent(g, 1) * m2;
+  const long long ivox = FOLD ? (long long)g.n[0] * g.n[2] : in_vox(g);
+  const long long vox = FOLD ? ivox : (long long)g.n[0] * g.n[1] * g.n[2];
+  const long long nplane = FOLD ? g.n[2] : (long long)g.n[1] * g.n[2];
   const int lgs1 = K1 > 1 ? 1 : 0, lgs2 = K2 > 1 ? 1 : 0;
   const int lgpp = 1 + lgs1 + lgs2;  // log2 windows per plane (s0, s1, s2)
   const int R = cc + K0 - 1;         // input planes per group
@@ -329,8 +362,8 @@ __device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx
     }
   };
 
-  const StreamCopy<T> cp = stream_copy<T>(g, row_off, o1, o2, E1, E2, L.ws, m2,
-                                          g.pad[1], g.pad[2]);
+  const StreamCopy<T, FOLD> cp = stream_copy<T, FOLD>(g, row_off, o1, o2, E1, E2, L.ws,
+                                                      m2, g.pad[1], g.pad[2]);
   const int ws = L.ws, sh = cp.sh;
   // Issue the asynchronous copies of the window at p into buffer `buf`.
   auto issue = [&](int buf, const Pos& p) {
@@ -342,14 +375,16 @@ __device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx
     const T* base = id < 0 ? approx : y + id * ivox;
     const int pp = p0 - g.left[0] + p.r;
     const int g0 = pad0 ? pp + g.left[0] : wrap2(pp, g.n[0]);
-    cp.issue(reinterpret_cast<T*>(wins + buf * L.win), base, base + g0 * plane_in);
+    cp.issue(reinterpret_cast<T*>(wins + buf * L.win), base, base + g0 * plane_in,
+             id < 0 ? fold.approx : fold.src);
   };
 
   // This thread's plane elements: NI consecutive rows of column tid % T2
   // (the slot-1 pass then loads NI + K1 - 1 rows for NI * K1 taps); a plane
   // of fewer than NI rows (a 2D level) takes columns tid + kThreads i.
   // Per element: its place in an output plane and whether it is inside.
-  int c1[NI], c2[NI], po[NI];
+  int c1[NI], c2[NI];
+  Off po[NI];
   unsigned inside = 0;
 #pragma unroll
   for (int i = 0; i < NI; ++i) {
@@ -361,7 +396,10 @@ __device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx
       c1[i] = f >> lg2;
       c2[i] = f & (T2 - 1);
     }
-    po[i] = (o1 + c1[i]) * g.n[2] + o2 + c2[i];  // a plane holds < 2^31
+    if constexpr (FOLD)
+      po[i] = (o1 + c1[i]) * fold.dst + o2 + c2[i];
+    else
+      po[i] = (o1 + c1[i]) * g.n[2] + o2 + c2[i];  // a plane holds < 2^31
     if (c1[i] < w1 && c2[i] < w2) inside |= 1u << i;
   }
   C P[NI];
@@ -424,11 +462,12 @@ __device__ void stream_syn(const T* __restrict__ y, const T* __restrict__ approx
           P[i] += t1.dot(Q + c1[i] * T2 + c2[i], T2, K1);
       }
     } else if (K1 == 1) {
-      // Slot 1 passes through (a 2D level): the window is one row.
+      // Slot 1 passes through (a 2D level): the window is one row, or one
+      // row an item where the batch is folded there.
       const Taps<KT, C> t2(taps[2][s2]);
 #pragma unroll
       for (int i = 0; i < NI; ++i)
-        P[i] += t2.dot(W + sh + c2[i], 1, K2);
+        P[i] += t2.dot(W + (FOLD ? c1[i] * ws : 0) + sh + c2[i], 1, K2);
     } else {
       // Slot 2 passes through (the lead stage): slot 1 from the window.
       const Taps<KT, C> t1(taps[1][s1]);
@@ -490,8 +529,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                       C scale, int stages) {
   __shared__ C taps[3][2][kMaxTaps];
   copy_taps(taps, g);
-  stream_syn<T, KT>(y, approx, out, g, src, groups, scale, stages, taps,
-                          reinterpret_cast<unsigned char*>(shared_words<C>()));
+  stream_syn<T, KT, false>(y, approx, out, g, src, groups, scale, stages, taps,
+                           reinterpret_cast<unsigned char*>(shared_words<C>()), -1,
+                           -1, -1, Fold{});
 }
 
 template <typename T, typename C = compute_t<T>>
@@ -642,13 +682,17 @@ struct Taps2 {
   }
 };
 
-template <typename T, int KT, int G, typename C>
+// The analysis of the unit at (o2, o1, p0), or of the CTA's block where
+// o2 < 0; fold: the item strides of a folded view (FOLD only).
+template <typename T, int KT, int G, bool FOLD, typename C>
 __device__ void stream_ana(const T* __restrict__ x, T* __restrict__ big,
                            T* __restrict__ approx_out, const LevelT<C>& g,
                            int groups, int gw, long long band_off, C lam,
                            int stages, C (*taps)[2][kMaxTaps],
-                           unsigned char* smem) {
+                           unsigned char* smem, int o2, int o1, int p0,
+                           const Fold& fold) {
   constexpr int NI = ana_items<C, KT, G>();
+  using Off = std::conditional_t<FOLD, long long, int>;  // an element's output offset
   constexpr int GR = KT > 0 ? G : 1;  // bands of the register ring
   const int nb = KT > 0 ? G : gw;     // bands a walk keeps
   const StreamLayout L = stream_layout<T>(g, KT == 0, stages, nb);
@@ -662,16 +706,21 @@ __device__ void stream_ana(const T* __restrict__ x, T* __restrict__ big,
   const int T1 = g.t[1], T2 = g.t[2];
   const int lg2 = 31 - __clz(T2);
   const int tid = threadIdx.x;
-  const int o2 = blockIdx.x * T2, o1 = blockIdx.y * T1, p0 = blockIdx.z * g.t[0];
+  if (o2 < 0) {  // the level kernels' unit: their block's
+    o2 = blockIdx.x * T2, o1 = blockIdx.y * T1, p0 = blockIdx.z * g.t[0];
+  }
   const int w2 = min(T2, g.n[2] - o2), w1 = min(T1, g.n[1] - o1);
   const int cc = min(g.t[0], g.n[0] - p0);
   const int E1 = w1 + K1 - 1, E2 = w2 + K2 - 1;  // the window loaded
   const bool pad0 = g.pad[0];
-  const long long m2 = in_extent(g, 2);
-  const long long plane_in = (long long)in_extent(g, 1) * m2;
-  const long long ivox = in_vox(g);
-  const long long vox = (long long)g.n[0] * g.n[1] * g.n[2];
-  const long long nplane = (long long)g.n[1] * g.n[2];
+  // Input row, plane and band strides, output band and plane strides; a
+  // folded view's rows are items (each array's own stride, fold) and its bands
+  // and planes an item's.
+  const long long m2 = FOLD ? 1 : in_extent(g, 2);
+  const long long plane_in = FOLD ? g.n[2] : (long long)in_extent(g, 1) * m2;
+  const long long ivox = FOLD ? (long long)g.n[0] * g.n[2] : in_vox(g);
+  const long long vox = FOLD ? ivox : (long long)g.n[0] * g.n[1] * g.n[2];
+  const long long nplane = FOLD ? g.n[2] : (long long)g.n[1] * g.n[2];
   const int lgs1 = K1 > 1 ? 1 : 0;
   const int qs = (T1 + K1 - 1) * T2;  // one slice of Q
   const int walks = G / nb;
@@ -692,20 +741,22 @@ __device__ void stream_ana(const T* __restrict__ x, T* __restrict__ big,
     }
   };
 
-  const StreamCopy<T> cp = stream_copy<T>(g, row_off, o1, o2, E1, E2, L.ws, m2,
-                                          g.pad[1], g.pad[2]);
+  const StreamCopy<T, FOLD> cp = stream_copy<T, FOLD>(g, row_off, o1, o2, E1, E2, L.ws,
+                                                      m2, g.pad[1], g.pad[2]);
   const int ws = L.ws, sh = cp.sh;
   auto issue = [&](int buf, const Pos& p) {
     const T* base = x + p.gi * ivox;
     const int pp = p0 - g.left[0] + p.r;
     const int g0 = pad0 ? pp + g.left[0] : wrap2(pp, g.n[0]);
-    cp.issue(reinterpret_cast<T*>(wins + buf * L.win), base, base + g0 * plane_in);
+    cp.issue(reinterpret_cast<T*>(wins + buf * L.win), base, base + g0 * plane_in, fold.src);
   };
 
   // This thread's plane elements: NI consecutive rows of column tid % T2 (a
   // plane of fewer than NI rows takes columns tid + kThreads i). Per
-  // element: its place in an output plane and whether it is inside.
-  int c1[NI], c2[NI], po[NI];
+  // element: its place in an output plane (folded: in the bands, po, and in
+  // the approximation, pa) and whether it is inside.
+  int c1[NI], c2[NI];
+  Off po[NI], pa[NI];  // pa: folded only
   unsigned inside = 0;
 #pragma unroll
   for (int i = 0; i < NI; ++i) {
@@ -717,7 +768,12 @@ __device__ void stream_ana(const T* __restrict__ x, T* __restrict__ big,
       c1[i] = f >> lg2;
       c2[i] = f & (T2 - 1);
     }
-    po[i] = (o1 + c1[i]) * g.n[2] + o2 + c2[i];  // a plane holds < 2^31
+    if constexpr (FOLD) {
+      po[i] = (o1 + c1[i]) * fold.dst + o2 + c2[i];
+      pa[i] = (o1 + c1[i]) * fold.adst + o2 + c2[i];
+    } else {
+      po[i] = (o1 + c1[i]) * g.n[2] + o2 + c2[i];  // a plane holds < 2^31
+    }
     if (c1[i] < w1 && c2[i] < w2) inside |= 1u << i;
   }
   C ring[KT > 0 ? KT : 1][GR][NI];  // planes oldest first
@@ -795,15 +851,16 @@ __device__ void stream_ana(const T* __restrict__ x, T* __restrict__ big,
         }
       }
     } else {
-      // One in-plane pass from the window: slot 2 in 2D (one row), slot 1 in
-      // the lead stage (slot 2 passes through).
+      // One in-plane pass from the window: slot 2 in 2D (one row, or one row
+      // an item where the batch is folded there), slot 1 in the lead stage
+      // (slot 2 passes through).
       const bool twod = K1 == 1;
       const Taps2<KT, C> tp(taps[twod ? 2 : 1]);
 #pragma unroll
       for (int i = 0; i < NI; ++i) {
         C lo, hi;
         if (twod)
-          tp.dot2(W + sh + c2[i], 1, K2, lo, hi);
+          tp.dot2(W + (FOLD ? c1[i] * ws : 0) + sh + c2[i], 1, K2, lo, hi);
         else
           tp.dot2(W + c1[i] * ws + sh + c2[i], ws, K1, lo, hi);
         if constexpr (KT > 0) {
@@ -821,13 +878,14 @@ __device__ void stream_ana(const T* __restrict__ x, T* __restrict__ big,
     // each band b of the walk.
     const long long q = (long long)(p0 + r - (K0 - 1)) * nplane;
     const Taps2<KT, C> t0(taps[0]);
+    long long at_a = 0;  // folded: the element's place in the approximation
     auto emit = [&](int b, bool in, long long at_q, C lo, C hi) {
       if (!in) return;
       const int dlo = (((b & lgs1) << g.bit[1]) | ((b >> lgs1) << g.bit[2])) + 4 * gi;
       if (lam > 0) hi = shrink(hi, lam);
       big[(band_off + dlo) * vox + at_q] = from_f<T>(hi);  // d = dlo + 1
       if (dlo == 0) {
-        approx_out[at_q] = from_f<T>(lo);
+        approx_out[FOLD ? at_a : at_q] = from_f<T>(lo);
       } else {
         if (lam > 0) lo = shrink(lo, lam);
         big[(band_off + dlo - 1) * vox + at_q] = from_f<T>(lo);
@@ -844,6 +902,7 @@ __device__ void stream_ana(const T* __restrict__ x, T* __restrict__ big,
             lo = mad(t0.lo[j], ring[j][b][i], lo);
             hi = mad(t0.hi[j], ring[j][b][i], hi);
           }
+          if constexpr (FOLD) at_a = q + pa[i];
           emit(b, inside >> i & 1, q + po[i], lo, hi);
         }
     } else {
@@ -856,6 +915,7 @@ __device__ void stream_ana(const T* __restrict__ x, T* __restrict__ big,
           lo = mad(t0.plo[j], v, lo);
           hi = mad(t0.phi[j], v, hi);
         }
+        if constexpr (FOLD) at_a = q + pa[0];
         emit(b, inside & 1, q + po[0], lo, hi);
       }
     }
@@ -869,8 +929,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                       int groups, int gw, long long band_off, C lam, int stages) {
   __shared__ C taps[3][2][kMaxTaps];
   copy_taps(taps, g);
-  stream_ana<T, KT, G>(x, big, approx_out, g, groups, gw, band_off, lam, stages, taps,
-                       reinterpret_cast<unsigned char*>(shared_words<C>()));
+  stream_ana<T, KT, G, false>(x, big, approx_out, g, groups, gw, band_off, lam, stages,
+                              taps, reinterpret_cast<unsigned char*>(shared_words<C>()),
+                              -1, -1, -1, Fold{});
 }
 
 template <typename T, int G, typename C = compute_t<T>>

@@ -53,8 +53,9 @@ route from the taps (``stage_route``).
 and whole-solve kernels of small arrays of any ndim, bound in
 ``ops/flat.py``; ``csrc/nddwt_multi.cu`` the one-launch multilevel kernels
 of batches of 2D and 3D arrays, bound in ``ops/multi.py``, which run the
-tile bodies (``csrc/nddwt_tile.cuh``) for every level in one launch: ``dec_levels``/``rec_levels`` take them where
-``multi.multi_supported`` holds.
+streamed bodies for every level and item in one launch:
+``dec_levels``/``rec_levels`` take them where ``multi.multi_supported``
+holds.
 
 Every kernel takes float32 and bfloat16 arrays, computing in float32, and
 float64 arrays, computing in float64 with float64 taps: the float64
@@ -108,7 +109,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 _MAX_TAPS = 76  # kMaxTaps in the source
-# Dynamic shared memory a CTA may take: two CTAs fit one SM's 227 KB.
+# The shared memory of the tile that sizes a 3D level's route (_tiles,
+# stage_route): two CTAs fit one SM's 227 KB.
 _SMEM_BUDGET = 100 * 1024
 # The tile body's lane-stage tiles (csrc/nddwt_4d.cu: the class no plan of
 # the lane body fits, _lane_plan) take less, so that more CTAs share an SM
@@ -318,8 +320,10 @@ def _word(dtype: torch.dtype) -> int:
 def _tiles(n, k, rec: bool, word: int = 4):
     """Output tile per slot: (8, 8, 32) for 3D, (1, 32, 128) for 2D, capped
     by the extents and halved on the largest axis until the shared-memory
-    tile plan (``word`` bytes a word) fits the budget; None if no tile
-    fits."""
+    tile plan (``word`` bytes a word: the halo'd window and two
+    intermediates, and for the synthesis the output tile) fits the budget;
+    None if no tile fits. It sizes a 3D level's route (``stage_route``): the
+    tile the per-level and multilevel kernels took before they streamed."""
     base = (8, 8, 32) if k[0] > 1 else (1, 32, 128)
     t = [min(b, m) for b, m in zip(base, n)]
 
@@ -347,33 +351,6 @@ def halo_widths(taps, rec: bool) -> tuple:
         K = int(np.shape(t)[1])
         widths.append((K // 2, K // 2 - 1) if rec else (K // 2 - 1, K // 2))
     return tuple(widths)
-
-
-def _geometry(shape, taps, rec: bool, dtype=torch.float32):
-    """ctypes arguments describing one level of the tile bodies
-    (``csrc/nddwt_tile.cuh``: the multilevel kernels, ``ops/multi.py``) on
-    ``dtype`` arrays: extents, tap counts, tile, left halo
-    (``halo_widths``) and band bit per slot (a 2D array is (1, n0, n1)),
-    and the taps in the compute type — reversed for the synthesis, whose
-    adjoint reads the mirrored halo (K//2 left instead of K//2 - 1).
-    ``stage_route`` sizes the synthesis's tile to choose a 3D level's
-    route."""
-    pad = 3 - len(shape)
-    n = [1] * pad + [int(s) for s in shape]
-    k = [1] * pad + [int(np.shape(t)[1]) for t in taps]
-    if max(k) > _MAX_TAPS:
-        raise NotImplementedError(f"filters longer than {_MAX_TAPS} taps")
-    left = [0] * pad + [w[0] for w in halo_widths(taps, rec)]
-    bit = [0] * pad + list(range(len(shape)))
-    tiles = _tiles(n, k, rec, _word(dtype))
-    if tiles is None:
-        raise NotImplementedError(
-            f"filters of lengths {k} are too long for the shared-memory tile "
-            "of the per-level CUDA kernels (such levels run on the stage "
-            "kernels: stage_route)"
-        )
-    return (_ints(n), _ints(k), _ints(tiles), _ints(left), _ints(bit),
-            _tap_array([None] * pad + list(taps), rec, _compute_dtype(dtype)))
 
 
 def _ints(v):
@@ -596,7 +573,7 @@ def _walk_bands(k, t, dtype=torch.float32):
     return None
 
 
-def _stream_plan(n, k, dtype=torch.float32, kind="rec") -> tuple:
+def _stream_plan(n, k, dtype=torch.float32, kind="rec", items=1) -> tuple:
     """``(C, T1, T2)`` of a streamed launch over the 3-slot view ``n``
     with taps ``k``: the synthesis (``kind`` "rec", "lead") or the analysis
     ("dec", "lead_dec"). A plane tile of ``T1 x T2 = 256 * items`` outputs
@@ -604,21 +581,26 @@ def _stream_plan(n, k, dtype=torch.float32, kind="rec") -> tuple:
     analysis's ``_ana_items``; ``T2`` a power of two, ``_STREAM_T2[kind]``
     for the synthesis and ``256 * items / _ANA_T1`` for the analysis where
     the plane is that wide, wider where slot 1 is short; one row when slot 1
-    passes through), whose shared memory fits ``_STREAM_SMEM_BUDGET``
+    passes through; where slot 1 is a pass-through of extent > 1, the
+    multilevel kernels' folded batch, the plane's whole width where the
+    tile's rows cover the items, for its rows carry no halo), whose shared
+    memory fits ``_STREAM_SMEM_BUDGET``
     (the analysis's with one band a walk at least, ``_walk_bands``; its
     other widths are tried from ``T2`` down, which shrinks the window's
     halo rows), and a chunk of ``C`` outputs along slot 0 that keeps the
-    launch within one wave of ``_STREAM_CTAS`` CTAs where the columns leave
-    room (a second, part-filled wave cost more than the larger chunk's
-    fewer halo planes), but at least ``K0`` (a chunk reads ``C + K0 - 1``
-    planes)."""
+    launch of ``items`` such views (the multilevel kernels' 3D batch) within
+    one wave of ``_STREAM_CTAS`` CTAs where the columns leave room (a
+    second, part-filled wave cost more than the larger chunk's fewer halo
+    planes), but at least ``K0`` (a chunk reads ``C + K0 - 1`` planes)."""
     ana = kind in _ANALYSIS
     tt = _THREADS * (_ana_items(k, dtype) if ana else _stream_items(k))
     if n[1] == 1:
         cands = [tt]
     else:
-        t2 = min(tt // _ANA_T1 if ana else _STREAM_T2[kind], _pow2_at_least(n[2]), tt)
-        t2 = min(max(t2, tt // _pow2_at_least(n[1])), tt)
+        wide = _pow2_at_least(n[2])
+        if k[1] > 1:  # rows with a halo: the kind's preferred width
+            wide = min(tt // _ANA_T1 if ana else _STREAM_T2[kind], wide)
+        t2 = min(max(min(wide, tt), tt // _pow2_at_least(n[1])), tt)
         others = [1 << i for i in range(tt.bit_length()) if 1 << i != t2]
         if ana:
             others = sorted(others, key=lambda c: (c > t2, -c if c < t2 else c))
@@ -632,7 +614,7 @@ def _stream_plan(n, k, dtype=torch.float32, kind="rec") -> tuple:
             f"{'analysis' if ana else 'synthesis'}'s shared memory")
     t2 = fits[0]
     t1 = tt // t2
-    cols = -(-n[1] // t1) * -(-n[2] // t2)
+    cols = -(-n[1] // t1) * -(-n[2] // t2) * items
     chunks = max(1, _STREAM_CTAS // cols)
     return (max(-(-n[0] // chunks), min(n[0], k[0])), t1, t2)
 

@@ -9,9 +9,15 @@ multilevel cascade over a batch of 2D or 3D arrays:
 * ``nddwt_rec_multi`` for ``_fused_rec_multi`` / ``_make_rec_multi_kernel``
   (``rec_multi``).
 
-Each runs every level of a whole batch in one cooperative launch, its CTAs
-claiming the tiles (``csrc/nddwt_tile.cuh``) from a per-level counter, with
-a grid barrier between levels. They take float32, bfloat16 (float32 compute) and float64 arrays.
+Each runs every level of a whole batch in one cooperative launch, a grid
+barrier between levels: a persistent grid claims the units of each level
+from a per-level counter, a unit being one CTA tile of the per-level
+kernels' streamed launch of one item (``csrc/nddwt_stream.cuh``: the same
+view, halos, taps and plan; ``_multi_geometry``). A 2D batch whose rows are
+narrower than a plane tile is one view ``(n0, N, n1)``, its items in the
+pass-through slot, so that a plane tile covers several items' rows.
+``ops/stream_ref.multi_replay`` replays the schedule on the CPU. They take
+float32, bfloat16 (float32 compute) and float64 arrays.
 ``multi_supported`` is the counterpart of ``multi_feasible``: where it holds,
 the level loops (``cuda_kernels.dec_levels``/``rec_levels``), the plan's
 complex and split pairs and ``NDDWT.dec_batched``/``rec_batched`` take one
@@ -43,29 +49,82 @@ from .multi_ref import dec_multi_ref, rec_multi_ref
 MULTI_MAX_NUMEL = 2**22
 
 
-def _slots(shape, taps):
-    """Extents and tap counts per slot (a 2D array is (1, n0, n1))."""
-    pad = 3 - len(shape)
-    return ([1] * pad + [int(s) for s in shape],
-            [1] * pad + [int(np.shape(t)[1]) for t in taps])
+@functools.lru_cache(maxsize=None)
+def _plan(shape: tuple, k: tuple, dtype, rec: bool, items: int, fold: bool = True):
+    """The view, taps per slot, plan ``(C, T1, T2)`` and the analysis's
+    in-plane bands a walk of a multilevel launch over ``items`` items of
+    ``shape`` with ``k`` taps per axis; None where the streamed bodies take
+    no such level (a filter longer than its axis or than 76 taps, or no plan
+    that fits shared memory). The view is the per-level kernels'
+    (``cuda_kernels._stream_view``: ``(n0, 1, n1)`` in 2D), a 2D batch
+    folded into its pass-through slot 1, ``(n0, N, n1)``, where that plan's
+    plane tile covers more than one item's row (rows narrower than the
+    tile) and ``fold`` allows it. The plan is theirs
+    (``cuda_kernels._stream_plan``), its chunk sized so that the whole
+    batch's units fill one wave."""
+    kind = "rec" if rec else "dec"
+    n = [shape[0], 1, shape[1]] if len(shape) == 2 else list(shape)
+    kv = [k[0], 1, k[1]] if len(shape) == 2 else list(k)
+    if max(kv) > ck._MAX_TAPS or any(K > m for K, m in zip(kv, n)):
+        return None
+    try:
+        t = ck._stream_plan(n, kv, dtype, kind, items)
+        if fold and len(shape) == 2 and items > 1:
+            folded = [shape[0], items, shape[1]]
+            tf = ck._stream_plan(folded, kv, dtype, kind)
+            if tf[1] > 1:
+                n, t = folded, tf
+    except NotImplementedError:
+        return None
+    return n, kv, t, 1 if rec else ck._walk_bands(kv, t, dtype)
+
+
+def _lengths(taps) -> tuple:
+    """The filter length of each axis."""
+    return tuple(int(np.shape(t)[1]) for t in taps)
 
 
 def multi_supported(shape, taps, dtype, level) -> bool:
     """Whether a ``level``-level transform of ``dtype`` items of ``shape``,
     one filter of ``taps`` per axis, takes the multilevel kernels: 2 or 3
-    axes, at least two levels, a shared-memory tile for both directions (3D
-    filters of db15 and up take the stage kernels instead,
-    ``cuda_kernels.stage_route``), and at most ``MULTI_MAX_NUMEL`` elements
-    an item."""
+    axes, at least two levels, at most ``MULTI_MAX_NUMEL`` elements an
+    item, not a 3D level of the stage route (``cuda_kernels.stage_route``:
+    filters of db15 and up), and a streamed plan for both directions
+    (``_plan``)."""
     shape = tuple(int(s) for s in shape)
     if (len(shape) not in (2, 3) or len(taps) != len(shape) or int(level) < 2
             or dtype not in ck.DTYPE_CODE
-            or int(np.prod(shape)) > MULTI_MAX_NUMEL):
+            or int(np.prod(shape)) > MULTI_MAX_NUMEL
+            or ck.stage_route(shape, taps, dtype)):
         return False
-    n, k = _slots(shape, taps)
-    word = ck._word(dtype)
-    return max(k) <= ck._MAX_TAPS and all(
-        ck._tiles(n, k, rec, word) is not None for rec in (False, True))
+    return all(_plan(shape, _lengths(taps), dtype, rec, 1) is not None
+               for rec in (False, True))
+
+
+def _multi_geometry(shape, taps, rec: bool, dtype, items: int):
+    """ctypes-ready arguments of one multilevel launch over ``items`` items
+    of ``shape`` on ``dtype`` arrays: the view ``n``, taps ``k``, plan ``t``
+    and left halo per slot (``cuda_kernels.halo_widths``), the band bits,
+    the taps in the compute type (reversed for the synthesis) and the
+    analysis's in-plane bands a walk (``_plan``). Raises where the streamed
+    bodies take no such level."""
+    shape = tuple(int(s) for s in shape)
+    if ck.stage_route(shape, taps, dtype):
+        raise NotImplementedError(
+            f"filters of lengths {list(_lengths(taps))} are too long for the "
+            "per-level kernels' streamed bodies in 3D (such levels run on the "
+            "stage kernels: cuda_kernels.stage_route)")
+    plan = _plan(shape, _lengths(taps), dtype, rec, int(items))
+    if plan is None:
+        raise NotImplementedError(
+            f"the multilevel kernels take no level of filters of lengths "
+            f"{list(_lengths(taps))} on items of shape {shape} in {dtype}")
+    n, k, t, gw = plan
+    slot_taps = [taps[0], None, taps[1]] if len(shape) == 2 else list(taps)
+    left = [0 if tp is None else ck.halo_widths([tp], rec)[0][0] for tp in slot_taps]
+    bit = [0, 0, 1] if len(shape) == 2 else [0, 1, 2]
+    return (n, k, t, left, bit,
+            ck._tap_array(slot_taps, rec, ck._compute_dtype(dtype)), gw)
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,11 +133,11 @@ def load() -> ctypes.CDLL:
     lib = ck.library("nddwt_multi")
     ip = ctypes.POINTER(ctypes.c_int)
     vp, i = ctypes.c_void_p, ctypes.c_int
+    geom = [vp, vp, vp, vp, i, i, i, i, ip, ip, ip, ip, ip, vp]  # ..., bit, taps
+    lib.nddwt_dec_multi.argtypes = geom + [i, ctypes.c_double, vp]  # gw, lam
+    lib.nddwt_rec_multi.argtypes = geom + [ctypes.c_double, vp]  # scale
     for name in ("nddwt_dec_multi", "nddwt_rec_multi"):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, ip, ip, ip, ip, ip, vp,
-                       ctypes.c_double, vp]
-        fn.restype = ctypes.c_int
+        getattr(lib, name).restype = ctypes.c_int
     return ck._check_level_library(lib)
 
 
@@ -96,20 +155,20 @@ def _check(shape, taps, level, items):
 
 def _launch(name, src, dst, shape, taps, level, rec, coef):
     """One launch of ``name`` over ``src`` -> ``dst``, with the ping slots
-    and the per-level work counters it needs; raises if the launch
-    fails."""
+    and the per-level unit counters it needs; raises if the launch fails."""
     items = src.shape[0]
+    n, k, t, left, bit, arr, gw = _multi_geometry(shape, taps, rec, src.dtype, items)
     ping = torch.empty((min(level - 1, 2) * items,) + shape, dtype=src.dtype,
                        device=src.device)
     counters = torch.zeros(level, dtype=torch.int64, device=src.device)
-    n, k, t, left, bit, arr = ck._geometry(shape, taps, rec, src.dtype)
     lib = load()
+    walk = () if rec else (gw,)
     with torch.cuda.device(src.device):
         err = getattr(lib, name)(
             src.data_ptr(), dst.data_ptr(), ping.data_ptr() if ping.numel() else None,
-            counters.data_ptr(), ck.DTYPE_CODE[src.dtype], len(shape), items,
-            int(level), n, k, t, left, bit, ck._taps_ptr(arr), float(coef),
-            torch.cuda.current_stream().cuda_stream,
+            counters.data_ptr(), ck.DTYPE_CODE[src.dtype], len(shape), items, int(level),
+            *(ck._ints(v) for v in (n, k, t, left, bit)), ck._taps_ptr(arr), *walk,
+            float(coef), torch.cuda.current_stream().cuda_stream,
         )
     ck.raise_on(lib, err, name)
     ck.launch_counts[name] += 1

@@ -21,6 +21,12 @@ rows), each copied by bulk copies into a ring of unit buffers, then the
 T and Z passes (the analysis) or the Z and T adjoints (the adjoint) run on
 the unit in shared memory. ``lane_replay`` replays it.
 
+``csrc/nddwt_multi.cu`` runs the two streamed bodies for every level and
+item of a batch in one launch of a persistent grid, a unit being one CTA
+tile of the per-level launch of one item (a 2D batch folded into the
+view's pass-through slot); ``multi_replay`` replays it, held against
+``multi_ref.dec_multi_ref``/``rec_multi_ref``.
+
 ``csrc/nddwt_flat.cu`` holds the body of ``nddwt_flat_pair`` and
 ``nddwt_flat_iter``: one pass per axis group, level and direction, each
 CTA copying a tile's window (the tile and its halo on the group's axes)
@@ -69,6 +75,57 @@ def _corr(w, tp, axis):
     return torch.tensordot(w.unfold(axis, K, 1), tp, dims=([w.ndim], [0]))
 
 
+def _syn_unit(band, dst, count, origin, n, k, t, left, bit, pad, taps, groups, scale):
+    """One unit of the streamed synthesis (``stream_syn``), the CTA tile at
+    ``origin = (p0, o1, o2)`` with ``t = (C, T1, T2)``: ``band(d)`` is band
+    ``d``'s input on the view, ``(m0, m1, m2)`` (``m`` = ``n`` plus ``k - 1``
+    on a padded slot), ``dst(gi)`` and ``count(gi)`` output group ``gi``'s
+    array and write counts on the view, ``n``; ``taps`` the (3, 2, kMaxTaps)
+    taps in the compute type."""
+    cdt = taps.dtype
+    C, T1, T2 = t
+    p0, o1, o2 = origin
+    ns = [2 if k[a] > 1 else 1 for a in range(3)]
+    K0 = k[0]
+    cc = min(C, n[0] - p0)
+    w1, w2 = min(T1, n[1] - o1), min(T2, n[2] - o2)
+    rows = _window_index(o1 - left[1] + torch.arange(w1 + k[1] - 1), n[1], left[1], pad[1])
+    cols = _window_index(o2 - left[2] + torch.arange(w2 + k[2] - 1), n[2], left[2], pad[2])
+    for gi in range(groups):
+        ring = torch.zeros((K0, w1, w2), dtype=cdt)
+        for r in range(cc + K0 - 1):
+            g0 = _window_index(torch.tensor([p0 - left[0] + r]), n[0], left[0], pad[0])
+            for s0 in range(2):
+                P = torch.zeros((w1, w2), dtype=cdt)
+                for s1 in range(ns[1]):
+                    Q = torch.zeros((w1 + k[1] - 1, w2), dtype=cdt)
+                    for s2 in range(ns[2]):
+                        d = (s0 << bit[0] | s1 << bit[1] | s2 << bit[2]) + 4 * gi
+                        w = band(d)[g0[0]][rows][:, cols].to(cdt)
+                        Q += _corr(w, taps[2, s2, :k[2]], 1)
+                    P += _corr(Q, taps[1, s1, :k[1]], 0)
+                # ring[m] += tap0[K0 - 1 - m] * P
+                ring += taps[0, s0, :K0].flip(0)[:, None, None] * P
+            if r >= K0 - 1:
+                q0 = p0 + r - (K0 - 1)
+                at = (q0, slice(o1, o1 + w1), slice(o2, o2 + w2))
+                dst(gi)[at] = ring[0] * scale
+                count(gi)[at] += 1
+            ring = torch.cat([ring[1:], torch.zeros_like(ring[:1])])
+
+
+def _units(n, t, per):
+    """The origins ``(p0, o1, o2)`` of a launch's CTA tiles over the view
+    ``n`` with ``t = (C, T1, T2)``, ``per`` of them counted: slot 2
+    fastest, as ``blockIdx`` (x, y, z) and the multilevel kernels' units
+    number them."""
+    C, T1, T2 = t
+    t2n, t1n, t0n = -(-n[2] // T2), -(-n[1] // T1), -(-n[0] // C)
+    assert per == t2n * t1n * t0n
+    return [(z * C, y * T1, x * T2) for z in range(t0n) for y in range(t1n)
+            for x in range(t2n)]
+
+
 def stream_replay(y, approx, idx, n, k, t, left, bit, pad, arr, groups, scale,
                   items):
     """The launch's output ``(groups, *n)``: ``y`` is the band array on the
@@ -84,45 +141,67 @@ def stream_replay(y, approx, idx, n, k, t, left, bit, pad, arr, groups, scale,
     ins = [n[a] + (k[a] - 1 if pad[a] else 0) for a in range(3)]
     assert tuple(y.shape[1:]) == tuple(ins)
     taps = torch.as_tensor(np.asarray(arr), dtype=cdt)
-    ns = [2 if k[a] > 1 else 1 for a in range(3)]
     out = torch.full((groups,) + tuple(n), float("nan"), dtype=cdt)
     written = torch.zeros((groups,) + tuple(n), dtype=torch.int32)
-    K0 = k[0]
-    for bz in range(-(-n[0] // C)):
-        for by in range(-(-n[1] // T1)):
-            for bx in range(-(-n[2] // T2)):
-                p0, o1, o2 = bz * C, by * T1, bx * T2
-                cc = min(C, n[0] - p0)
-                w1, w2 = min(T1, n[1] - o1), min(T2, n[2] - o2)
-                rows = _window_index(o1 - left[1] + torch.arange(w1 + k[1] - 1),
-                                     n[1], left[1], pad[1])
-                cols = _window_index(o2 - left[2] + torch.arange(w2 + k[2] - 1),
-                                     n[2], left[2], pad[2])
-                for gi in range(groups):
-                    ring = torch.zeros((K0, w1, w2), dtype=cdt)
-                    for r in range(cc + K0 - 1):
-                        g0 = _window_index(torch.tensor([p0 - left[0] + r]), n[0],
-                                           left[0], pad[0])
-                        for s0 in range(2):
-                            P = torch.zeros((w1, w2), dtype=cdt)
-                            for s1 in range(ns[1]):
-                                Q = torch.zeros((w1 + k[1] - 1, w2), dtype=cdt)
-                                for s2 in range(ns[2]):
-                                    band = (s0 << bit[0] | s1 << bit[1]
-                                            | s2 << bit[2]) + 4 * gi
-                                    b = approx if idx[band] < 0 else y[idx[band]]
-                                    w = b[g0[0]][rows][:, cols].to(cdt)
-                                    Q += _corr(w, taps[2, s2, :k[2]], 1)
-                                P += _corr(Q, taps[1, s1, :k[1]], 0)
-                            # ring[m] += tap0[K0 - 1 - m] * P
-                            ring += taps[0, s0, :K0].flip(0)[:, None, None] * P
-                        if r >= K0 - 1:
-                            q0 = p0 + r - (K0 - 1)
-                            out[gi, q0, o1:o1 + w1, o2:o2 + w2] = ring[0] * scale
-                            written[gi, q0, o1:o1 + w1, o2:o2 + w2] += 1
-                        ring = torch.cat([ring[1:], torch.zeros_like(ring[:1])])
+    units = _units(n, t, -(-n[0] // C) * -(-n[1] // T1) * -(-n[2] // T2))
+    for origin in units:
+        _syn_unit(lambda d: approx if idx[d] < 0 else y[idx[d]], out.__getitem__,
+                  written.__getitem__, origin, n, k, t, left, bit, pad, taps, groups,
+                  scale)
     assert bool((written == 1).all()), "an output written other than once"
     return out.to(y.dtype)
+
+
+def _ana_unit(src, dst, count, origin, n, k, t, gw, left, bit, pad, taps, groups, lam):
+    """One unit of the streamed analysis (``stream_ana``), the CTA tile at
+    ``origin = (p0, o1, o2)`` with ``t = (C, T1, T2)`` and ``gw`` in-plane
+    bands a walk: ``src(gi)`` is input group ``gi`` on the view, ``(m0, m1,
+    m2)``; band ``d``'s outputs go to ``dst(d)`` (``d == 0``: the
+    approximation; shrunk by ``lam > 0`` otherwise) on the view, ``n``, and
+    are counted in ``count(d)``; ``taps`` as ``_syn_unit``'s."""
+    cdt = taps.dtype
+    C, T1, T2 = t
+    p0, o1, o2 = origin
+    G = (2 if k[1] > 1 else 1) * (2 if k[2] > 1 else 1)
+    lgs1 = 1 if k[1] > 1 else 0
+    K0 = k[0]
+    cc = min(C, n[0] - p0)
+    w1, w2 = min(T1, n[1] - o1), min(T2, n[2] - o2)
+    rows = _window_index(o1 - left[1] + torch.arange(w1 + k[1] - 1), n[1], left[1], pad[1])
+    cols = _window_index(o2 - left[2] + torch.arange(w2 + k[2] - 1), n[2], left[2], pad[2])
+    for gi in range(groups):
+        x = src(gi)
+        for wk in range(G // gw):
+            bands = range(wk * gw, (wk + 1) * gw)
+            ring = []  # the last K0 planes' in-plane bands
+            for r in range(cc + K0 - 1):
+                g0 = _window_index(torch.tensor([p0 - left[0] + r]), n[0], left[0], pad[0])
+                w = x[g0[0]][rows][:, cols].to(cdt)
+                if k[1] > 1 and k[2] > 1:  # slot 2 into Q, then slot 1
+                    q = {h: _corr(w, taps[2, h, :k[2]], 1) for h in {b >> 1 for b in bands}}
+                    vals = {b: _corr(q[b >> 1], taps[1, b & 1, :k[1]], 0) for b in bands}
+                elif k[1] == 1:  # 2D: one row (an item's, folded), slot 2
+                    vals = {b: _corr(w, taps[2, b, :k[2]], 1) for b in bands}
+                else:  # the lead stage: slot 1, slot 2 passes through
+                    vals = {b: _corr(w, taps[1, b, :k[1]], 0) for b in bands}
+                ring = (ring + [vals])[-K0:]
+                if r < K0 - 1:
+                    continue
+                q0 = p0 + r - (K0 - 1)
+                at = (q0, slice(o1, o1 + w1), slice(o2, o2 + w2))
+                for b in bands:
+                    # both s0 of band b, gathered over the ring
+                    lohi = torch.tensordot(taps[0, :, :K0], torch.stack([v[b] for v in ring]),
+                                           dims=([1], [0]))
+                    s1, s2 = b & lgs1, b >> lgs1
+                    for s0 in range(2):
+                        d = (s0 << bit[0] | s1 << bit[1] | s2 << bit[2]) + 4 * gi
+                        v = lohi[s0]
+                        if d > 0 and lam > 0:
+                            v = soft_threshold(v, lam)
+                        out = dst(d)
+                        out[at] = v.to(out.dtype)
+                        count(d)[at] += 1
 
 
 def stream_ana_replay(x, big, approx_out, band_off, n, k, t, gw, left, bit, pad,
@@ -144,58 +223,131 @@ def stream_ana_replay(x, big, approx_out, band_off, n, k, t, gw, left, bit, pad,
     ins = [n[a] + (k[a] - 1 if pad[a] else 0) for a in range(3)]
     assert tuple(x.shape) == (groups, *ins)
     taps = torch.as_tensor(np.asarray(arr), dtype=cdt)
-    lgs1 = 1 if k[1] > 1 else 0
-    K0 = k[0]
     written = torch.zeros((2 * G * groups,) + tuple(n), dtype=torch.int32)
-    for bz in range(-(-n[0] // C)):
-        for by in range(-(-n[1] // T1)):
-            for bx in range(-(-n[2] // T2)):
-                p0, o1, o2 = bz * C, by * T1, bx * T2
-                cc = min(C, n[0] - p0)
-                w1, w2 = min(T1, n[1] - o1), min(T2, n[2] - o2)
-                rows = _window_index(o1 - left[1] + torch.arange(w1 + k[1] - 1),
-                                     n[1], left[1], pad[1])
-                cols = _window_index(o2 - left[2] + torch.arange(w2 + k[2] - 1),
-                                     n[2], left[2], pad[2])
-                for gi in range(groups):
-                    for wk in range(G // gw):
-                        bands = range(wk * gw, (wk + 1) * gw)
-                        ring = []  # the last K0 planes' in-plane bands
-                        for r in range(cc + K0 - 1):
-                            g0 = _window_index(torch.tensor([p0 - left[0] + r]), n[0],
-                                               left[0], pad[0])
-                            w = x[gi, g0[0]][rows][:, cols].to(cdt)
-                            if k[1] > 1 and k[2] > 1:  # slot 2 into Q, then slot 1
-                                q = {h: _corr(w, taps[2, h, :k[2]], 1)
-                                     for h in {b >> 1 for b in bands}}
-                                vals = {b: _corr(q[b >> 1], taps[1, b & 1, :k[1]], 0)
-                                        for b in bands}
-                            elif k[1] == 1:  # 2D: one row, slot 2
-                                vals = {b: _corr(w, taps[2, b, :k[2]], 1) for b in bands}
-                            else:  # the lead stage: slot 1, slot 2 passes through
-                                vals = {b: _corr(w, taps[1, b, :k[1]], 0) for b in bands}
-                            ring = (ring + [vals])[-K0:]
-                            if r < K0 - 1:
-                                continue
-                            q0 = p0 + r - (K0 - 1)
-                            at = (q0, slice(o1, o1 + w1), slice(o2, o2 + w2))
-                            for b in bands:
-                                # both s0 of band b, gathered over the ring
-                                lohi = torch.tensordot(
-                                    taps[0, :, :K0], torch.stack([v[b] for v in ring]),
-                                    dims=([1], [0]))
-                                s1, s2 = b & lgs1, b >> lgs1
-                                for s0 in range(2):
-                                    d = (s0 << bit[0] | s1 << bit[1] | s2 << bit[2]) + 4 * gi
-                                    v = lohi[s0]
-                                    if d == 0:
-                                        approx_out[at] = v.to(approx_out.dtype)
-                                    else:
-                                        if lam > 0:
-                                            v = soft_threshold(v, lam)
-                                        big[(band_off + d - 1,) + at] = v.to(big.dtype)
-                                    written[(d,) + at] += 1
+    units = _units(n, t, -(-n[0] // C) * -(-n[1] // T1) * -(-n[2] // T2))
+    for origin in units:
+        _ana_unit(x.__getitem__,
+                  lambda d: approx_out if d == 0 else big[band_off + d - 1],
+                  written.__getitem__, origin, n, k, t, gw, left, bit, pad, taps, groups,
+                  lam)
     assert bool((written == 1).all()), "an output written other than once"
+
+
+def multi_replay(mode, src, taps, level, coef, ctas=264):
+    """One ``nddwt_dec_multi`` (``mode`` 'dec': ``src`` the items ``(N,
+    *s)``, ``coef`` the shrink ``lam``) or ``nddwt_rec_multi`` launch
+    ('rec': ``src`` the bands ``(N, B, *s)``, ``coef`` the per-level
+    scale) (``csrc/nddwt_multi.cu``), level by level and CTA by CTA; returns
+    the bands or the output.
+
+    The launch's geometry is ``multi._multi_geometry``'s: the per-level
+    kernels' streamed view of one item, or of a 2D batch folded into the
+    pass-through slot 1 ``(n0, N, n1)``, and its plan. Per level, the grid of
+    ``min(ctas, units)`` CTAs claims the units from a counter, here in turn
+    (CTA ``c`` the ``c``-th, ``c + grid``-th, ...: which CTA runs a unit
+    changes nothing but the order), asserted to cover each once, a unit
+    being ``(item, chunk, plane tile)``, slot 2 fastest (the item only where
+    not folded); each runs ``_ana_unit`` or
+    ``_syn_unit`` on views of the flat arrays built with the kernel's
+    strides: a folded view steps from item to item by each array's own
+    stride (the bands' ``B`` items of ``vox``, the ping slots' and the
+    input's and output's ``vox``), within an item ``vox`` a band and ``n1``
+    a plane. The analysis reads ``src`` or ping slot ``(l - 1) % 2`` and
+    writes its details at ``dec_detail_offset`` and its approximation to
+    slot ``l % 2`` or band 0; the synthesis reads level ``l``'s band table
+    (band 0 from ``src`` at ``l = 0``, else from slot ``(l - 1) % 2``; the
+    details at ``rec_band_index``) and writes slot ``l % 2`` or the output.
+    The slots start as NaN and hold the storage type; every output of a
+    level is asserted written once, and nothing else."""
+    from . import multi
+
+    rec = mode == "rec"
+    T = src.dtype
+    cdt = _compute_dtype(T)
+    N = int(src.shape[0])
+    shape = tuple(int(s) for s in src.shape[2 if rec else 1:])
+    d = len(shape)
+    nb = 2**d
+    B = nb + (nb - 1) * (level - 1)
+    assert not rec or src.shape[1] == B
+    n, k, t, left, bit, arr, gw = multi._multi_geometry(shape, taps, rec, T, N)
+    fold = d == 2 and n[1] > 1  # the batch in slot 1
+    tp = torch.as_tensor(np.asarray(arr), dtype=cdt)
+    C, T1, T2 = t
+    vox = int(np.prod(shape))
+    bvox = B * vox
+    per = -(-n[0] // C) * -(-n[1] // T1) * -(-n[2] // T2)
+    origins = _units(n, t, per)
+    units = per * (1 if fold else N)
+    grid = min(ctas, units)
+    order = [u for c in range(grid) for u in range(c, units, grid)]
+    assert sorted(order) == list(range(units)), "a unit dropped or repeated"
+    pad = [False] * 3
+    flat_src = src.reshape(-1)
+    out = torch.full((N * (vox if rec else bvox),), float("nan"), dtype=T)
+    slots = min(level - 1, 2)
+    ping = torch.full((slots * N * vox,), float("nan"), dtype=T)
+
+    def view(flat, at, item):
+        """The view of the item at element ``at`` of ``flat`` (3D), or of
+        the batch folded, its items ``item`` elements apart (2D)."""
+        if fold:
+            return torch.as_strided(flat, tuple(n), (n[2], item, 1), at)
+        return torch.as_strided(flat, tuple(n), (n[1] * n[2], n[2], 1), at)
+
+    for lvl in range(level):
+        final = lvl == level - 1
+        seen_out = torch.zeros(out.shape, dtype=torch.int32)
+        seen_ping = torch.zeros(ping.shape, dtype=torch.int32)
+        want_out = torch.zeros(out.shape, dtype=torch.int32)
+        want_ping = torch.zeros(ping.shape, dtype=torch.int32)
+        nxt = lvl % 2 * N * vox  # this level's slot, unless final
+        prev = (lvl - 1) % 2 * N * vox
+        if rec:
+            idx = [-1 if (b == 0 and lvl > 0) else
+                   (b if lvl == 0 else nb + (nb - 1) * (lvl - 1) + b - 1) for b in range(nb)]
+            astep = bvox if lvl == 0 else vox
+            a_flat, a_at = (flat_src, 0) if lvl == 0 else (ping, prev)
+            o_flat, o_seen, o_want, o_at = ((out, seen_out, want_out, 0) if final
+                                            else (ping, seen_ping, want_ping, nxt))
+            o_want[o_at:o_at + N * vox] = 1
+        else:
+            off = B - (nb - 1) * (lvl + 1)
+            i_flat, i_at = (flat_src, 0) if lvl == 0 else (ping, prev)
+            astep = bvox if final else vox
+            a_flat, a_seen, a_at = ((out, seen_out, 0) if final else (ping, seen_ping, nxt))
+            for item in range(N):
+                want_out[item * bvox + off * vox:item * bvox + (off + nb - 1) * vox] = 1
+                if final:
+                    want_out[item * bvox:item * bvox + vox] = 1
+            if not final:
+                want_ping[nxt:nxt + N * vox] = 1
+        for u in order:
+            item, origin = divmod(u, per)
+            origin = origins[origin]
+            if rec:
+                def band(b, item=item):
+                    if idx[b] < 0:
+                        return view(a_flat, a_at + item * astep, astep)
+                    return view(flat_src, item * bvox + idx[b] * vox, bvox)
+
+                _syn_unit(band, lambda gi, item=item: view(o_flat, o_at + item * vox, vox),
+                          lambda gi, item=item: view(o_seen, o_at + item * vox, vox),
+                          origin, n, k, t, left, bit, pad, tp, 1, coef)
+            else:
+                def dst(b, item=item, flats=(out, a_flat)):
+                    """Band b's view in the bands, flats[0], or for b == 0
+                    the approximation's, flats[1] (or their write counts)."""
+                    if b == 0:
+                        return view(flats[1], a_at + item * astep, astep)
+                    return view(flats[0], item * bvox + (off + b - 1) * vox, bvox)
+
+                _ana_unit(lambda gi, item=item: view(i_flat, i_at + item * vox, vox), dst,
+                          lambda b, item=item: dst(b, item, (seen_out, a_seen)),
+                          origin, n, k, t, gw, left, bit, pad, tp, 1, coef)
+        assert torch.equal(seen_out, want_out) and torch.equal(seen_ping, want_ping), \
+            f"level {lvl}: an output written other than once, or a stray write"
+    return out.reshape((N,) + ((() if rec else (B,)) + shape))
 
 
 def _lane_bulk(a, n, size, tlo, thi):

@@ -22,7 +22,8 @@ Dispatch:
   ``nddwt_flat_iter`` launch up to ``ITER_MAX_NUMEL``;
 * a larger CUDA tensor, 2D or 3D, with at least two levels and at most
   ``ops/multi.py``'s ``MULTI_MAX_NUMEL`` elements a component, whose
-  filters fit the per-level kernels' tile: the one-launch multilevel
+  levels the per-level kernels' streamed bodies take (in 3D, filters
+  shorter than those of ``stage_route``): the one-launch multilevel
   kernels (``nddwt_dec_multi``, ``nddwt_rec_multi``), one launch per
   direction for all levels and both components of a complex array or a
   split pair (a batch of 2); a thresholded complex ``dec_rec`` is
@@ -30,10 +31,10 @@ Dispatch:
 * any other larger CUDA tensor, 1D to 4D: the hand-written level kernels
   (``ops/cuda_kernels.py``): per level and direction one launch in 1D, 2D
   and 3D, two (a lane and a lead stage) in 4D and for 3D filters too long
-  for the one-launch tile; the shrink of ``dec_rec`` fused into the
-  analysis. Complex data (complex64, complex128) and split re/im pairs run
-  each component through its own level chain (the filters are real);
-  their shrink is the joint-magnitude ``mag_shrink_pair`` kernel
+  for the streamed bodies (``stage_route``); the shrink of ``dec_rec``
+  fused into the analysis. Complex data (complex64, complex128) and split
+  re/im pairs run each component through its own level chain (the filters
+  are real); their shrink is the joint-magnitude ``mag_shrink_pair`` kernel
   (``ops/elemwise.py``). A larger 5D+ tensor raises
   ``NotImplementedError``; nothing runs silently on torch ops;
 * a CUDA batch (``dec_batched``, ``rec_batched``) whose items the

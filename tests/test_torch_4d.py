@@ -457,9 +457,9 @@ def test_launch_arguments():
     the extents and the tap array the kernels read through a pointer."""
     shape = (8, 8, 4, 6)
     taps = tw.NDDWT("db2", shape, device="cpu").taps_hp
-    for geometry in (ck._stage_geometry(shape, taps, True, False),
-                     ck._geometry(shape[:3], taps[:3], True)):
-        n, arr = geometry[0], geometry[-1]
+    stage = ck._stage_geometry(shape, taps, True, False)
+    multilevel = multi._multi_geometry(shape[:3], taps[:3], True, torch.float32, 1)
+    for n, arr in ((stage[0], stage[-1]), (multilevel[0], multilevel[5])):
         ptr = ck._taps_ptr(arr)
         assert [ptr[i] for i in range(arr.size)] == arr.ravel().tolist()
         assert all(v >= 1 for v in n)

@@ -203,17 +203,18 @@ def test_levels_serve_the_ragged_shapes(jx, calls, monkeypatch, shape, wv, level
 
 
 def test_f64_tiles_and_stage_route():
-    """A float64 launch sizes shared memory at 8 bytes a word: smaller
-    tiles, within the budget, and shorter 3D filters take the stage
-    kernels; the streamed analysis keeps a ring of 8-byte words, so it
+    """A float64 level sizes the tile that picks its route (``_tiles``) at
+    8 bytes a word: smaller tiles, within the budget, and shorter 3D filters
+    take the stage kernels; the streamed analysis keeps a ring of 8-byte words, so it
     takes one plane element a thread at db4 (two in float32) and all four
     in-plane bands a walk, within the stream budget."""
     shape = (256, 256, 256)
     taps = tw.NDDWT("db4", shape, device="cpu").taps_hp
+    k = [8, 8, 8]
     for rec in (False, True):
-        t32 = list(ck._geometry(shape, taps, rec)[2])
-        n, k, t, *_, arr = ck._geometry(shape, taps, rec, torch.float64)
-        assert arr.dtype == np.float64 and list(t) != t32
+        t32 = ck._tiles(list(shape), k, rec)
+        t = ck._tiles(list(shape), k, rec, 8)
+        assert t != t32
         e = [t[a] + k[a] - 1 for a in range(3)]
         words = e[0] * e[1] * e[2] + t[0] * e[1] * e[2] + t[0] * t[1] * e[2]
         assert 8 * (words + (t[0] * t[1] * t[2] if rec else 0)) <= ck._SMEM_BUDGET

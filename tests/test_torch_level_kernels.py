@@ -137,31 +137,15 @@ def test_level_refs_contract():
 )
 @pytest.mark.parametrize("rec", [False, True])
 def test_kernel_geometry(shape, wv, rec):
-    """The launch geometry the wrappers hand the kernels: the 2D slot
-    padding, the analysis/adjoint halos and tap orientation, and a tile
-    plan inside the shared-memory budget (the multilevel kernels' tile
-    bodies; ``stage_route`` sizes the synthesis's); and the streamed plan
+    """The launch geometry the wrappers hand the kernels: the streamed plan
     that ``nddwt_rec_level`` and ``nddwt_dec_level`` take: slot 0 streamed
     ((n0, 1, n1) in 2D), the synthesis's taps reversed with a halo of
     ``K // 2``, the analysis's as given with ``K // 2 - 1``, a plane tile of
     ``256 * items`` and shared memory inside the stream budget (for the
-    analysis with the in-plane bands a walk keeps)."""
+    analysis with the in-plane bands a walk keeps); and the multilevel
+    kernels' geometry of one item, which is the same launch's (their units
+    are its CTA tiles)."""
     plan = tw.NDDWT(wv, shape, device="cpu")
-    n, k, t, left, bit, arr = cuda_kernels._geometry(shape, plan.taps_hp, rec)
-    pad = 3 - len(shape)
-    assert list(n) == [1] * pad + list(shape)
-    assert list(k)[pad:] == list(plan.filter_lengths) and list(k)[:pad] == [1] * pad
-    assert list(bit)[pad:] == list(range(len(shape)))
-    for a, K in enumerate(plan.filter_lengths):
-        assert left[pad + a] == (K // 2 if rec else K // 2 - 1)
-        want = plan.taps_hp[a][:, ::-1] if rec else plan.taps_hp[a]
-        np.testing.assert_array_equal(arr[pad + a, :, :K], want.astype(np.float32))
-        assert not arr[pad + a, :, K:].any()
-    e = [t[a] + k[a] - 1 for a in range(3)]
-    words = e[0] * e[1] * e[2] + t[0] * e[1] * e[2] + t[0] * t[1] * e[2]
-    words += t[0] * t[1] * t[2] if rec else 0
-    assert 4 * words <= cuda_kernels._SMEM_BUDGET
-    assert all(1 <= t[a] <= n[a] for a in range(3))
     geometry = (cuda_kernels._rec_stream_geometry if rec
                 else cuda_kernels._dec_stream_geometry)
     n, k, t, left, bit, pad, arr = geometry(shape, plan.taps_hp)
@@ -183,12 +167,16 @@ def test_kernel_geometry(shape, wv, rec):
     bands = 1 if rec else cuda_kernels._walk_bands(k, t, torch.float32)
     assert (cuda_kernels._stream_smem(k, t, torch.float32, bands=bands)
             <= cuda_kernels._STREAM_SMEM_BUDGET)
+    one = multi._multi_geometry(shape, plan.taps_hp, rec, torch.float32, 1)
+    assert [list(v) for v in one[:5]] == [n, k, list(t), left, bit]
+    np.testing.assert_array_equal(one[5], arr)
+    assert one[6] == bands
 
 
 def test_long_filters_raise_in_3d():
     plan = tw.NDDWT("db15", (32, 32, 32), device="cpu")
     with pytest.raises(NotImplementedError, match="too long"):
-        cuda_kernels._geometry(plan.shape, plan.taps_hp, False)
+        multi._multi_geometry(plan.shape, plan.taps_hp, False, torch.float32, 1)
 
 
 @pytest.fixture

@@ -287,10 +287,11 @@ class _OnCard(torch.Tensor):
                                               (torch.float64, 2, ctypes.c_double)])
 def test_multi_cuda_branches_against_a_stub_library(monkeypatch, dtype, code, ctype):
     """The wrappers' CUDA branches against a library stub that records each
-    call: pointers, dtype code, ndim, batch, level, the geometry of the
-    per-level kernels (a 2D item as (1, n0, n1)), the taps in the compute
-    type (reversed for the synthesis), lam or scale, the ping slots, the
-    launch counts; a failed launch raises."""
+    call: pointers, dtype code, ndim, batch, level, the streamed view of the
+    per-level kernels (a 2D batch folded into its pass-through slot 1,
+    (n0, N, n1)) with the batch's plan, the taps in the compute type
+    (reversed for the synthesis), the analysis's bands a walk, lam or scale,
+    the ping slots, the launch counts; a failed launch raises."""
     launched = []  # (name, arguments, the taps as the library read them)
     fail = []
 
@@ -328,20 +329,24 @@ def test_multi_cuda_branches_against_a_stub_library(monkeypatch, dtype, code, ct
     y = multi.dec_multi(x, taps, level, 0.25)
     assert tuple(y.shape) == (3, 10) + shape
     name, args, got = launched[-1]
-    px, pb, pp, pc, dt, nd, items, lvl, n, k, t, left, bit, _, lam, _ = args
+    px, pb, pp, pc, dt, nd, items, lvl, n, k, t, left, bit, _, gw, lam, _ = args
     assert name == "nddwt_dec_multi" and (dt, nd, items, lvl, lam) == (code, 2, 3, 3, 0.25)
     assert (px, pb) == (x.data_ptr(), y.data_ptr())
     assert tuple(pings[-1].shape) == (6,) + shape and pp == pings[-1].data_ptr()
-    assert pc is not None and pc not in (px, pb, pp)  # the per-level work counters
-    assert list(n) == [1, 12, 20] and list(k) == [1, 4, 6] and list(bit) == [0, 0, 1]
-    assert list(left) == [0, 1, 2]
+    assert pc is not None and pc not in (px, pb, pp)  # the per-level unit counters
+    assert list(n) == [12, 3, 20] and list(k) == [4, 1, 6] and list(bit) == [0, 0, 1]
+    assert list(left) == [1, 0, 2]
+    plan = multi._plan(shape, (4, 6), dtype, False, 3)
+    assert list(t) == list(plan[2]) and gw == plan[3] == ck._walk_bands([4, 1, 6], plan[2], dtype)
+    assert np.array_equal(got[0, :, :4], taps[0].astype(got.dtype))
     assert np.array_equal(got[2, :, :6], taps[1].astype(got.dtype))
-    assert np.array_equal(got[0, :, :2], [[1, 0], [1, 0]])  # the pass-through slot
+    assert np.array_equal(got[1, :, :2], [[1, 0], [1, 0]])  # the pass-through slot
     out = multi.rec_multi(y, taps, level, False)
     name, args, got = launched[-1]
     assert name == "nddwt_rec_multi" and tuple(out.shape) == (3,) + shape
     assert (args[0], args[1]) == (y.data_ptr(), out.data_ptr()) and args[-2] == 0.25
-    assert list(args[11]) == [0, 2, 3]  # the mirrored halo
+    assert list(args[11]) == [2, 0, 3]  # the mirrored halo
+    assert len(args) == 16  # no bands a walk
     assert np.array_equal(got[2, :, :6], taps[1][:, ::-1].astype(got.dtype))
     multi.dec_multi(on_card(torch.zeros((1,) + shape, dtype=dtype)), taps, 2)
     assert launched[-1][1][2] == pings[-1].data_ptr() and pings[-1].shape[0] == 1
