@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import elemwise
 from .denoise import soft_threshold, soft_threshold_mag_pair
 
@@ -145,13 +146,17 @@ def _adj(k, mask):
     return torch.fft.ifftn(mask * k, norm="ortho")
 
 
+def _data_step(x, b, mask, step):
+    """The gradient step of the data term: ``x - step F^H M (M F x - b)``."""
+    return x - step * _adj(_fwd(x, mask) - b, mask)
+
+
 def ista_step(transform, x, b, mask, lam, step, level):
     """One proximal-gradient step: data consistency + wavelet shrinkage.
     With ``preserve_l2`` the transform is a tight frame, so
     ``W^T soft(W v, lam)`` is the cycle-spinning surrogate of the prox."""
     _check_fft(transform)
-    grad = _adj(_fwd(x, mask) - b, mask)
-    return _prox(transform, x - step * grad, lam * step, level)
+    return _prox(transform, _data_step(x, b, mask, step), lam * step, level)
 
 
 def fista_cs_mri(transform, b, mask, lam, level=2, iters=20, step=1.0):
@@ -159,7 +164,10 @@ def fista_cs_mri(transform, b, mask, lam, level=2, iters=20, step=1.0):
     reconstruction. ``b``: observed k-space (the image's shape), ``mask``:
     0/1 sampling mask. On the card each iterate is two FFTs, one complex
     ``dec_rec`` (both components' level chains and one ``mag_shrink_pair``
-    launch) and torch elementwise ops for the gradient and momentum."""
+    launch) and torch elementwise ops for the gradient and momentum. An
+    iteration runs inside the span ``nddwt.solve.iter``, its phases inside
+    ``nddwt.solve.data``, ``nddwt.solve.prox`` and ``nddwt.solve.momentum``
+    (``tracing.py``)."""
     _check_transform(transform)
     _check_fft(transform)
     b = transform._as_input(b)
@@ -169,9 +177,14 @@ def fista_cs_mri(transform, b, mask, lam, level=2, iters=20, step=1.0):
     x = _adj(b, mask)
     z = x
     for mom in _fista_schedule(iters, lam, step)[1]:
-        x_new = ista_step(transform, z, b, mask, lam, step, level)
-        z = x_new + mom * (x_new - x)
-        x = x_new
+        with tracing.span("nddwt.solve.iter"):
+            with tracing.span("nddwt.solve.data"):
+                v = _data_step(z, b, mask, step)
+            with tracing.span("nddwt.solve.prox"):
+                x_new = _prox(transform, v, lam * step, level)
+            with tracing.span("nddwt.solve.momentum"):
+                z = x_new + mom * (x_new - x)
+            x = x_new
     return x
 
 

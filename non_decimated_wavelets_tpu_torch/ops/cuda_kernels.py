@@ -68,7 +68,9 @@ launch fails; for a CPU tensor it runs the kernel's plain version
 (``ops/level_ref.py``, ``ops/level4_ref.py``, ``ops/elemwise_ref.py``).
 Nothing falls back from CUDA to the plain version. ``launch_counts`` counts
 the launches of every kernel, so a run can show which kernels a path went
-through.
+through; the host work of each launch (here and in ``ops/flat.py``,
+``ops/multi.py``, ``ops/elemwise.py``) runs inside the span
+``nddwt.launch.<kernel>`` (``tracing.py``).
 
 ``dec_level``, ``rec_level``, ``lead_dec`` and ``lead_adj`` have a
 halo-padded mode (``padded=``, one flag per axis; the lead stages' flags
@@ -96,6 +98,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import tracing
 from ..oracle import num_bands
 from .level4_ref import lane_adj_ref, lane_dec_ref, lead_adj_ref, lead_dec_ref
 from .level_ref import dec_level_ref, rec_level_ref
@@ -448,33 +451,35 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False, padded=None):
             f"the per-level CUDA kernels take 2D and 3D arrays, got "
             f"{approx.ndim}D (1D: dec1_level; 4D: the stage kernels)"
         )
-    check_array("approx", approx)
-    check_array("big", big, approx)
-    pad = _padded_flags(padded, approx.ndim)
-    shape = tuple(big.shape[1:])
-    nb = 2**approx.ndim
-    if (len(shape) != approx.ndim
-            or _padded_shape(shape, taps, pad) != tuple(approx.shape)
-            or not 1 <= band_off <= big.shape[0] - nb + 1):
-        raise ValueError(
-            f"band array {tuple(big.shape)} cannot take the {nb - 1} detail "
-            f"bands of {tuple(approx.shape)} (halo-padded on {pad}) at offset "
-            f"{band_off}"
-        )
-    out = big[0] if final else torch.empty(shape, dtype=approx.dtype,
-                                           device=approx.device)
-    n, k, t, left, bit, vpad, arr = _dec_stream_geometry(shape, taps, approx.dtype, pad)
-    lib = load()
-    with torch.cuda.device(approx.device):
-        err = lib.nddwt_dec_level(
-            approx.data_ptr(), big.data_ptr(), out.data_ptr(),
-            DTYPE_CODE[approx.dtype], _ints(n), _ints(k), _ints(t), _ints(left),
-            _ints(bit), _taps_ptr(arr), int(band_off), float(lam),
-            _walk_bands(k, t, approx.dtype), _ints(vpad),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on(lib, err, "nddwt_dec_level")
-    _count("nddwt_dec_level", pad)
+    with tracing.span("nddwt.launch.nddwt_dec_level"):
+        check_array("approx", approx)
+        check_array("big", big, approx)
+        pad = _padded_flags(padded, approx.ndim)
+        shape = tuple(big.shape[1:])
+        nb = 2**approx.ndim
+        if (len(shape) != approx.ndim
+                or _padded_shape(shape, taps, pad) != tuple(approx.shape)
+                or not 1 <= band_off <= big.shape[0] - nb + 1):
+            raise ValueError(
+                f"band array {tuple(big.shape)} cannot take the {nb - 1} detail "
+                f"bands of {tuple(approx.shape)} (halo-padded on {pad}) at offset "
+                f"{band_off}"
+            )
+        out = big[0] if final else torch.empty(shape, dtype=approx.dtype,
+                                               device=approx.device)
+        n, k, t, left, bit, vpad, arr = _dec_stream_geometry(shape, taps, approx.dtype,
+                                                             pad)
+        lib = load()
+        with torch.cuda.device(approx.device):
+            err = lib.nddwt_dec_level(
+                approx.data_ptr(), big.data_ptr(), out.data_ptr(),
+                DTYPE_CODE[approx.dtype], _ints(n), _ints(k), _ints(t), _ints(left),
+                _ints(bit), _taps_ptr(arr), int(band_off), float(lam),
+                _walk_bands(k, t, approx.dtype), _ints(vpad),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        raise_on(lib, err, "nddwt_dec_level")
+        _count("nddwt_dec_level", pad)
     return None if final else out
 
 
@@ -695,25 +700,26 @@ def rec_level(y, approx, band_src, taps, scale, padded=None):
     one behind (``halo_widths``), and the output drops them."""
     if not y.is_cuda:
         return rec_level_ref(y, approx, band_src, taps, scale, padded)
-    check_array("y", y)
-    shape, idx, (n, k, t, left, bit, pad, arr) = rec_stream_args(
-        y, approx, band_src, taps, padded)
-    if -1 in idx:
-        check_array("approx", approx, y)
-    else:
-        approx = y
-    out = torch.empty(shape, dtype=y.dtype, device=y.device)
-    lib = load()
-    with torch.cuda.device(y.device):
-        err = lib.nddwt_rec_level(
-            y.data_ptr(), approx.data_ptr(), out.data_ptr(),
-            DTYPE_CODE[y.dtype], _ints(n), _ints(k), _ints(t), _ints(left),
-            _ints(bit), _taps_ptr(arr),
-            (ctypes.c_longlong * 8)(*(idx + [-1] * (8 - len(idx)))),
-            float(scale), _ints(pad), torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on(lib, err, "nddwt_rec_level")
-    _count("nddwt_rec_level", pad)
+    with tracing.span("nddwt.launch.nddwt_rec_level"):
+        check_array("y", y)
+        shape, idx, (n, k, t, left, bit, pad, arr) = rec_stream_args(
+            y, approx, band_src, taps, padded)
+        if -1 in idx:
+            check_array("approx", approx, y)
+        else:
+            approx = y
+        out = torch.empty(shape, dtype=y.dtype, device=y.device)
+        lib = load()
+        with torch.cuda.device(y.device):
+            err = lib.nddwt_rec_level(
+                y.data_ptr(), approx.data_ptr(), out.data_ptr(),
+                DTYPE_CODE[y.dtype], _ints(n), _ints(k), _ints(t), _ints(left),
+                _ints(bit), _taps_ptr(arr),
+                (ctypes.c_longlong * 8)(*(idx + [-1] * (8 - len(idx)))),
+                float(scale), _ints(pad), torch.cuda.current_stream().cuda_stream,
+            )
+        raise_on(lib, err, "nddwt_rec_level")
+        _count("nddwt_rec_level", pad)
     return out
 
 
@@ -910,18 +916,19 @@ def lane_dec(x, taps):
     _check_stage_array("x", x, taps)
     if not x.is_cuda:
         return lane_dec_ref(x, taps)
-    check_array("x", x)
-    temp = torch.empty((2 ** (x.ndim - 2),) + tuple(x.shape), dtype=x.dtype,
-                       device=x.device)
-    n, k, t, left, arr = _stage_geometry(x.shape, taps, True, False, x.dtype)
-    lib = load4()
-    with torch.cuda.device(x.device):
-        err = lib.nddwt_lane_dec(
-            x.data_ptr(), temp.data_ptr(), DTYPE_CODE[x.dtype], n, k, t, left,
-            _taps_ptr(arr), torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on(lib, err, "nddwt_lane_dec")
-    launch_counts["nddwt_lane_dec"] += 1
+    with tracing.span("nddwt.launch.nddwt_lane_dec"):
+        check_array("x", x)
+        temp = torch.empty((2 ** (x.ndim - 2),) + tuple(x.shape), dtype=x.dtype,
+                           device=x.device)
+        n, k, t, left, arr = _stage_geometry(x.shape, taps, True, False, x.dtype)
+        lib = load4()
+        with torch.cuda.device(x.device):
+            err = lib.nddwt_lane_dec(
+                x.data_ptr(), temp.data_ptr(), DTYPE_CODE[x.dtype], n, k, t, left,
+                _taps_ptr(arr), torch.cuda.current_stream().cuda_stream,
+            )
+        raise_on(lib, err, "nddwt_lane_dec")
+        launch_counts["nddwt_lane_dec"] += 1
     return temp
 
 
@@ -951,22 +958,23 @@ def lead_dec(temp, big, band_off, taps, lam=0.0, final=False, padded=None):
         )
     if not temp.is_cuda:
         return lead_dec_ref(temp, big, band_off, taps, lam, final, pad)
-    check_array("temp", temp)
-    check_array("big", big, temp)
-    out = big[0] if final else torch.empty(shape, dtype=temp.dtype,
-                                           device=temp.device)
-    n, k, t, left, arr = _stage_geometry(shape, taps, False, False, temp.dtype, pad)
-    lib = load4()
-    with torch.cuda.device(temp.device):
-        err = lib.nddwt_lead_dec(
-            temp.data_ptr(), big.data_ptr(), out.data_ptr(),
-            DTYPE_CODE[temp.dtype], n, k, t, left, _taps_ptr(arr),
-            int(temp.shape[0]), int(band_off), float(lam),
-            _walk_bands(list(k), list(t), temp.dtype), _ints(pad + (False,)),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on(lib, err, "nddwt_lead_dec")
-    _count("nddwt_lead_dec", pad)
+    with tracing.span("nddwt.launch.nddwt_lead_dec"):
+        check_array("temp", temp)
+        check_array("big", big, temp)
+        out = big[0] if final else torch.empty(shape, dtype=temp.dtype,
+                                               device=temp.device)
+        n, k, t, left, arr = _stage_geometry(shape, taps, False, False, temp.dtype, pad)
+        lib = load4()
+        with torch.cuda.device(temp.device):
+            err = lib.nddwt_lead_dec(
+                temp.data_ptr(), big.data_ptr(), out.data_ptr(),
+                DTYPE_CODE[temp.dtype], n, k, t, left, _taps_ptr(arr),
+                int(temp.shape[0]), int(band_off), float(lam),
+                _walk_bands(list(k), list(t), temp.dtype), _ints(pad + (False,)),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        raise_on(lib, err, "nddwt_lead_dec")
+        _count("nddwt_lead_dec", pad)
     return None if final else out
 
 
@@ -989,24 +997,25 @@ def lead_adj(y, approx, band_src, taps, padded=None):
     idx = _band_indices(band_src, 2 ** len(shape), y, approx, in_shape)
     if not y.is_cuda:
         return lead_adj_ref(y, approx, band_src, taps, pad)
-    check_array("y", y)
-    if -1 in idx:
-        check_array("approx", approx, y)
-    else:
-        approx = y
-    nl = 2 ** (len(shape) - 2)
-    partial = torch.empty((nl,) + shape, dtype=y.dtype, device=y.device)
-    n, k, t, left, arr = _stage_geometry(shape, taps, False, True, y.dtype, pad)
-    lib = load4()
-    with torch.cuda.device(y.device):
-        err = lib.nddwt_lead_adj(
-            y.data_ptr(), approx.data_ptr(), partial.data_ptr(),
-            DTYPE_CODE[y.dtype], n, k, t, left, _taps_ptr(arr),
-            (ctypes.c_longlong * 16)(*(idx + [-1] * (16 - len(idx)))), nl,
-            _ints(pad + (False,)), torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on(lib, err, "nddwt_lead_adj")
-    _count("nddwt_lead_adj", pad)
+    with tracing.span("nddwt.launch.nddwt_lead_adj"):
+        check_array("y", y)
+        if -1 in idx:
+            check_array("approx", approx, y)
+        else:
+            approx = y
+        nl = 2 ** (len(shape) - 2)
+        partial = torch.empty((nl,) + shape, dtype=y.dtype, device=y.device)
+        n, k, t, left, arr = _stage_geometry(shape, taps, False, True, y.dtype, pad)
+        lib = load4()
+        with torch.cuda.device(y.device):
+            err = lib.nddwt_lead_adj(
+                y.data_ptr(), approx.data_ptr(), partial.data_ptr(),
+                DTYPE_CODE[y.dtype], n, k, t, left, _taps_ptr(arr),
+                (ctypes.c_longlong * 16)(*(idx + [-1] * (16 - len(idx)))), nl,
+                _ints(pad + (False,)), torch.cuda.current_stream().cuda_stream,
+            )
+        raise_on(lib, err, "nddwt_lead_adj")
+        _count("nddwt_lead_adj", pad)
     return partial
 
 
@@ -1020,18 +1029,19 @@ def lane_adj(partial, taps, scale):
                          f"{partial.shape[0]}")
     if not partial.is_cuda:
         return lane_adj_ref(partial, taps, scale)
-    check_array("partial", partial)
-    out = torch.empty(shape, dtype=partial.dtype, device=partial.device)
-    n, k, t, left, arr = _stage_geometry(shape, taps, True, True, partial.dtype)
-    lib = load4()
-    with torch.cuda.device(partial.device):
-        err = lib.nddwt_lane_adj(
-            partial.data_ptr(), out.data_ptr(), DTYPE_CODE[partial.dtype],
-            n, k, t, left, _taps_ptr(arr), float(scale),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on(lib, err, "nddwt_lane_adj")
-    launch_counts["nddwt_lane_adj"] += 1
+    with tracing.span("nddwt.launch.nddwt_lane_adj"):
+        check_array("partial", partial)
+        out = torch.empty(shape, dtype=partial.dtype, device=partial.device)
+        n, k, t, left, arr = _stage_geometry(shape, taps, True, True, partial.dtype)
+        lib = load4()
+        with torch.cuda.device(partial.device):
+            err = lib.nddwt_lane_adj(
+                partial.data_ptr(), out.data_ptr(), DTYPE_CODE[partial.dtype],
+                n, k, t, left, _taps_ptr(arr), float(scale),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        raise_on(lib, err, "nddwt_lane_adj")
+        launch_counts["nddwt_lane_adj"] += 1
     return out
 
 
@@ -1062,25 +1072,26 @@ def dec1_level(approx, big, band_off, taps, lam=0.0, final=False):
     _check_1d("approx", approx, taps, 0)
     if not approx.is_cuda:
         return dec_level_ref(approx, big, band_off, taps, lam, final)
-    check_array("approx", approx)
-    check_array("big", big, approx)
-    n = approx.shape[0]
-    if tuple(big.shape[1:]) != (n,) or not 1 <= band_off < big.shape[0]:
-        raise ValueError(
-            f"band array {tuple(big.shape)} cannot take the detail band of "
-            f"{(n,)} at offset {band_off}"
-        )
-    out = big[0] if final else torch.empty_like(approx)
-    K, arr = _geometry1(taps, False, approx.dtype)
-    lib = load1()
-    with torch.cuda.device(approx.device):
-        err = lib.nddwt_dec1_level(
-            approx.data_ptr(), big[band_off].data_ptr(), out.data_ptr(),
-            DTYPE_CODE[approx.dtype], n, K, K // 2 - 1, _taps_ptr(arr),
-            float(lam), torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on(lib, err, "nddwt_dec1_level")
-    launch_counts["nddwt_dec1_level"] += 1
+    with tracing.span("nddwt.launch.nddwt_dec1_level"):
+        check_array("approx", approx)
+        check_array("big", big, approx)
+        n = approx.shape[0]
+        if tuple(big.shape[1:]) != (n,) or not 1 <= band_off < big.shape[0]:
+            raise ValueError(
+                f"band array {tuple(big.shape)} cannot take the detail band of "
+                f"{(n,)} at offset {band_off}"
+            )
+        out = big[0] if final else torch.empty_like(approx)
+        K, arr = _geometry1(taps, False, approx.dtype)
+        lib = load1()
+        with torch.cuda.device(approx.device):
+            err = lib.nddwt_dec1_level(
+                approx.data_ptr(), big[band_off].data_ptr(), out.data_ptr(),
+                DTYPE_CODE[approx.dtype], n, K, K // 2 - 1, _taps_ptr(arr),
+                float(lam), torch.cuda.current_stream().cuda_stream,
+            )
+        raise_on(lib, err, "nddwt_dec1_level")
+        launch_counts["nddwt_dec1_level"] += 1
     return None if final else out
 
 
@@ -1093,21 +1104,22 @@ def rec1_level(y, approx, band_src, taps, scale):
     idx = _band_indices(band_src, 2, y, approx, shape)
     if not y.is_cuda:
         return rec_level_ref(y, approx, band_src, taps, scale)
-    check_array("y", y)
-    if -1 in idx:
-        check_array("approx", approx, y)
-    a, d = (approx if i < 0 else y[i] for i in idx)
-    out = torch.empty(shape, dtype=y.dtype, device=y.device)
-    K, arr = _geometry1(taps, True, y.dtype)
-    lib = load1()
-    with torch.cuda.device(y.device):
-        err = lib.nddwt_rec1_level(
-            a.data_ptr(), d.data_ptr(), out.data_ptr(), DTYPE_CODE[y.dtype],
-            shape[0], K, K // 2, _taps_ptr(arr), float(scale),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on(lib, err, "nddwt_rec1_level")
-    launch_counts["nddwt_rec1_level"] += 1
+    with tracing.span("nddwt.launch.nddwt_rec1_level"):
+        check_array("y", y)
+        if -1 in idx:
+            check_array("approx", approx, y)
+        a, d = (approx if i < 0 else y[i] for i in idx)
+        out = torch.empty(shape, dtype=y.dtype, device=y.device)
+        K, arr = _geometry1(taps, True, y.dtype)
+        lib = load1()
+        with torch.cuda.device(y.device):
+            err = lib.nddwt_rec1_level(
+                a.data_ptr(), d.data_ptr(), out.data_ptr(), DTYPE_CODE[y.dtype],
+                shape[0], K, K // 2, _taps_ptr(arr), float(scale),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        raise_on(lib, err, "nddwt_rec1_level")
+        launch_counts["nddwt_rec1_level"] += 1
     return out
 
 

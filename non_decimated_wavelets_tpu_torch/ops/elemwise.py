@@ -23,6 +23,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from . import cuda_kernels
 from .elemwise_ref import fista_step_ref, mag_shrink_pair_ref
 
@@ -53,19 +54,20 @@ def mag_shrink_pair(y_pair, lam):
             f"expected a (2, B, *spatial) split band array, got {tuple(y_pair.shape)}"
         )
     cuda_kernels.check_array("y_pair", y_pair)
-    out = torch.empty_like(y_pair)
     n = y_pair[0].numel()
     if n == 0:
-        return out
-    lib = load()
-    with torch.cuda.device(y_pair.device):
-        err = lib.nddwt_mag_shrink_pair(
-            y_pair.data_ptr(), out.data_ptr(),
-            cuda_kernels.DTYPE_CODE[y_pair.dtype], n, y_pair[0, 0].numel(),
-            float(lam), torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_kernels.raise_on(lib, err, "nddwt_mag_shrink_pair")
-    cuda_kernels.launch_counts["nddwt_mag_shrink_pair"] += 1
+        return torch.empty_like(y_pair)
+    with tracing.span("nddwt.launch.nddwt_mag_shrink_pair"):
+        out = torch.empty_like(y_pair)
+        lib = load()
+        with torch.cuda.device(y_pair.device):
+            err = lib.nddwt_mag_shrink_pair(
+                y_pair.data_ptr(), out.data_ptr(),
+                cuda_kernels.DTYPE_CODE[y_pair.dtype], n, y_pair[0, 0].numel(),
+                float(lam), torch.cuda.current_stream().cuda_stream,
+            )
+        cuda_kernels.raise_on(lib, err, "nddwt_mag_shrink_pair")
+        cuda_kernels.launch_counts["nddwt_mag_shrink_pair"] += 1
     return out
 
 
@@ -92,17 +94,18 @@ def fista_step(x_new, x_prev, mask, b, mom: float, step: float):
     cuda_kernels.check_array("x_new", x_new)
     for name, t in (("x_prev", x_prev), ("mask", mask), ("b", b)):
         cuda_kernels.check_array(name, t, x_new)
-    out = torch.empty_like(x_new)
     n = mask.numel()
     if n == 0:
-        return out
-    lib = load()
-    with torch.cuda.device(x_new.device):
-        err = lib.nddwt_fista_step(
-            x_new.data_ptr(), x_prev.data_ptr(), mask.data_ptr(), b.data_ptr(),
-            out.data_ptr(), cuda_kernels.DTYPE_CODE[x_new.dtype], n, reps,
-            float(mom), float(step), torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_kernels.raise_on(lib, err, "nddwt_fista_step")
-    cuda_kernels.launch_counts["nddwt_fista_step"] += 1
+        return torch.empty_like(x_new)
+    with tracing.span("nddwt.launch.nddwt_fista_step"):
+        out = torch.empty_like(x_new)
+        lib = load()
+        with torch.cuda.device(x_new.device):
+            err = lib.nddwt_fista_step(
+                x_new.data_ptr(), x_prev.data_ptr(), mask.data_ptr(), b.data_ptr(),
+                out.data_ptr(), cuda_kernels.DTYPE_CODE[x_new.dtype], n, reps,
+                float(mom), float(step), torch.cuda.current_stream().cuda_stream,
+            )
+        cuda_kernels.raise_on(lib, err, "nddwt_fista_step")
+        cuda_kernels.launch_counts["nddwt_fista_step"] += 1
     return out

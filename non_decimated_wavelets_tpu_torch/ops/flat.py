@@ -54,6 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..oracle import num_bands
 from . import cuda_kernels
 from .flat_ref import flat_iter_ref, flat_pair_ref
@@ -360,27 +361,28 @@ def _call(mode, arr, taps, level, preserve_l2, lam, shape, batch=0):
         raise ValueError(f"{mode}: expected {want}, got {tuple(arr.shape)}")
     if not arr.is_cuda:
         return flat_pair_ref(mode, arr, taps, level, preserve_l2, lam, batch)
-    cuda_kernels.check_array("arr", arr)
-    bands = arr if mode == "rec" else torch.empty(
-        lead + (B,) + shape, dtype=arr.dtype, device=arr.device)
-    out = None if mode == "dec" else torch.empty(
-        lead + shape, dtype=arr.dtype, device=arr.device)
-    lib = load()
-    work = _scratch(lib, arr, len(shape), max(batch, 1) * int(np.prod(shape)))
-    tp = _taps_on(taps, arr.dtype, arr.device)
-    n, k = _geometry(shape, taps)
-    plan = _plan_arg(shape, taps, arr.dtype, batch)
-    with torch.cuda.device(arr.device):
-        err = lib.nddwt_flat_pair(
-            _PAIR_MODES[mode], arr.data_ptr(), bands.data_ptr(),
-            None if out is None else out.data_ptr(), work.data_ptr(),
-            tp.data_ptr(), cuda_kernels.DTYPE_CODE[arr.dtype], len(shape),
-            max(batch, 1), int(level), n, k, float(lam),
-            1.0 if preserve_l2 else 1.0 / 2 ** len(shape),
-            torch.cuda.current_stream().cuda_stream, plan,
-        )
-    cuda_kernels.raise_on(lib, err, "nddwt_flat_pair")
-    cuda_kernels.launch_counts["nddwt_flat_pair"] += 1
+    with tracing.span("nddwt.launch.nddwt_flat_pair"):
+        cuda_kernels.check_array("arr", arr)
+        bands = arr if mode == "rec" else torch.empty(
+            lead + (B,) + shape, dtype=arr.dtype, device=arr.device)
+        out = None if mode == "dec" else torch.empty(
+            lead + shape, dtype=arr.dtype, device=arr.device)
+        lib = load()
+        work = _scratch(lib, arr, len(shape), max(batch, 1) * int(np.prod(shape)))
+        tp = _taps_on(taps, arr.dtype, arr.device)
+        n, k = _geometry(shape, taps)
+        plan = _plan_arg(shape, taps, arr.dtype, batch)
+        with torch.cuda.device(arr.device):
+            err = lib.nddwt_flat_pair(
+                _PAIR_MODES[mode], arr.data_ptr(), bands.data_ptr(),
+                None if out is None else out.data_ptr(), work.data_ptr(),
+                tp.data_ptr(), cuda_kernels.DTYPE_CODE[arr.dtype], len(shape),
+                max(batch, 1), int(level), n, k, float(lam),
+                1.0 if preserve_l2 else 1.0 / 2 ** len(shape),
+                torch.cuda.current_stream().cuda_stream, plan,
+            )
+        cuda_kernels.raise_on(lib, err, "nddwt_flat_pair")
+        cuda_kernels.launch_counts["nddwt_flat_pair"] += 1
     return {"dec": bands, "rec": out, "pair": (bands, out)}[mode]
 
 
@@ -406,35 +408,35 @@ def _call_iter(mode, arr, mask, taps, level, preserve_l2, lams, moms, step,
     if not arr.is_cuda:
         return flat_iter_ref(mode, arr, mask, taps, level, preserve_l2, lams,
                              moms, step, batch)
-    cuda_kernels.check_array("arr", arr)
-    if mask is not None:
-        cuda_kernels.check_array("mask", mask, arr)
-    B = num_bands(len(shape), level)
-    bands = torch.empty(lead + (B,) + shape, dtype=arr.dtype, device=arr.device)
-    out = torch.empty_like(arr)
-    z = torch.empty_like(arr) if mode == "fista" else None
-    lib = load()
-    work = _scratch(lib, arr, len(shape), max(batch, 1) * int(np.prod(shape)))
-    sched = _device_sched(
-        np.array(list(zip(lams, moms)),
-                 dtype=np.float64 if work.dtype == torch.float64 else np.float32).tobytes(),
-        work.dtype, arr.device)
-    tp = _taps_on(taps, arr.dtype, arr.device)
-    n, k = _geometry(shape, taps)
-    plan = _plan_arg(shape, taps, arr.dtype, batch)
-    with torch.cuda.device(arr.device):
-        err = lib.nddwt_flat_iter(
-            _ITER_MODES[mode], arr.data_ptr(),
-            None if mask is None else mask.data_ptr(), bands.data_ptr(),
-            out.data_ptr(), None if z is None else z.data_ptr(),
-            work.data_ptr(), tp.data_ptr(), sched.data_ptr(),
-            cuda_kernels.DTYPE_CODE[arr.dtype], len(shape), max(batch, 1),
-            int(level), len(lams), n, k, float(step),
-            1.0 if preserve_l2 else 1.0 / 2 ** len(shape),
-            torch.cuda.current_stream().cuda_stream, plan,
-        )
-    cuda_kernels.raise_on(lib, err, "nddwt_flat_iter")
-    cuda_kernels.launch_counts["nddwt_flat_iter"] += 1
+    with tracing.span("nddwt.launch.nddwt_flat_iter"):
+        cuda_kernels.check_array("arr", arr)
+        if mask is not None:
+            cuda_kernels.check_array("mask", mask, arr)
+        B = num_bands(len(shape), level)
+        bands = torch.empty(lead + (B,) + shape, dtype=arr.dtype, device=arr.device)
+        out = torch.empty_like(arr)
+        z = torch.empty_like(arr) if mode == "fista" else None
+        lib = load()
+        work = _scratch(lib, arr, len(shape), max(batch, 1) * int(np.prod(shape)))
+        sdt = np.float64 if work.dtype == torch.float64 else np.float32
+        sched = _device_sched(np.array(list(zip(lams, moms)), dtype=sdt).tobytes(),
+                              work.dtype, arr.device)
+        tp = _taps_on(taps, arr.dtype, arr.device)
+        n, k = _geometry(shape, taps)
+        plan = _plan_arg(shape, taps, arr.dtype, batch)
+        with torch.cuda.device(arr.device):
+            err = lib.nddwt_flat_iter(
+                _ITER_MODES[mode], arr.data_ptr(),
+                None if mask is None else mask.data_ptr(), bands.data_ptr(),
+                out.data_ptr(), None if z is None else z.data_ptr(),
+                work.data_ptr(), tp.data_ptr(), sched.data_ptr(),
+                cuda_kernels.DTYPE_CODE[arr.dtype], len(shape), max(batch, 1),
+                int(level), len(lams), n, k, float(step),
+                1.0 if preserve_l2 else 1.0 / 2 ** len(shape),
+                torch.cuda.current_stream().cuda_stream, plan,
+            )
+        cuda_kernels.raise_on(lib, err, "nddwt_flat_iter")
+        cuda_kernels.launch_counts["nddwt_flat_iter"] += 1
     return out
 
 

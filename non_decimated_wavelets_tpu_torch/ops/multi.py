@@ -42,6 +42,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import tracing
 from ..oracle import num_bands
 from . import cuda_kernels as ck
 from .multi_ref import dec_multi_ref, rec_multi_ref
@@ -185,11 +186,12 @@ def dec_multi(x, taps, level: int, lam: float = 0.0, out=None):
         raise ValueError(f"out must be {want}, got {tuple(out.shape)}")
     if not x.is_cuda:
         return dec_multi_ref(x, taps, level, lam, out)
-    ck.check_array("x", x)
-    big = out if out is not None else torch.empty(want, dtype=x.dtype,
-                                                  device=x.device)
-    ck.check_array("out", big, x)
-    _launch("nddwt_dec_multi", x, big, shape, taps, level, False, lam)
+    with tracing.span("nddwt.launch.nddwt_dec_multi"):
+        ck.check_array("x", x)
+        big = out if out is not None else torch.empty(want, dtype=x.dtype,
+                                                      device=x.device)
+        ck.check_array("out", big, x)
+        _launch("nddwt_dec_multi", x, big, shape, taps, level, False, lam)
     return big
 
 
@@ -205,7 +207,8 @@ def rec_multi(y, taps, level: int, preserve_l2: bool):
     scale = 1.0 if preserve_l2 else 1.0 / 2 ** len(shape)
     if not y.is_cuda:
         return rec_multi_ref(y, taps, level, scale)
-    ck.check_array("y", y)
-    out = torch.empty((y.shape[0],) + shape, dtype=y.dtype, device=y.device)
-    _launch("nddwt_rec_multi", y, out, shape, taps, level, True, scale)
+    with tracing.span("nddwt.launch.nddwt_rec_multi"):
+        ck.check_array("y", y)
+        out = torch.empty((y.shape[0],) + shape, dtype=y.dtype, device=y.device)
+        _launch("nddwt_rec_multi", y, out, shape, taps, level, True, scale)
     return out

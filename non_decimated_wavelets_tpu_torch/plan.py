@@ -56,6 +56,13 @@ device, item by item for a batch. A tensor must already lie on the plan's
 ``device``: the plan never copies one between devices, so work on the card
 cannot end up on the host.
 
+Every public call decides its route once, from shapes and dtypes
+(``NDDWT.route``: ``fft``, ``direct``, ``flat``, ``multi``, ``stage`` or
+``level``), dispatches on it and runs inside the span
+``nddwt.<op>.<route>.L<level>`` (``tracing.py``); the copies between
+complex and re/im form run inside ``nddwt.split`` and ``nddwt.join`` and
+count their bytes in ``split_join_bytes``.
+
 Autograd: ``dec`` and ``rec`` are ``torch.autograd.Function`` s whose
 backward is the exact adjoint, as the JAX package's ``linear_call`` rules
 (``ops/pallas_kernels.py:898-902,1703-1713``): the adjoint of ``dec`` is the
@@ -80,6 +87,7 @@ import torch
 
 from . import filters as _filters
 from . import oracle as _oracle
+from . import tracing
 from .models.denoise import soft_threshold, soft_threshold_mag_pair
 from .ops import cuda_kernels, direct_path, elemwise, fft_path, flat, multi
 
@@ -113,20 +121,53 @@ def _is_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def _copied(name: str, fn, src):
+    """``fn(src)``, a copy between complex and re/im form or one that
+    gathers per-component results, inside the span ``name``; the bytes it
+    reads (``src``: a tensor or a list of them) and writes are added to
+    the counter ``split_join_bytes``."""
+    with tracing.span(name) as on:
+        out = fn(src)
+        if on:
+            read = sum(t.nbytes for t in src) if isinstance(src, list) else src.nbytes
+            tracing.count("split_join_bytes", read + out.nbytes)
+    return out
+
+
 def _parts(z: torch.Tensor) -> torch.Tensor:
     """Complex ``(*s)`` -> the real ``(2, *s)`` re/im pair."""
-    return torch.stack([z.real, z.imag])
+    return _copied("nddwt.split", lambda t: torch.stack([t.real, t.imag]), z)
 
 
 def _join(pair: torch.Tensor) -> torch.Tensor:
     """The real ``(2, *s)`` re/im pair -> complex ``(*s)``."""
-    return torch.complex(pair[0], pair[1])
+    return _copied("nddwt.join", lambda t: torch.complex(t[0], t[1]), pair)
 
 
-def _real_dtype_of(t: torch.Tensor) -> torch.dtype:
-    """The dtype of ``t``'s real and imaginary parts (``t``'s own if real)."""
-    return {torch.complex64: torch.float32,
-            torch.complex128: torch.float64}.get(t.dtype, t.dtype)
+def _gather(components: list) -> torch.Tensor:
+    """The per-component results -> the real ``(2, *s)`` pair."""
+    return _copied("nddwt.join", torch.stack, components)
+
+
+def _batch_parts(z: torch.Tensor) -> torch.Tensor:
+    """A complex batch ``(N, ...)`` -> ``2N`` real components, the real
+    parts first."""
+    return _copied("nddwt.split", lambda t: torch.cat([t.real, t.imag]), z)
+
+
+def _batch_join(t: torch.Tensor) -> torch.Tensor:
+    """``2N`` real components, the real parts first -> the complex batch
+    ``(N, ...)``."""
+    n = t.shape[0] // 2
+    return _copied("nddwt.join", lambda c: torch.complex(c[:n], c[n:]), t)
+
+
+def _entry(op: str, route: str, level: int):
+    """The span of one public call: ``nddwt.<op>.<route>.L<level>``."""
+    return tracing.span(f"nddwt.{op}.{route}.L{level}")
+
+
+_REAL_PART = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
 def _needs_grad(t: torch.Tensor) -> bool:
@@ -154,29 +195,29 @@ def _rec_transpose_scales(ndim: int, level: int) -> np.ndarray:
 
 
 class _Dec(torch.autograd.Function):
-    """``dec`` (``batched``: ``dec_batched``); the backward is the synthesis
-    with ``preserve_l2=True``."""
+    """``dec`` (``batched``: ``dec_batched``) on ``route``; the backward is
+    the synthesis with ``preserve_l2=True``."""
 
     @staticmethod
-    def forward(ctx, x, plan, level, batched=False):
+    def forward(ctx, x, plan, level, batched=False, route=None):
         ctx.plan, ctx.level, ctx.batched = plan, level, batched
-        return plan._dec_bands(x, level, batched)
+        return plan._dec_bands(x, level, batched, route=route)
 
     @staticmethod
     def backward(ctx, gy):
         return (ctx.plan._rec_bands(gy, ctx.level, True, ctx.batched),
-                None, None, None)
+                None, None, None, None)
 
 
 class _Rec(torch.autograd.Function):
-    """``rec`` (``batched``: ``rec_batched``); the backward is the analysis,
-    the per-level ``1/2^d`` redistributed onto the band groups when not
-    ``preserve_l2``."""
+    """``rec`` (``batched``: ``rec_batched``) on ``route``; the backward is
+    the analysis, the per-level ``1/2^d`` redistributed onto the band
+    groups when not ``preserve_l2``."""
 
     @staticmethod
-    def forward(ctx, y, plan, level, batched=False):
+    def forward(ctx, y, plan, level, batched=False, route=None):
         ctx.plan, ctx.level, ctx.batched = plan, level, batched
-        return plan._rec_bands(y, level, plan.preserve_l2, batched)
+        return plan._rec_bands(y, level, plan.preserve_l2, batched, route=route)
 
     @staticmethod
     def backward(ctx, gx):
@@ -185,7 +226,7 @@ class _Rec(torch.autograd.Function):
         if not plan.preserve_l2:
             s = torch.as_tensor(_rec_transpose_scales(plan.ndim, level))
             z = z * s.to(z.dtype).to(z.device).view((-1,) + (1,) * plan.ndim)
-        return z, None, None, None
+        return z, None, None, None, None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -258,20 +299,44 @@ class NDDWT:
         object.__setattr__(self, "filter_lengths", tuple(flens))
 
     # ------------------------------------------------------------ dispatch
-    def _route(self, x: torch.Tensor) -> str:
-        """``'kernels'`` when ``x`` goes to the CUDA kernels, ``'direct'``
-        for the torch direct path, ``'fft'`` for the FFT path; raises for
-        what the port does not serve yet."""
+    def route(self, dtype, level: int, *, pair: bool = False, batch: int = 0,
+              on_card=None) -> str:
+        """The route a transform of ``level`` levels of ``dtype`` arrays
+        takes, from shapes and dtypes alone: ``'fft'`` or ``'direct'`` (the
+        torch paths), or on the CUDA kernels ``'flat'`` (the one-launch flat
+        kernel), ``'multi'`` (the one-launch multilevel kernels), ``'stage'``
+        (the lane and lead stage kernels) or ``'level'`` (the per-level
+        kernels). ``pair``: a split re/im pair of real arrays (a complex
+        ``dtype`` is one too); ``batch``: the items of a ``dec_batched`` or
+        ``rec_batched`` call, 0 for one array; ``on_card``: whether the
+        arrays lie on a CUDA device (by default the plan's device). Raises
+        where the port serves no route. Every public call dispatches on it
+        and names its span after it."""
         if self.path in ("fft", "direct"):
             return self.path
-        if not _is_cuda(x):
+        if not (self.device.type == "cuda" if on_card is None else on_card):
             if self.path == "pallas":
                 raise ValueError(
                     "path='pallas' runs the CUDA kernels only, and this "
-                    f"tensor lies on {x.device}; use path='auto' or 'direct'"
+                    "tensor is not on a CUDA device; use path='auto' or 'direct'"
                 )
             return "direct"
-        return "kernels"
+        real = _REAL_PART.get(dtype, dtype)
+        if batch and self._on_multi(real, level):
+            return "multi"
+        if self._on_flat(real, 2 if pair or dtype.is_complex else 0):
+            return "flat"
+        if self._on_multi(real, level):
+            return "multi"
+        if cuda_kernels.stage_route(self.shape, self.taps_hp, real):
+            return "stage"
+        return "level"
+
+    def _route(self, x: torch.Tensor, level: int, pair: bool = False,
+               batch: int = 0) -> str:
+        """``route`` of the tensor ``x``."""
+        return self.route(x.dtype, level, pair=pair, batch=batch,
+                          on_card=_is_cuda(x))
 
     def _on_flat(self, dtype: torch.dtype, batch: int = 0) -> bool:
         """Whether a kernel-route call on ``dtype`` components (a re/im pair
@@ -290,7 +355,8 @@ class NDDWT:
         return False
 
     def _uses_kernels(self, x: torch.Tensor) -> bool:
-        return self._route(x) == "kernels"
+        """Whether a transform of ``x`` runs on the CUDA kernels."""
+        return self.path not in ("fft", "direct") and _is_cuda(x)
 
     def _resp(self, device) -> tuple:
         """The FFT path's per-axis responses on ``device``."""
@@ -333,12 +399,13 @@ class NDDWT:
         one-launch multilevel kernels (one item's size counted)."""
         return multi.multi_supported(self.shape, self.taps_hp, dtype, level)
 
-    def _dec_bands(self, x, level, batched=False):
-        """Band-first analysis, no autograd; ``batched``: ``(N, *s)`` ->
-        ``(N, B, *s)``."""
+    def _dec_bands(self, x, level, batched=False, route=None):
+        """Band-first analysis on ``route`` (``x``'s own when None), no
+        autograd; ``batched``: ``(N, *s)`` -> ``(N, B, *s)``."""
+        if route is None:
+            route = self._route(x, level, batch=x.shape[0] if batched else 0)
         if batched:
-            return self._dec_batch(x, level)
-        route = self._route(x)
+            return self._dec_batch(x, level, route)
         if route == "fft":
             y = fft_path.dec_fft(x, self._resp(x.device), level,
                                  real_out=not x.is_complex())
@@ -346,17 +413,18 @@ class NDDWT:
         if route == "direct":
             return direct_path.dec_direct(x, self.taps, level)
         if x.is_complex():
-            return _join(self._dec_pair(_parts(x), level))
-        if self._on_flat(x.dtype):
+            return _join(self._dec_pair(_parts(x), level, route))
+        if route == "flat":
             return flat.dec_flat(x.contiguous(), self.taps_hp, level)
         return cuda_kernels.dec_levels(x.contiguous(), self.taps_hp, level)
 
-    def _rec_bands(self, y, level, preserve_l2, batched=False):
-        """Band-first synthesis, no autograd; ``batched``: ``(N, B, *s)`` ->
-        ``(N, *s)``."""
+    def _rec_bands(self, y, level, preserve_l2, batched=False, route=None):
+        """Band-first synthesis on ``route`` (``y``'s own when None), no
+        autograd; ``batched``: ``(N, B, *s)`` -> ``(N, *s)``."""
+        if route is None:
+            route = self._route(y, level, batch=y.shape[0] if batched else 0)
         if batched:
-            return self._rec_batch(y, level, preserve_l2)
-        route = self._route(y)
+            return self._rec_batch(y, level, preserve_l2, route)
         if route == "fft":
             x = fft_path.rec_fft(y, self._resp(y.device), level, preserve_l2,
                                  real_out=not y.is_complex())
@@ -364,26 +432,27 @@ class NDDWT:
         if route == "direct":
             return direct_path.rec_direct(y, self.taps, level, preserve_l2)
         if y.is_complex():
-            return _join(self._rec_pair(_parts(y), level, preserve_l2))
-        if self._on_flat(y.dtype):
+            return _join(self._rec_pair(_parts(y), level, preserve_l2, route))
+        if route == "flat":
             return flat.rec_flat(y.contiguous(), self.taps_hp, level, preserve_l2)
         return cuda_kernels.rec_levels(
             y.contiguous(), self.taps_hp, level, preserve_l2
         )
 
-    def _dec_pair(self, xp, level):
-        """``(2, *s)`` real components -> ``(2, B, *s)``: the filters are
-        real, so the components are a batch of two (one multilevel launch)
-        or each runs its own analysis chain."""
-        route = self._route(xp)
+    def _dec_pair(self, xp, level, route):
+        """``(2, *s)`` real components -> ``(2, B, *s)`` on a pair's
+        ``route``: the filters are real, so the components are a batch of
+        two (one flat or multilevel launch) or each runs its own analysis
+        chain."""
         if route == "fft":
-            return torch.stack([self._dec_bands(xp[c], level) for c in range(2)])
+            return _gather([self._dec_bands(xp[c], level, route=route)
+                            for c in range(2)])
         if route == "direct":
             return direct_path.dec_direct(xp, self.taps, level).transpose(0, 1)
         _no_adjoint_on_kernels(xp, "the split analysis")
-        if self._on_flat(xp.dtype, 2):
+        if route == "flat":
             return flat.dec_split_flat(xp.contiguous(), self.taps_hp, level)
-        if self._on_multi(xp.dtype, level):
+        if route == "multi":
             return multi.dec_multi(xp.contiguous(), self.taps_hp, level)
         out = torch.empty((2, self.num_bands(level)) + self.shape,
                           dtype=xp.dtype, device=xp.device)
@@ -392,59 +461,56 @@ class NDDWT:
                                     out=out[c])
         return out
 
-    def _rec_pair(self, yp, level, preserve_l2):
-        """``(2, B, *s)`` -> ``(2, *s)``: one multilevel launch for both
-        components, or one synthesis chain each."""
-        route = self._route(yp)
+    def _rec_pair(self, yp, level, preserve_l2, route):
+        """``(2, B, *s)`` -> ``(2, *s)`` on a pair's ``route``: one flat or
+        multilevel launch for both components, or one synthesis chain
+        each."""
         if route == "fft":
-            return torch.stack([self._rec_bands(yp[c], level, preserve_l2)
-                                for c in range(2)])
+            return _gather([self._rec_bands(yp[c], level, preserve_l2, route=route)
+                            for c in range(2)])
         if route == "direct":
             return direct_path.rec_direct(yp.transpose(0, 1), self.taps, level,
                                           preserve_l2)
         _no_adjoint_on_kernels(yp, "the split synthesis")
-        if self._on_flat(yp.dtype, 2):
+        if route == "flat":
             return flat.rec_split_flat(yp.contiguous(), self.taps_hp, level,
                                        preserve_l2)
-        if self._on_multi(yp.dtype, level):
+        if route == "multi":
             return multi.rec_multi(yp.contiguous(), self.taps_hp, level,
                                    preserve_l2)
-        return torch.stack([
+        return _gather([
             cuda_kernels.rec_levels(yp[c].contiguous(), self.taps_hp, level,
                                     preserve_l2)
             for c in range(2)
         ])
 
-    def _dec_batch(self, x, level):
-        """``(N, *s)`` -> ``(N, B, *s)``, no autograd (JAX ``plan.py:604-643``):
-        the direct path batch-native; on the kernels one multilevel launch
-        for the whole batch where its items take it, complex items as 2N
+    def _dec_batch(self, x, level, route):
+        """``(N, *s)`` -> ``(N, B, *s)`` on a batch's ``route``, no autograd
+        (JAX ``plan.py:604-643``): the direct path batch-native; on the
+        multilevel route one launch for the whole batch, complex items as 2N
         real components; otherwise item by item on ``dec``'s route."""
-        route = self._route(x)
         if route == "direct":
             return direct_path.dec_direct(x, self.taps, level).transpose(0, 1)
-        if route == "kernels" and self._on_multi(_real_dtype_of(x), level):
+        if route == "multi":
             if not x.is_complex():
                 return multi.dec_multi(x.contiguous(), self.taps_hp, level)
-            y = multi.dec_multi(torch.cat([x.real, x.imag]), self.taps_hp, level)
-            return torch.complex(y[: x.shape[0]], y[x.shape[0]:])
-        return torch.stack([self._dec_bands(v, level) for v in x])
+            return _batch_join(multi.dec_multi(_batch_parts(x), self.taps_hp, level))
+        return torch.stack([self._dec_bands(v, level, route=route) for v in x])
 
-    def _rec_batch(self, y, level, preserve_l2):
+    def _rec_batch(self, y, level, preserve_l2, route):
         """``(N, B, *s)`` -> ``(N, *s)``, no autograd, by the rules of
         ``_dec_batch``."""
-        route = self._route(y)
         if route == "direct":
             return direct_path.rec_direct(y.transpose(0, 1), self.taps, level,
                                           preserve_l2)
-        if route == "kernels" and self._on_multi(_real_dtype_of(y), level):
+        if route == "multi":
             if not y.is_complex():
                 return multi.rec_multi(y.contiguous(), self.taps_hp, level,
                                        preserve_l2)
-            x = multi.rec_multi(torch.cat([y.real, y.imag]), self.taps_hp,
-                                level, preserve_l2)
-            return torch.complex(x[: y.shape[0]], x[y.shape[0]:])
-        return torch.stack([self._rec_bands(v, level, preserve_l2) for v in y])
+            return _batch_join(multi.rec_multi(_batch_parts(y), self.taps_hp,
+                                               level, preserve_l2))
+        return torch.stack([self._rec_bands(v, level, preserve_l2, route=route)
+                            for v in y])
 
     def _bands_last(self, band_axis) -> bool:
         """Whether ``band_axis`` names the band-last layout: ``-1`` or its
@@ -478,7 +544,9 @@ class NDDWT:
         last = self._bands_last(band_axis)
         x = self._as_input(x)
         self._check_shape(x)
-        y = _Dec.apply(x, self, level)
+        route = self._route(x, level)
+        with _entry("dec", route, level):
+            y = _Dec.apply(x, self, level, False, route)
         return y.movedim(0, -1) if last else y
 
     def rec(self, y, band_axis: int = -1):
@@ -498,7 +566,9 @@ class NDDWT:
                 f"match plan shape {self.shape}"
             )
         level = _oracle.level_from_bands(self.ndim, y.shape[0])
-        return _Rec.apply(y, self, level)
+        route = self._route(y, level)
+        with _entry("rec", route, level):
+            return _Rec.apply(y, self, level, False, route)
 
     @staticmethod
     def _check_threshold(threshold) -> float:
@@ -524,33 +594,34 @@ class NDDWT:
         threshold = self._check_threshold(threshold)
         x = self._as_input(x)
         self._check_shape(x)
-        kernels = self._uses_kernels(x)
+        route = self._route(x, level)
+        kernels = route not in ("fft", "direct")
         if kernels and threshold:
             _no_adjoint_on_kernels(x, "dec_rec with a threshold (non-linear)")
-        if (kernels and not _needs_grad(x)
-                and self._on_flat(_real_dtype_of(x), 2 if x.is_complex() else 0)):
-            if x.is_complex():
-                y, xr = (_join(t) for t in flat.pair_split_flat(
-                    _parts(x), self.taps_hp, level, self.preserve_l2, threshold))
+        with _entry("dec_rec", route, level):
+            if route == "flat" and not _needs_grad(x):
+                if x.is_complex():
+                    y, xr = (_join(t) for t in flat.pair_split_flat(
+                        _parts(x), self.taps_hp, level, self.preserve_l2, threshold))
+                else:
+                    y, xr = flat.pair_flat(x.contiguous(), self.taps_hp, level,
+                                           self.preserve_l2, threshold)
+            elif kernels and threshold:
+                if x.is_complex():
+                    yp = elemwise.mag_shrink_pair(
+                        self._dec_pair(_parts(x), level, route), threshold)
+                    y = _join(yp)
+                    xr = _join(self._rec_pair(yp, level, self.preserve_l2, route))
+                else:
+                    y = cuda_kernels.dec_levels(x.contiguous(), self.taps_hp,
+                                                level, lam=threshold)
+                    xr = cuda_kernels.rec_levels(y, self.taps_hp, level,
+                                                 self.preserve_l2)
             else:
-                y, xr = flat.pair_flat(x.contiguous(), self.taps_hp, level,
-                                       self.preserve_l2, threshold)
-        elif kernels and threshold:
-            if x.is_complex():
-                yp = elemwise.mag_shrink_pair(self._dec_pair(_parts(x), level),
-                                              threshold)
-                y = _join(yp)
-                xr = _join(self._rec_pair(yp, level, self.preserve_l2))
-            else:
-                y = cuda_kernels.dec_levels(x.contiguous(), self.taps_hp,
-                                            level, lam=threshold)
-                xr = cuda_kernels.rec_levels(y, self.taps_hp, level,
-                                             self.preserve_l2)
-        else:
-            y = _Dec.apply(x, self, level)
-            if threshold:
-                y = torch.cat([y[:1], soft_threshold(y[1:], threshold)])
-            xr = _Rec.apply(y, self, level)
+                y = _Dec.apply(x, self, level, False, route)
+                if threshold:
+                    y = torch.cat([y[:1], soft_threshold(y[1:], threshold)])
+                xr = _Rec.apply(y, self, level, False, route)
         return (y.movedim(0, -1) if last else y), xr
 
     def dec_rec_n(self, x, level: int, thresholds):
@@ -572,12 +643,15 @@ class NDDWT:
                 "dec_rec_n is real-only; split complex data and use the "
                 "split entry points"
             )
-        if self._uses_kernels(x) and flat.iter_supported(self.shape, x.dtype):
-            _no_adjoint_on_kernels(x, "dec_rec_n")
-            return flat.chain_flat(x.contiguous(), self.taps_hp, level,
-                                   self.preserve_l2, thresholds)
-        for lam in thresholds:
-            _, x = self.dec_rec(x, level, threshold=lam, band_axis=0)
+        chain = self._uses_kernels(x) and flat.iter_supported(self.shape, x.dtype)
+        route = "flat" if chain else self._route(x, level)
+        with _entry("dec_rec_n", route, level):
+            if chain:
+                _no_adjoint_on_kernels(x, "dec_rec_n")
+                return flat.chain_flat(x.contiguous(), self.taps_hp, level,
+                                       self.preserve_l2, thresholds)
+            for lam in thresholds:
+                _, x = self.dec_rec(x, level, threshold=lam, band_axis=0)
         return x
 
     def _fista_fused(self, b, mask, level, lams, moms, step, split=False):
@@ -626,7 +700,9 @@ class NDDWT:
                 f"expected (N, *{self.shape}) batch with N >= 1, got "
                 f"{tuple(x.shape)}"
             )
-        return _Dec.apply(x, self, level, True)
+        route = self._route(x, level, batch=x.shape[0])
+        with _entry("dec_batched", route, level):
+            return _Dec.apply(x, self, level, True, route)
 
     def rec_batched(self, y):
         """Synthesis of a batch: ``(N, B, *shape) -> (N, *shape)``, the level
@@ -639,7 +715,9 @@ class NDDWT:
                 f"N >= 1, got {tuple(y.shape)}"
             )
         level = _oracle.level_from_bands(self.ndim, y.shape[1])
-        return _Rec.apply(y, self, level, True)
+        route = self._route(y, level, batch=y.shape[0])
+        with _entry("rec_batched", route, level):
+            return _Rec.apply(y, self, level, True, route)
 
     # ------------------------------------------------------ split-complex
     def dec_split(self, x_pair, level: int):
@@ -647,7 +725,10 @@ class NDDWT:
         real -> ``(2, B, *shape)`` real, band-first. The filters are real,
         so this equals ``dec`` of ``x_pair[0] + 1j * x_pair[1]``."""
         level = self._check_level(level)
-        return self._dec_pair(self._as_pair(x_pair), level)
+        x_pair = self._as_pair(x_pair)
+        route = self._route(x_pair, level, pair=True)
+        with _entry("dec_split", route, level):
+            return self._dec_pair(x_pair, level, route)
 
     def rec_split(self, y_pair):
         """Synthesis from split re/im bands: ``(2, B, *shape)`` ->
@@ -660,7 +741,9 @@ class NDDWT:
                 f"{y_pair.dtype} {tuple(y_pair.shape)}"
             )
         level = _oracle.level_from_bands(self.ndim, y_pair.shape[1])
-        return self._rec_pair(y_pair, level, self.preserve_l2)
+        route = self._route(y_pair, level, pair=True)
+        with _entry("rec_split", route, level):
+            return self._rec_pair(y_pair, level, self.preserve_l2, route)
 
     def dec_rec_split(self, x_pair, level: int, threshold: float = 0.0):
         """One split-complex iterate: analysis -> joint re/im magnitude
@@ -674,16 +757,18 @@ class NDDWT:
         threshold = self._check_threshold(threshold)
         level = self._check_level(level)
         x_pair = self._as_pair(x_pair)
-        if self._uses_kernels(x_pair) and self._on_flat(x_pair.dtype, 2):
-            _no_adjoint_on_kernels(x_pair, "the split iterate")
-            return flat.pair_split_flat(x_pair.contiguous(), self.taps_hp,
-                                        level, self.preserve_l2, threshold)
-        y = self.dec_split(x_pair, level)
-        if threshold:
-            shrink = (elemwise.mag_shrink_pair if self._uses_kernels(y)
-                      else soft_threshold_mag_pair)
-            y = shrink(y, threshold)
-        return y, self.rec_split(y)
+        route = self._route(x_pair, level, pair=True)
+        with _entry("dec_rec_split", route, level):
+            if route == "flat":
+                _no_adjoint_on_kernels(x_pair, "the split iterate")
+                return flat.pair_split_flat(x_pair.contiguous(), self.taps_hp,
+                                            level, self.preserve_l2, threshold)
+            y = self._dec_pair(x_pair, level, route)
+            if threshold:
+                shrink = (soft_threshold_mag_pair if route in ("fft", "direct")
+                          else elemwise.mag_shrink_pair)
+                y = shrink(y, threshold)
+            return y, self._rec_pair(y, level, self.preserve_l2, route)
 
     def num_bands(self, level: int) -> int:
         return _oracle.num_bands(self.ndim, level)
