@@ -26,17 +26,16 @@ versions at small shapes (an A/B never times a wrong kernel). Then it
 times, per build, the four stage kernels at (128, 128, 128, 32) db4
 float32 (the two lane stages in float64 too), ``nddwt_lead_dec`` and the
 two lane stages at 128^3 db20 (the 3D
-long-filter route) and ``nddwt_rec_level`` and ``nddwt_dec_level`` at
-256^3 db4 float32 and float64 with CUDA events: every build once in the
-order given, then once in reverse, so the card's clock drifts against no
-one build. Then it times this checkout's kernels over forced launch plans
-(the plan functions bypassed): the lane body's plans ``(R, Zc, stages)``
-of ``nddwt_lane_dec`` and ``nddwt_lane_adj`` (units of R whole slabs, or
-chunks of Zc outputs along Z, and the unit buffers), the streamed plans
-``(C, T1, T2)`` of
-``nddwt_lead_adj``, ``nddwt_rec_level``, ``nddwt_lead_dec`` and
-``nddwt_dec_level``, and the ring-in-shared-memory build's
-``nddwt_rec_level`` at its own plans (``T1 x T2 = 256``).
+long-filter route) and ``nddwt_dec_level`` at 256^3 db4 float32 and float64
+with CUDA events: every build once in the order given, then once in
+reverse, so the card's clock drifts against no one build. Then it times
+this checkout's kernels over forced launch plans (the plan functions
+bypassed): the lane body's plans ``(R, Zc, stages)`` of ``nddwt_lane_dec``
+and ``nddwt_lane_adj`` (units of R whole slabs, or chunks of Zc outputs
+along Z, and the unit buffers), the streamed plans ``(C, T1, T2)`` of
+``nddwt_lead_adj``, ``nddwt_lead_dec`` and ``nddwt_dec_level``.
+``nddwt_rec_level``'s 3D views of 2 to 8 taps run the plane
+body (``csrc/nddwt_plane.cuh``), which ``chip_ab_rec.py`` times.
 
 Prints the card's name and power limit first and one JSON object last. It
 exits non-zero without a CUDA device or if a build disagrees with the plain
@@ -68,8 +67,6 @@ LANE20_PLANS = [(15, 128, 4), (8, 128, 4), (32, 128, 4), (4, 128, 4), (15, 128, 
 # Streamed plans (C, T1, T2); T1 * T2 = 256 * 4 where the taps are unrolled.
 LEAD_ADJ_PLANS = [(128, 4, 256), (128, 8, 128), (128, 16, 64), (64, 4, 256),
                   (128, 2, 512)]
-REC_PLANS = [(64, 8, 128), (64, 16, 64), (32, 8, 128), (64, 4, 256), (29, 16, 64),
-             (128, 8, 128)]
 # The analysis: T1 * T2 = 256 * items, items 2 at db4 in float32 (a ring of
 # 8 x 4 x 2 registers), 1 in float64, 4 in the lead stage.
 DEC_PLANS = [(128, 8, 64), (128, 4, 128), (64, 8, 64), (128, 16, 32), (256, 8, 64)]
@@ -82,7 +79,6 @@ SHAPE20 = (128, 128, 128)
 LEAD_DEC20_PLANS = [(40, 8, 32), (64, 8, 32), (128, 8, 32), (64, 16, 16), (128, 16, 16),
                     (64, 32, 8), (128, 32, 8), (40, 16, 16)]
 RING_SMEM = "ring in shared memory"
-RING_SMEM_PLANS = [(64, 2, 128), (64, 4, 64), (32, 2, 128)]  # T1 * T2 = 256
 # The built-in variants: name -> [(header in csrc/, text, replacement)],
 # every occurrence replaced (both streamed bodies where the text is in both).
 STREAM, LANE = "nddwt_stream.cuh", "nddwt_lane.cuh"
@@ -252,16 +248,14 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
     x = torch.randn(SHAPE, generator=gen, device=dev)
     temp = torch.randn((4,) + SHAPE, generator=gen, device=dev)
     big = torch.randn((16,) + SHAPE, generator=gen, device=dev)
-    y32 = torch.randn((8,) + SHAPE3, generator=gen, device=dev)
-    y64 = torch.randn((8,) + SHAPE3, generator=gen, device=dev, dtype=torch.float64)
-    x32, b32 = torch.randn(SHAPE3, generator=gen, device=dev), torch.empty_like(y32)
-    x64, b64 = x32.double(), torch.empty_like(y64)
+    x32, b32 = torch.randn(SHAPE3, generator=gen, device=dev), torch.empty((8,) + SHAPE3, device=dev)
+    x64, b64 = x32.double(), b32.double()
     taps20 = tw.NDDWT("db20", SHAPE20, device=dev).taps_hp
     temp20 = torch.randn((2,) + SHAPE20, generator=gen, device=dev)
     x20 = torch.randn(SHAPE20, generator=gen, device=dev)
     x64d, temp64 = x.double(), temp.double()
     big20 = torch.empty((8,) + SHAPE20, device=dev)
-    src16, src8 = [("y", b) for b in range(16)], [("y", b) for b in range(8)]
+    src16 = [("y", b) for b in range(16)]
     calls = {
         "nddwt_lane_dec": lambda: ck.lane_dec(x, taps),
         "nddwt_lead_dec": lambda: ck.lead_dec(temp, big, 1, taps),
@@ -272,8 +266,6 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
         "nddwt_lane_adj db20": lambda: ck.lane_adj(temp20, taps20, 1 / 8),
         "nddwt_lane_dec f64": lambda: ck.lane_dec(x64d, taps),
         "nddwt_lane_adj f64": lambda: ck.lane_adj(temp64, taps, 1 / 16),
-        "nddwt_rec_level f32": lambda: ck.rec_level(y32, None, src8, taps3, 0.125),
-        "nddwt_rec_level f64": lambda: ck.rec_level(y64, None, src8, taps3, 0.125),
         "nddwt_dec_level f32": lambda: ck.dec_level(x32, b32, 1, taps3, 0.0, True),
         "nddwt_dec_level f64": lambda: ck.dec_level(x64, b64, 1, taps3, 0.0, True),
     }
@@ -302,14 +294,10 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
         print(f"lane plans {kernel}: {row}", flush=True)
     for name, kernel, plans in (
             ("checkout", "nddwt_lead_adj", LEAD_ADJ_PLANS),
-            ("checkout", "nddwt_rec_level f32", REC_PLANS),
-            ("checkout", "nddwt_rec_level f64", REC_PLANS),
             ("checkout", "nddwt_lead_dec", LEAD_DEC_PLANS),
             ("checkout", "nddwt_lead_dec db20", LEAD_DEC20_PLANS),
             ("checkout", "nddwt_dec_level f32", DEC_PLANS),
-            ("checkout", "nddwt_dec_level f64", DEC64_PLANS),
-            (RING_SMEM, "nddwt_rec_level f32", RING_SMEM_PLANS),
-            (RING_SMEM, "nddwt_rec_level f64", RING_SMEM_PLANS)):
+            ("checkout", "nddwt_dec_level f64", DEC64_PLANS)):
         use(name)
         row = {}
         for t in plans:

@@ -204,6 +204,9 @@ FIVE_D = (((12, 10, 8, 6, 5), "db1", 2), ((8, 8, 8, 8, 8), "db2", 1))
 # the plane tile or chunk, K = 2, the longest filter the per-level route takes
 # (db14; db11 in float64), 2D mixed filters; X of extent K and odd extents.
 STREAM_SOURCE = "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_stream.cuh"
+# nddwt_rec_level's 3D views of 2 to 8 taps with rows on 16 bytes run the
+# plane body instead (the cases above of those filters).
+PLANE_SOURCE = "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_plane.cuh"
 STREAM_REC_CASES = [((8, 40, 72), "db4"), ((37, 41, 45), "db4"), ((24, 40, 72), "db1"),
                     ((30, 30, 31), "db14"), ((24, 25, 26), "db11"), ((9, 300), ("db2", "db6"))]
 STREAM_LEAD_CASES = [((8, 64, 20, 10), "db4"), ((37, 41, 20, 10), "db2")]
@@ -240,7 +243,8 @@ LANE_CASES = [((5, 3, 11, 9), "db2", (4, 11, 2), 1), ((3, 2, 13, 7), "db2", (1, 
               ((4, 4, 8, 1600), "db4", None, 0)]
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nddwt_dec_level": (STREAM_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_kernels.py:519"),
-    "nddwt_rec_level": (STREAM_SOURCE, "non_decimated_wavelets_tpu/ops/pallas_kernels.py:1389"),
+    "nddwt_rec_level": (PLANE_SOURCE + " (3D, 2-8 taps); " + STREAM_SOURCE,
+                        "non_decimated_wavelets_tpu/ops/pallas_kernels.py:1389"),
     "nddwt_mag_shrink_pair": (
         "non_decimated_wavelets_tpu_torch/ops/csrc/nddwt_elemwise.cu",
         "non_decimated_wavelets_tpu/ops/pallas_elemwise.py:57"),

@@ -41,11 +41,14 @@
 // asynchronous ring of window copies. One level moves 9 arrays (at 256^3
 // f32 about 0.6 GB, ~0.18 ms at 3.35 TB/s; f64 twice that).
 //
-// nddwt_rec_level runs the streamed synthesis: per plane the in-plane
+// nddwt_rec_level runs a streamed synthesis: per plane the in-plane
 // adjoint of its 8 bands, scattered into a ring of K partial output planes.
 // The tile body it replaced loaded a (t + K - 1)^3 window per band with
 // three divisions and three modulos per element and spent its time in that
-// loop (one more select there slowed the 3D pair 17.7 %).
+// loop (one more select there slowed the 3D pair 17.7 %). 3D views with
+// filters of 2 to 8 taps run the plane body (nddwt_plane.cuh: bulk copies
+// of a plane's four band windows a stage, slot 1 before slot 2), the others
+// the window body (nddwt_stream.cuh).
 //
 // nddwt_dec_level runs the streamed analysis: one window per input plane
 // (the tile body copied an (11, 11, 35) window per (8, 8, 32) tile with the
@@ -57,6 +60,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (ops/cuda_kernels.py does this at first use).
 
+#include "nddwt_plane.cuh"
 #include "nddwt_stream.cuh"
 
 namespace {
@@ -77,15 +81,22 @@ int launch_dec(const void* x, void* big, void* approx_out, const int* n,
                                  band_off, (C)lam, stream);
 }
 
-// The synthesis streams slot 0 (nddwt_stream.cuh): n, k, left, bit, pad
-// describe the view the wrapper hands over ((n0, n1, n2) in 3D, (n0, 1, n1)
-// in 2D) and t = (C, T1, T2) its chunk and plane tile.
+// The synthesis streams slot 0: n, k, left, bit, pad describe the view the
+// wrapper hands over ((n0, n1, n2) in 3D, (n0, 1, n1) in 2D) and t = (C, T1,
+// T2) its chunk and plane tile. A 3D view with one unrolled filter length,
+// input rows on 16 bytes and a plan of the plane body's form that fits runs
+// the plane body (nddwt_plane.cuh: *body = 1), every other view the window
+// body (nddwt_stream.cuh: *body = 0).
 template <typename T, typename C = compute_t<T>>
 int launch_rec(const void* y, const void* approx, void* out, const int* n,
                const int* k, const int* t, const int* left, const int* bit,
                const int* pad, const void* taps, const StreamSources& src,
-               double scale, cudaStream_t stream) {
+               double scale, cudaStream_t stream, int* body) {
   const LevelT<C> g = make_level<C>(n, k, t, left, bit, taps, pad);
+  *body = plane_takes<T>(g, y, approx) ? 1 : 0;
+  if (*body)
+    return launch_plane<T>((const T*)y, (const T*)approx, (T*)out, g, src, (C)scale,
+                           stream);
   return launch_stream<T>((const T*)y, (const T*)approx, (T*)out, g, src, 1,
                           (C)scale, stream);
 }
@@ -97,7 +108,9 @@ int launch_rec(const void* y, const void* approx, void* out, const int* n,
 // (slot 0 slowest; n the output extents, pad 1 on a halo-padded slot, whose
 // inputs then have extent n + k - 1; pad comes last before the stream); gw:
 // the analysis's in-plane bands a walk; taps:
-// 3 * 2 * 76 of the compute type (float for dtypes 0 and 1, double for 2).
+// 3 * 2 * 76 of the compute type (float for dtypes 0 and 1, double for 2);
+// body: nddwt_rec_level writes the body the launch took there (1: the plane
+// body, 0: the window body).
 // The caller makes the arrays' device current. Returns the cudaError_t of
 // the launch (0 on success); the launch is asynchronous on `stream`.
 extern "C" int nddwt_max_taps() { return kMaxTaps; }
@@ -124,19 +137,20 @@ extern "C" int nddwt_rec_level(const void* y, const void* approx, void* out,
                                int dtype, const int* n, const int* k,
                                const int* t, const int* left, const int* bit,
                                const void* taps, const long long* band_idx,
-                               double scale, const int* pad, void* stream) {
+                               double scale, const int* pad, void* stream,
+                               int* body) {
   StreamSources src;
   for (int b = 0; b < kStreamBands; ++b) src.idx[b] = b < 8 ? band_idx[b] : -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_rec<float>(y, approx, out, n, k, t, left, bit, pad, taps,
-                             src, scale, s);
+                             src, scale, s, body);
   if (dtype == 1)
     return launch_rec<__nv_bfloat16>(y, approx, out, n, k, t, left, bit, pad,
-                                     taps, src, scale, s);
+                                     taps, src, scale, s, body);
   if (dtype == 2)
     return launch_rec<double>(y, approx, out, n, k, t, left, bit, pad, taps,
-                              src, scale, s);
+                              src, scale, s, body);
   return (int)cudaErrorInvalidValue;
 }
 

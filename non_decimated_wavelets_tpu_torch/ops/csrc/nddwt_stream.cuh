@@ -66,8 +66,11 @@
 // output; the kernel takes about 7x the bound, and builds that leave out the
 // copies or the passes each take about half of its time: the two do not
 // overlap, and a ring of two window buffers instead of four changes the time
-// by 3 % or less. Bulk (TMA) row copies completing on an mbarrier, which
-// take the copies off the load/store path, are the next step (PERF.md).
+// by 3 % or less. nddwt_rec_level's 3D views with filters of 2 to 8 taps
+// therefore run the plane body instead (nddwt_plane.cuh: bulk row copies
+// completing on an mbarrier, one stage per plane and s0, slot 1 before slot
+// 2); this body keeps the 2D levels, nddwt_lead_adj, runtime filter lengths
+// and the multilevel kernels.
 
 #pragma once
 

@@ -29,6 +29,11 @@ plane by plane, copying each plane's window once, with a ring of partial
 output planes (synthesis) or of the last K planes' in-plane bands
 (analysis); ``_stream_plan`` lays out its chunk and plane tile, and
 ``ops/stream_ref.py`` replays both schedules on the CPU for the tests.
+``nddwt_rec_level`` of a 3D level with 2 to 8 taps on every axis and
+input rows on 16 bytes runs the plane body instead
+(``csrc/nddwt_plane.cuh``, ``_plane_plan``, ``stream_ref.plane_replay``):
+bulk copies of each (input plane, s0) stage's four band windows on an
+mbarrier, slot 1 before slot 2.
 ``nddwt_lane_dec`` and ``nddwt_lane_adj`` run the lane body
 (``csrc/nddwt_lane.cuh``): persistent CTAs walk units of whole (Z, T)
 slabs of the (X*Y, Z, T) view (or chunks of Z with their halo rows), each
@@ -150,6 +155,24 @@ _STREAM_T2 = {"rec": 128, "lead": 256}
 _ANA_T1 = 8
 _ANALYSIS = ("dec", "lead_dec")
 _STREAM_CTAS = 2 * 132
+# The plane body of nddwt_rec_level's 3D views (csrc/nddwt_plane.cuh): its
+# threads (kPlaneThreads, one CTA an SM), the most stage buffers in flight
+# (kPlaneMaxStages), the dynamic shared memory a CTA may take (kPlaneSmem),
+# the alignment of its buffers (kPlaneAlign), the rows of a slot-1 item
+# (kPlaneRows), the slot-1 items a thread at most (kPlaneRounds), its plane
+# elements a thread (NI) by compute word, and the plane tile's preferred and
+# most rows where the tile cannot span slot 2: the fastest in sweeps of
+# (C, T1, T2) at (320, 320, 256) and 256^3 db4 on an H100 (PERF.md).
+_PLANE_THREADS = 512
+_PLANE_MAX_STAGES = 4
+_PLANE_SMEM = 220 * 1024
+_PLANE_ALIGN = 128
+_PLANE_ROWS = 4
+_PLANE_ROUNDS = 3
+_PLANE_ITEMS = {4: 4, 8: 2}
+_PLANE_T1 = 8
+_PLANE_T1_MAX = 64
+_REC_BODIES = {1: "plane", 0: "window"}  # nddwt_rec_level's `body`
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 launch_counts = {
@@ -263,7 +286,7 @@ def load() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_double, ctypes.c_int, ip, vp]  # ..., gw, pad, stream
     lib.nddwt_dec_level.restype = ctypes.c_int
     lib.nddwt_rec_level.argtypes = [vp, vp, vp] + geom + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, ip, vp]
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, ip, vp, ip]  # ..., stream, body
     lib.nddwt_rec_level.restype = ctypes.c_int
     return _check_level_library(lib)
 
@@ -624,6 +647,109 @@ def _stream_plan(n, k, dtype=torch.float32, kind="rec", items=1) -> tuple:
     return (max(-(-n[0] // chunks), min(n[0], k[0])), t1, t2)
 
 
+def _plane_whole(n, t, pad) -> bool:
+    """Whether a plane-body plan's tile spans slot 2 (``plane_whole``): a
+    window is then whole input rows, copied in runs of rows."""
+    return not pad[2] and t[2] >= n[2]
+
+
+def _plane_smem(n, k, t, dtype, stages, pad=(False,) * 3) -> int:
+    """Dynamic shared memory of a plane-body launch (``plane_layout`` in
+    the source), bytes: ``stages`` stage buffers of four band windows of
+    ``t[1] + k[1] - 1`` rows in the storage type (whole input rows where
+    the tile spans slot 2, else the tile's columns and halo, shifted, in
+    whole 128 bytes); then Q, two stage parities x two halves x ``t[1]``
+    rows in the compute type, each row long enough for the vector reads of
+    its last thread; and 128 bytes to align the buffers."""
+    store, word = torch.empty((), dtype=dtype).element_size(), _word(dtype)
+    vec, vq, ni = 16 // store, 16 // word, _PLANE_ITEMS[word]
+    if _plane_whole(n, t, pad):
+        ws = n[2]
+    else:
+        row = _PLANE_ALIGN // store
+        ws = -(-(t[2] + k[2] - 1 + vec - 1) // row) * row
+    qs = t[2] - ni + -(-(ni + k[2] - 1) // vq) * vq
+    return (_PLANE_ALIGN + stages * 4 * (t[1] + k[1] - 1) * ws * store
+            + 4 * t[1] * qs * word)
+
+
+def _plane_stages(n, k, t, dtype, pad=(False,) * 3) -> int:
+    """The stage buffers of a plane-body plan (``plane_stages``): the most,
+    up to ``_PLANE_MAX_STAGES``, that fit ``_PLANE_SMEM``; 0 where two do
+    not."""
+    for stages in range(_PLANE_MAX_STAGES, 1, -1):
+        if _plane_smem(n, k, t, dtype, stages, pad) <= _PLANE_SMEM:
+            return stages
+    return 0
+
+
+def _plane_plan(n, k, dtype=torch.float32, pad=(False,) * 3):
+    """``(C, T1, T2)`` of a plane-body launch over the 3D view ``n`` with
+    taps ``k`` and halo-padded flags ``pad`` (``csrc/nddwt_plane.cuh``), or
+    None where no plane tile's stages fit: a tile of ``T1 x T2 =
+    _PLANE_THREADS * NI`` outputs (``T2`` a power of two, ``T1`` a multiple
+    of ``_PLANE_ROWS`` up to ``_PLANE_T1_MAX``, at most ``_PLANE_ROUNDS``
+    slot-1 items a thread): the tile of the most rows that spans slot 2
+    where one does (whole rows: a few large copies a window instead of one
+    or more a row), else ``_PLANE_T1`` rows, other tiles tried from there;
+    and the chunk ``C`` along slot 0 that ``_plane_chunk`` gives."""
+    return _plane_tile(tuple(n), tuple(k), dtype, tuple(bool(p) for p in pad))
+
+
+@functools.lru_cache(maxsize=None)
+def _plane_tile(n, k, dtype, pad):
+    """``_plane_plan`` of tuples, computed once per view."""
+    word = _word(dtype)
+    ni, rw = _PLANE_ITEMS[word], _PLANE_ROWS
+    tt = _PLANE_THREADS * ni
+
+    def cols(t):  # the slot-1 pass's columns
+        return n[2] if _plane_whole(n, t, pad) else t[2] + k[2] - 1
+
+    tiles = [(1, t1, tt // t1) for t1 in range(rw, _PLANE_T1_MAX + 1, rw)
+             if tt % t1 == 0 and (tt // t1) & (tt // t1 - 1) == 0 and tt // t1 >= ni]
+    tiles = [t for t in tiles if 2 * (t[1] // rw) * cols(t) <= _PLANE_ROUNDS * _PLANE_THREADS]
+    whole = [t[1] for t in tiles if _plane_whole(n, t, pad)]
+    want = max(whole) if whole else _PLANE_T1
+    tiles.sort(key=lambda t: (t[1] > want, abs(t[1] - want)))
+    for t in tiles:
+        if _plane_stages(n, k, t, dtype, pad):
+            units = -(-n[1] // t[1]) * -(-n[2] // t[2])
+            C = _plane_chunk(n[0], k[0], units)
+            return (C, t[1], t[2])
+    return None
+
+
+def _plane_chunk(n0, K, units) -> int:
+    """The chunk ``C`` along slot 0 (of extent ``n0``, ``K`` taps) of a
+    plane launch of ``units`` tiles a chunk: the one, of at least ``K``
+    outputs (or ``n0``), that minimises the waves of one CTA an SM
+    (``_STREAM_CTAS // 2``) times the planes a CTA reads, ``C + K - 1``."""
+    wave = _STREAM_CTAS // 2
+
+    def cost(C):
+        return -(-units * -(-n0 // C) // wave) * (C + K - 1)
+
+    return min(range(min(n0, K), n0 + 1), key=lambda C: (cost(C), -C))
+
+
+def _rec_body(n, k, pad, dtype, ptrs) -> str:
+    """The body of an ``nddwt_rec_level`` launch over the view ``n`` with
+    taps ``k`` and halo-padded flags ``pad``, reading arrays at the device
+    addresses ``ptrs`` (``plane_takes`` in the source): "plane" for a 3D
+    view with one length of ``_STREAM_UNROLLED`` on every slot, input rows
+    that start on 16 bytes (the slot-2 input extent a multiple of 16 bytes
+    and every array 16-byte aligned) and a plane plan that fits; "window"
+    otherwise."""
+    K = k[0]
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    m2 = n[2] + (k[2] - 1 if pad[2] else 0)
+    if (K not in _STREAM_UNROLLED or k[1] != K or k[2] != K or m2 % vec
+            or any(p % 16 for p in ptrs)):
+        return "window"
+    return "plane" if _plane_plan(n, k, dtype, pad) is not None else "window"
+
+
 def _stream_view(shape, taps, pad):
     """The 3-slot view ``nddwt_rec_level`` and ``nddwt_dec_level`` stream
     over, slot 0 streamed: ``(n0, n1, n2)`` for a 3D level, ``(n0, 1,
@@ -670,8 +796,10 @@ def _dec_stream_geometry(shape, taps, dtype=torch.float32, pad=None):
 def rec_stream_args(y, approx, band_src, taps, padded=None):
     """Everything one ``nddwt_rec_level`` launch is given, built the same
     on any device: the output shape, the band-source table (``2^d``
-    entries, ``_band_indices``) and the view geometry
-    (``_rec_stream_geometry``). ``ops/stream_ref.py`` replays a launch from
+    entries, ``_band_indices``), the view geometry
+    (``_rec_stream_geometry``, its plan replaced by ``_plane_plan``'s where
+    the plane body runs) and the body the launch takes (``_rec_body``:
+    "plane" or "window"). ``ops/stream_ref.py`` replays a launch from
     these."""
     in_shape = tuple(y.shape[1:])
     if len(in_shape) not in (2, 3) or len(taps) != len(in_shape):
@@ -682,7 +810,12 @@ def rec_stream_args(y, approx, band_src, taps, padded=None):
     pad = _padded_flags(padded, len(in_shape))
     shape = _unpadded_shape(in_shape, taps, pad, "band array")
     idx = _band_indices(band_src, 2 ** len(shape), y, approx, in_shape)
-    return shape, idx, _rec_stream_geometry(shape, taps, y.dtype, pad)
+    n, k, t, left, bit, vpad, arr = _rec_stream_geometry(shape, taps, y.dtype, pad)
+    ptrs = [y.data_ptr()] + ([approx.data_ptr()] if -1 in idx else [])
+    body = _rec_body(n, k, vpad, y.dtype, ptrs)
+    if body == "plane":
+        t = _plane_plan(n, k, y.dtype, vpad)
+    return shape, idx, (n, k, t, left, bit, vpad, arr), body
 
 
 def rec_level(y, approx, band_src, taps, scale, padded=None):
@@ -690,7 +823,9 @@ def rec_level(y, approx, band_src, taps, scale, padded=None):
     ``b`` is ``y[i]`` for ``band_src[b] == ("y", i)`` or ``approx`` for
     ``("a", 0)``; returns ``scale *`` the adjoint, shaped ``y.shape[1:]``.
     On the card it streams slot 0 (``rec_stream_args``: axis 0 of a 2D or
-    3D array).
+    3D array) on the body ``_rec_body`` names, with its plan, and counts
+    the body the library took in the counter ``nddwt.rec_level.body.plane``
+    or ``.window`` (``tracing``; not in ``launch_counts``).
 
     ``padded`` (one flag per axis): the halo-padded mode, which replaces
     the concat and slab "valid" modes of ``_fused_rec_level``
@@ -702,7 +837,7 @@ def rec_level(y, approx, band_src, taps, scale, padded=None):
         return rec_level_ref(y, approx, band_src, taps, scale, padded)
     with tracing.span("nddwt.launch.nddwt_rec_level"):
         check_array("y", y)
-        shape, idx, (n, k, t, left, bit, pad, arr) = rec_stream_args(
+        shape, idx, (n, k, t, left, bit, pad, arr), body = rec_stream_args(
             y, approx, band_src, taps, padded)
         if -1 in idx:
             check_array("approx", approx, y)
@@ -710,6 +845,7 @@ def rec_level(y, approx, band_src, taps, scale, padded=None):
             approx = y
         out = torch.empty(shape, dtype=y.dtype, device=y.device)
         lib = load()
+        took = ctypes.c_int(-1)
         with torch.cuda.device(y.device):
             err = lib.nddwt_rec_level(
                 y.data_ptr(), approx.data_ptr(), out.data_ptr(),
@@ -717,9 +853,12 @@ def rec_level(y, approx, band_src, taps, scale, padded=None):
                 _ints(bit), _taps_ptr(arr),
                 (ctypes.c_longlong * 8)(*(idx + [-1] * (8 - len(idx)))),
                 float(scale), _ints(pad), torch.cuda.current_stream().cuda_stream,
+                ctypes.byref(took),
             )
         raise_on(lib, err, "nddwt_rec_level")
         _count("nddwt_rec_level", pad)
+        if took.value in _REC_BODIES:  # the body the library says it took
+            tracing.count(f"nddwt.rec_level.body.{_REC_BODIES[took.value]}", 1)
     return out
 
 

@@ -14,6 +14,13 @@ each CTA owns a plane tile ``(T1, T2)`` on slots 1 and 2 and a chunk of
   output plane's lo/hi along slot 0 gathered from the ring; ``gw`` bands a
   walk, the chunk walked ``G / gw`` times.
 
+``csrc/nddwt_plane.cuh`` holds the plane body, which runs
+``nddwt_rec_level`` on 3D views with filters of 2 to 8 taps instead of the
+streamed synthesis: a stage is one (input plane, s0), whose four band
+windows arrive by bulk copies of their rows (split at the periodic wrap),
+then the slot-1 pass (both s1 into two halves of Q), the slot-2 pass and
+the ring. ``plane_replay`` replays it.
+
 ``csrc/nddwt_lane.cuh`` holds the lane body of ``nddwt_lane_dec`` and
 ``nddwt_lane_adj`` over the lane view ``(X*Y, Z, T)``: persistent CTAs walk
 units of whole ``(Z, T)`` slabs (or one slab's chunk of Z with its halo
@@ -150,6 +157,179 @@ def stream_replay(y, approx, idx, n, k, t, left, bit, pad, arr, groups, scale,
                   scale)
     assert bool((written == 1).all()), "an output written other than once"
     return out.to(y.dtype)
+
+
+def _plane_pieces(o2, E2, n2, m2, left2, padded, vec):
+    """The pieces of every window row of a plane-body CTA at column ``o2``
+    (``plane_syn_kernel``): columns ``c0 .. c0 + E2 - 1`` split at the
+    periodic wrap (none on a padded slot), each ``(lo, pd, m)``: ``m``
+    elements from column ``lo`` of the input row (the piece's first column
+    rounded down to ``vec``) to element ``pd`` of the buffer row; and the
+    shift ``sh`` of window column 0 in the buffer row. Asserted: at most
+    three pieces, each inside its row and on whole 16 bytes at both ends,
+    each piece after the first starting where the one before it ends."""
+    pieces, sh = [], 0
+    a, d = (o2 if padded else o2 - left2), 0
+    while d < E2:
+        if padded:
+            col, ln = a, E2
+        else:
+            assert -n2 <= a < 2 * n2, "window beyond wrap2's range"
+            col = a + n2 if a < 0 else (a - n2 if a >= n2 else a)
+            ln = min(E2 - d, n2 - col)
+        lo, hi = col // vec * vec, -(-(col + ln) // vec) * vec
+        if d == 0:
+            sh = col - lo
+        pd = sh + d - (col - lo)
+        assert hi <= m2 and pd % vec == 0, "a piece leaves its row or 16 bytes"
+        assert not pieces or pd == pieces[-1][1] + pieces[-1][2], "pieces apart"
+        pieces.append((lo, pd, hi - lo))
+        a, d = a + ln, d + ln
+    assert len(pieces) <= 3
+    return pieces, sh
+
+
+def _plane_runs(q0, E1, n1, left1, padded):
+    """The row runs of a whole-row window (``plane_syn_kernel``): window
+    rows ``0 .. E1 - 1`` are input rows ``q0 .. q0 + E1 - 1`` (wrapped, or
+    shifted by ``left1`` on a padded slot), as ``(input row, window row,
+    rows)`` runs of consecutive input rows, at most three."""
+    runs, l = [], 0
+    while l < E1:
+        q = q0 + l
+        if padded:
+            row, ln = q + left1, E1
+        else:
+            assert -n1 <= q < 2 * n1, "window beyond wrap2's range"
+            row = q + n1 if q < 0 else (q - n1 if q >= n1 else q)
+            ln = min(E1 - l, n1 - row)
+        runs.append((row, l, ln))
+        l += ln
+    assert len(runs) <= 3
+    return runs
+
+
+def plane_replay(y, approx, idx, n, k, t, left, bit, pad, arr, scale, stages=2,
+                 threads=512):
+    """One ``nddwt_rec_level`` launch on the plane body
+    (``csrc/nddwt_plane.cuh``), CTA by CTA and stage by stage; returns the
+    output ``n``. ``y`` is the band array on the view, ``(B, m0, m1, m2)``
+    (``m`` = ``n`` plus ``k - 1`` on a padded slot), its rows starting on
+    16 bytes (every array taken as 16-byte aligned), ``approx`` one such
+    band or None, ``idx`` the band table (-1: ``approx``), ``n, k, t,
+    left, bit, pad`` the view geometry with the plan ``t = (C, T1, T2)``,
+    ``arr`` the (3, 2, kMaxTaps) tap array (reversed), ``stages`` the stage
+    buffers, ``threads`` the CTA's (kPlaneThreads).
+
+    A stage is one (input plane, s0) of the chunk's walk. Its four (s1, s2)
+    band windows are copied, as warp 0 copies them, into a stage buffer
+    that holds nothing else (NaN): where the tile spans slot 2 (whole rows)
+    in the row runs of ``_plane_runs``, else every row in the pieces of
+    ``_plane_pieces``, the rounded bytes around a piece landing in the
+    row's slack; a buffer is refilled with stage ``s + stages`` only after
+    stage ``s`` read it, and the stage read is asserted to be the one the
+    buffer holds. The slot-1 pass runs on the kernel's items (asserted to
+    cover Q's ``2 x T1 x`` columns once), over every row of the tile (rows
+    past the window read NaN, as the kernel reads stale words there), both
+    s1 summed into the two halves of Q (whole rows: the row's columns, read
+    wrapped, and the first ``K - 1`` again past its end); the slot-2 pass
+    runs on each thread's ``NI`` columns; then the ring, whose front is
+    written once per output plane. Every output is asserted written
+    once."""
+    T = y.dtype
+    cdt = _compute_dtype(T)
+    store, word = y.element_size(), torch.empty((), dtype=cdt).element_size()
+    vec, vq = 16 // store, 16 // word
+    ni, rw = (2, 4) if word == 8 else (4, 4)
+    C, T1, T2 = t
+    K = k[0]
+    assert K in (2, 4, 6, 8) and list(k) == [K] * 3 and 2 <= stages <= 4
+    assert C >= 1 and T1 % rw == 0 and T2 & (T2 - 1) == 0 and T1 * T2 == threads * ni
+    ins = [n[a] + (k[a] - 1 if pad[a] else 0) for a in range(3)]
+    assert tuple(y.shape[1:]) == tuple(ins) and ins[2] % vec == 0, "rows not on 16 bytes"
+    whole = not pad[2] and T2 >= n[2]
+    taps = torch.as_tensor(np.asarray(arr), dtype=cdt)
+    row = 128 // store  # a buffer row of the tile's columns in whole 128 bytes
+    ws = n[2] if whole else -(-(T2 + K - 1 + vec - 1) // row) * row
+    nq = -(-(ni + K - 1) // vq) * vq  # values a slot-2 row read takes
+    qs = T2 - ni + nq
+    tpr = T2 // ni
+    outs = [(tid // tpr, tid % tpr * ni) for tid in range(threads)]
+    assert sorted((l1, c + i) for l1, c in outs for i in range(ni)) == [
+        (l1, c) for l1 in range(T1) for c in range(T2)]
+    out = torch.full(tuple(n), float("nan"), dtype=cdt)
+    written = torch.zeros(tuple(n), dtype=torch.int32)
+
+    def band(d):
+        return approx if idx[d] < 0 else y[idx[d]]
+
+    for p0, o1, o2 in _units(n, t, -(-n[0] // C) * -(-n[1] // T1) * -(-n[2] // T2)):
+        w1, w2, cc = min(T1, n[1] - o1), min(T2, n[2] - o2), min(C, n[0] - p0)
+        E1, E2 = w1 + K - 1, w2 + K - 1
+        rows = _window_index(o1 - left[1] + torch.arange(E1), n[1], left[1], pad[1])
+        if whole:
+            assert o2 == 0
+            runs = _plane_runs(o1 - left[1], E1, n[1], left[1], pad[1])
+            assert [r for row, _, m in runs for r in range(row, row + m)] == rows.tolist()
+            stage_bytes = 4 * E1 * ins[2] * store
+            cols = n[2]
+            colpos = _window_index(torch.arange(n[2]) - left[2], n[2], left[2], False)
+        else:
+            pieces, sh = _plane_pieces(o2, E2, n[2], ins[2], left[2], pad[2], vec)
+            assert sh + E2 <= ws and pieces[-1][1] + pieces[-1][2] <= ws
+            stage_bytes = 4 * E1 * sum(m for *_, m in pieces) * store
+            cols = E2
+            colpos = sh + torch.arange(E2)
+        assert stage_bytes < 2 ** 20, "beyond an mbarrier's tx-count"
+        # the slot-1 items, as each thread's woff/qoff: (s2, rows g rw.., column)
+        ng = T1 // rw
+        items = [(f // cols // ng, f // cols % ng, f % cols) for f in range(2 * ng * cols)]
+        assert len(items) <= 3 * threads, "more slot-1 items than kPlaneRounds"
+        assert sorted((s2, g * rw + i, c) for s2, g, c in items for i in range(rw)) == [
+            (s2, l, c) for s2 in range(2) for l in range(T1) for c in range(cols)]
+
+        def fill(s):
+            """Stage s's buffer: (4, T1 + K - 1, ws), window w = 2 s1 + s2."""
+            r, s0 = s >> 1, s & 1
+            g0 = _window_index(torch.tensor([p0 - left[0] + r]), n[0], left[0], pad[0])[0]
+            W = torch.full((4, T1 + K - 1, ws), float("nan"), dtype=T)
+            for w in range(4):
+                d = s0 << bit[0] | (w >> 1) << bit[1] | (w & 1) << bit[2]
+                if whole:  # one copy a run of whole rows
+                    for row, l, m in runs:
+                        W[w, l:l + m] = band(d)[g0, row:row + m]
+                    continue
+                src = band(d)[g0][rows]  # (E1, m2): whole input rows
+                for lo, pd, m in pieces:
+                    W[w, :E1, pd:pd + m] = src[:, lo:lo + m]
+            return s, W
+
+        ns = 2 * (cc + K - 1)
+        bufs = [fill(s) for s in range(min(stages, ns))]
+        ring = torch.zeros((K, T1, T2), dtype=cdt)
+        for s in range(ns):
+            r, s0 = s >> 1, s & 1
+            held, W = bufs[s % stages]
+            assert held == s, "a stage read from a buffer that holds another"
+            Wc = W[:, :, colpos].to(cdt)
+            Q = torch.full((2, T1, qs), float("nan"), dtype=cdt)
+            for s2 in range(2):
+                Q[s2, :, :cols] = sum(_corr(Wc[2 * s1 + s2], taps[1, s1, :K], 0)
+                                      for s1 in range(2))
+                if whole:  # the first K - 1 columns again past the row's end
+                    Q[s2, :, cols:cols + K - 1] = Q[s2, :, :K - 1]
+            if s + stages < ns:
+                bufs[s % stages] = fill(s + stages)
+            P = sum(_corr(Q[s2, :, :T2 + K - 1], taps[2, s2, :K], 1) for s2 in range(2))
+            ring += taps[0, s0, :K].flip(0)[:, None, None] * P
+            if s0 == 1:
+                if r >= K - 1:
+                    at = (p0 + r - (K - 1), slice(o1, o1 + w1), slice(o2, o2 + w2))
+                    out[at] = ring[0, :w1, :w2] * scale
+                    written[at] += 1
+                ring = torch.cat([ring[1:], torch.zeros_like(ring[:1])])
+    assert bool((written == 1).all()), "an output written other than once"
+    return out.to(T)
 
 
 def _ana_unit(src, dst, count, origin, n, k, t, gw, left, bit, pad, taps, groups, lam):

@@ -16,6 +16,15 @@
   0``, ``final``, a band offset past 1 and the split walk (fewer in-plane
   bands a walk than the plane has). Tolerance relative to max|plain|:
   float32 1e-5, float64 1e-12, bfloat16 1e-2.
+* The plane body of ``nddwt_rec_level``'s 3D views of 2 to 8 taps
+  (``csrc/nddwt_plane.cuh``) replayed (``stream_ref.plane_replay``) against
+  ``rec_level_ref``: every such filter length and dtype, whole-row windows
+  and row pieces, tiles wider than their axes, ragged tiles and chunks,
+  each axis halo-padded; the body ``nddwt_rec_level`` takes
+  (``_rec_body``) for its views, the window body kept by the 2D levels,
+  ``nddwt_lead_adj``, db5 and up, mixed filters, rows off 16 bytes and the
+  multilevel kernels; its plans (``_plane_plan``, ``_plane_chunk``) and
+  shared memory (``_plane_smem``).
 * The plans: shared memory within the budget for every filter length and
   dtype, the launch constraints the kernels check, and chunks and plane
   tiles that cover every output once.
@@ -72,7 +81,8 @@ REC_CASES = [
 
 @pytest.mark.parametrize("shape,wv,dtype,padded,plan", REC_CASES)
 def test_rec_schedule_matches_plain(monkeypatch, shape, wv, dtype, padded, plan):
-    """The replay of ``nddwt_rec_level``'s schedule against
+    """The replay of ``nddwt_rec_level``'s schedule (the plane body's or
+    the window body's, as ``rec_stream_args`` chooses) against
     ``rec_level_ref``, band 0 from ``approx`` and from ``y``."""
     if plan is not None:
         monkeypatch.setattr(ck, "_stream_plan", lambda *args: plan)
@@ -84,16 +94,256 @@ def test_rec_schedule_matches_plain(monkeypatch, shape, wv, dtype, padded, plan)
     approx = _randn(rng, in_shape, dtype)
     for src in ([("y", b) for b in range(nb)],
                 [("a", 0)] + [("y", nb + b - 1) for b in range(1, nb)]):
-        out_shape, idx, (n, k, t, left, bit, pad, arr) = ck.rec_stream_args(
+        out_shape, idx, (n, k, t, left, bit, pad, arr), body = ck.rec_stream_args(
             y, approx, src, taps, padded)
         assert out_shape == shape
         view = (-1,) + tuple(m + (K - 1 if p else 0) for m, K, p in zip(n, k, pad))
-        got = stream_ref.stream_replay(
-            y.reshape(view), approx.reshape(view[1:]), idx + [-1] * (16 - nb), n, k, t,
-            left, bit, pad, arr,
-            1, 0.125, ck._stream_items(k))
+        if body == "plane":
+            got = stream_ref.plane_replay(
+                y.reshape(view), approx.reshape(view[1:]), idx, n, k, t, left, bit, pad,
+                arr, 0.125, ck._plane_stages(n, k, t, dtype, pad), ck._PLANE_THREADS)
+        else:
+            got = stream_ref.stream_replay(
+                y.reshape(view), approx.reshape(view[1:]), idx + [-1] * (16 - nb), n, k, t,
+                left, bit, pad, arr,
+                1, 0.125, ck._stream_items(k))
         want = level_ref.rec_level_ref(y, approx, src, taps, 0.125, padded)
         _close(got.reshape(shape), want, dtype)
+
+
+# The plane body (csrc/nddwt_plane.cuh): (output shape, wavelet, dtype,
+# halo-padded axes, plan override (C, T1, T2)). Filters of 2 to 8 taps in
+# every dtype; whole-row windows (the tile spans slot 2) and row pieces;
+# tiles wider than their axes (window rows wrapped at both ends, three
+# pieces or runs); rows and columns no multiple of the tile and a last chunk
+# short of C; each axis halo-padded.
+PLANE_CASES = [
+    ((9, 10, 12), "db1", F32, None, None),
+    ((10, 16, 24), "db2", BF16, None, None),
+    ((12, 14, 16), "db3", F64, None, None),
+    ((8, 12, 16), "db4", F32, None, None),  # slot 0 of extent K
+    ((9, 12, 16), "db4", F64, None, None),
+    ((8, 12, 24), "db4", BF16, None, None),
+    ((9, 12, 20), "db4", F32, None, (9, 64, 32)),  # the tile wider than n1 and n2
+    ((11, 40, 36), "db2", F32, None, (4, 32, 64)),  # whole rows, ragged rows, chunk
+    ((11, 20, 40), "db2", F32, None, (4, 64, 32)),  # row pieces, ragged columns
+    ((10, 20, 34), "db4", F64, None, (3, 32, 32)),
+    ((12, 24, 72), "db3", BF16, None, (5, 32, 64)),
+    ((13, 20, 24), "db2", F32, None, (5, 8, 256)),
+    ((10, 22, 12), "db1", F64, None, (4, 32, 32)),
+    ((12, 9, 12), "db2", F32, (True, False, False), None),
+    ((10, 12, 16), "db4", F64, (False, True, False), None),
+    ((10, 9, 13), "db2", F32, (False, False, True), None),  # row pieces, unwrapped
+    ((11, 12, 15), "db1", BF16, (True, True, True), None),
+    ((9, 11, 19), "db3", F32, (True, False, True), (3, 8, 256)),
+]
+
+
+@pytest.mark.parametrize("shape,wv,dtype,padded,plan", PLANE_CASES)
+def test_plane_schedule_matches_plain(monkeypatch, shape, wv, dtype, padded, plan):
+    """The replay of the plane body's schedule (``stream_ref.plane_replay``:
+    the stage walk per input plane and s0, the bulk copies of the rows in
+    pieces split at the periodic wrap with their 16-byte slack, or in runs
+    of whole rows, slot 1 before slot 2) on the launch ``rec_stream_args``
+    builds, against ``rec_level_ref``, band 0 from ``approx`` and from
+    ``y``, with every stage count the layout allows."""
+    if plan is not None:
+        monkeypatch.setattr(ck, "_plane_plan", lambda *args: plan)
+    rng = np.random.default_rng(shape[0] * 13 + shape[2])
+    taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
+    in_shape = _padded_in(shape, taps, padded)
+    y = _randn(rng, (15,) + in_shape, dtype)
+    approx = _randn(rng, in_shape, dtype)
+    for i, src in enumerate(([("y", b) for b in range(8)],
+                             [("a", 0)] + [("y", 7 + b) for b in range(1, 8)])):
+        _, idx, (n, k, t, left, bit, pad, arr), body = ck.rec_stream_args(
+            y, approx, src, taps, padded)
+        assert body == "plane"
+        stages = ck._plane_stages(n, k, t, dtype, pad)
+        assert stages >= 2
+        got = stream_ref.plane_replay(y, approx, idx, n, k, t, left, bit, pad, arr, 0.125,
+                                      2 + (stages - 2) * i, ck._PLANE_THREADS)
+        want = level_ref.rec_level_ref(y, approx, src, taps, 0.125, padded)
+        _close(got, want, dtype)
+
+
+def _offset(t, shift):
+    """``t`` as a view ``shift`` elements into a larger buffer."""
+    flat = torch.zeros(t.numel() + shift, dtype=t.dtype)
+    return flat[shift:].view(t.shape).copy_(t)
+
+
+# (view n, taps per slot, halo-padded flags, dtype, an array off 16 bytes):
+# the body nddwt_rec_level takes
+BODIES = [
+    ((320, 320, 256), [8] * 3, [False] * 3, F32, False, "plane"),
+    ((256, 256, 256), [8] * 3, [False] * 3, F64, False, "plane"),
+    ((256, 256, 256), [8] * 3, [False] * 3, BF16, False, "plane"),
+    ((40, 41, 48), [2] * 3, [False] * 3, F32, False, "plane"),
+    ((40, 41, 48), [6] * 3, [True, True, False], BF16, False, "plane"),
+    ((40, 41, 45), [4] * 3, [False, False, True], F32, False, "plane"),  # m2 = 48
+    ((40, 41, 46), [4] * 3, [False] * 3, F64, False, "plane"),
+    ((40, 41, 46), [4] * 3, [False] * 3, F32, False, "window"),  # rows off 16 bytes
+    ((40, 41, 44), [4] * 3, [False] * 3, BF16, False, "window"),
+    ((40, 41, 48), [4] * 3, [False] * 3, F32, True, "window"),  # an array off 16 bytes
+    ((320, 1, 256), [8, 1, 8], [False] * 3, F32, False, "window"),  # 2D
+    ((64, 64, 512), [8, 8, 1], [False] * 3, F32, False, "window"),  # lead_adj's view
+    ((48, 48, 48), [10] * 3, [False] * 3, F32, False, "window"),  # db5
+    ((48, 48, 48), [8, 4, 6], [False] * 3, F32, False, "window"),  # mixed
+]
+
+
+@pytest.mark.parametrize("n,k,pad,dtype,off,want", BODIES)
+def test_rec_body_choice(n, k, pad, dtype, off, want):
+    """``_rec_body`` (``plane_takes``): the plane body for 3D views with one
+    length of 2 to 8 taps on every slot whose input rows start on 16 bytes;
+    the window body for 2D views, ``nddwt_lead_adj``'s view, db5 and up,
+    mixed filters and rows or arrays off 16 bytes."""
+    ptrs = [4096, 4096 + (2 if off else 0)]
+    assert ck._rec_body(list(n), k, pad, dtype, ptrs) == want
+    if want == "plane":
+        assert ck._plane_plan(list(n), k, dtype, pad) is not None
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_rec_body_of_arrays(dtype):
+    """``rec_stream_args`` on arrays: the plane body for a 3D db4 level of
+    every dtype with rows on 16 bytes, its plan ``_plane_plan``'s; the
+    window body, with ``_stream_plan``'s plan, where the approximation
+    is a view off 16 bytes (and the plane body again where band 0 comes
+    from ``y``), for 2D levels and for db5."""
+    shape = (10, 12, 16)
+    taps = tw.NDDWT("db4", shape, device="cpu").taps_hp
+    y = torch.zeros((15,) + shape, dtype=dtype)
+    approx = torch.zeros(shape, dtype=dtype)
+    ys = [("y", b) for b in range(8)]
+    via_a = [("a", 0)] + [("y", 7 + b) for b in range(1, 8)]
+    for src, a, want in ((ys, approx, "plane"), (via_a, approx, "plane"),
+                         (via_a, _offset(approx, 1), "window"),
+                         (ys, _offset(approx, 1), "plane")):
+        _, _, (n, k, t, *_), body = ck.rec_stream_args(y, a, src, taps)
+        assert body == want
+        assert tuple(t) == (ck._plane_plan(n, k, dtype) if want == "plane"
+                            else ck._stream_plan(n, k, dtype, "rec"))
+    for shape, wv in (((24, 40), "db4"), ((12, 12, 16), "db5")):
+        taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
+        nb = 2 ** len(shape)
+        y = torch.zeros((nb,) + shape, dtype=dtype)
+        assert ck.rec_stream_args(y, None, [("y", b) for b in range(nb)], taps)[3] == "window"
+
+
+def test_multilevel_and_lead_stage_keep_the_window_body():
+    """The multilevel kernels' and ``nddwt_lead_adj``'s synthesis is the
+    window body: their plans are ``_stream_plan``'s, and only
+    ``nddwt_level.cu`` includes the plane body's header."""
+    taps = tw.NDDWT("db4", (64, 64, 64), device="cpu").taps_hp
+    n, k, t, *_ = multi._multi_geometry((64, 64, 64), taps, True, F32, 2)
+    assert tuple(t) == ck._stream_plan(n, k, F32, "rec", 2)
+    taps4 = tw.NDDWT("db4", (16, 16, 8, 8), device="cpu").taps_hp
+    n, k, t, *_ = ck._stage_geometry((16, 16, 8, 8), taps4, False, True, F32)
+    assert tuple(t) == ck._stream_plan(n, k, F32, "lead")
+    including = sorted(p.name for p in ck.CSRC.glob("*.c*")
+                       if '#include "nddwt_plane.cuh"' in p.read_text())
+    assert including == ["nddwt_level.cu"]
+
+
+# shapes of the plane body's plans: the benchmark's, 256^3, and narrow ones
+PLANE_SHAPES = [(320, 320, 256), (256, 256, 256), (128, 128, 128), (40, 41, 48),
+                (9, 300, 40), (64, 40, 640), (12, 12, 16)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, F64])
+def test_plane_plan_fits_and_covers(dtype):
+    """Every plane plan: the form ``plane_takes`` checks, shared memory
+    (with the static taps and barriers) within one SM's 227 KB, a chunk of
+    at least K0, and chunks and tiles that cover each output once."""
+    word = 8 if dtype == F64 else 4
+    ni = {4: 4, 8: 2}[word]
+    static = 3 * 2 * 76 * word + 32
+    threads = ck._PLANE_THREADS
+    for n in PLANE_SHAPES:
+        for K in (2, 4, 6, 8):
+            for pad in ([False] * 3, [True, True, False], [False, False, True]):
+                k = [K] * 3
+                m2 = n[2] + (K - 1 if pad[2] else 0)
+                if m2 % (16 // torch.empty((), dtype=dtype).element_size()):
+                    continue
+                C, T1, T2 = t = ck._plane_plan(list(n), k, dtype, pad)
+                assert T1 % 4 == 0 and T2 & (T2 - 1) == 0 and T1 * T2 == threads * ni
+                cols = n[2] if ck._plane_whole(n, t, pad) else T2 + K - 1
+                assert 2 * (T1 // 4) * cols <= 3 * threads
+                stages = ck._plane_stages(n, k, t, dtype, pad)
+                smem = ck._plane_smem(n, k, t, dtype, stages, pad)
+                assert 2 <= stages <= 4 and smem <= ck._PLANE_SMEM
+                assert smem + static <= 227 * 1024
+                assert min(n[0], K) <= C <= n[0]
+                for extent, step in ((n[0], C), (n[1], T1), (n[2], T2)):
+                    starts = range(0, extent, step)
+                    cover = [p for s in starts for p in range(s, min(s + step, extent))]
+                    assert cover == list(range(extent))
+
+
+def test_plane_plans_of_the_benchmark():
+    """knee3d's (320, 320, 256) db4 level: the float32 plan's tile spans
+    the rows (whole-row windows of 8 rows a tile, three stages), its 120
+    CTAs one wave of one CTA an SM; float64 tiles of 4 rows, 240 CTAs in
+    two waves; 256^3 and its {"x": 2} block likewise."""
+    k = [8] * 3
+    for n, dtype, plan, ctas in (((320, 320, 256), F32, (107, 8, 256), 120),
+                                 ((320, 320, 256), F64, (107, 4, 256), 240),
+                                 ((256, 256, 256), F32, (64, 8, 256), 128),
+                                 ((256, 256, 256), F64, (128, 4, 256), 128),
+                                 ((128, 256, 256), F32, (32, 8, 256), 128)):
+        t = ck._plane_plan(list(n), k, dtype)
+        assert t == plan and ck._plane_whole(n, t, [False] * 3)
+        assert -(-n[0] // t[0]) * -(-n[1] // t[1]) == ctas
+    assert ck._plane_stages((320, 320, 256), k, (107, 8, 256), F32) == 3
+
+
+# (n0, K, units a chunk): the chunk, worked by hand as the waves of 132 CTAs
+# times C + K - 1 planes
+CHUNKS = [
+    (320, 8, 40, 107),  # 3 chunks, 1 wave x 114 (2 chunks: 1 x 167; 6: 2 x 61)
+    (320, 8, 80, 107),  # 2 waves x 114 (1 chunk: 1 x 327; 4: 3 x 87)
+    (256, 8, 32, 64),  # 1 x 71 (8 chunks: 2 x 39)
+    (256, 8, 64, 128),  # 1 x 135 (4 chunks: 2 x 71)
+    (128, 8, 8, 8),  # 16 chunks of K, 1 x 15
+    (9, 8, 1, 8),  # at least K
+    (5, 8, 1, 5),  # or the whole axis
+]
+
+
+@pytest.mark.parametrize("n0,K,units,want", CHUNKS)
+def test_plane_chunk(n0, K, units, want):
+    assert ck._plane_chunk(n0, K, units) == want
+
+
+def test_plane_smem_is_the_sources_layout():
+    """``_plane_smem`` at a few plans, worked by hand from
+    ``plane_layout``: 128 bytes to align the buffers, stage buffers of four
+    windows of T1 + K - 1 rows (whole rows of n2, else T2 + K - 1 columns
+    and the shift's slack in whole 128 bytes), and Q, 2 x 2 x T1 rows of
+    T2 - NI + NI + K - 1 rounded to a vector."""
+    n = (320, 320, 256)
+    # whole rows, f32 db4 (8, 256): 15 rows of 256 floats; Q rows of 256 - 4 + 12
+    assert ck._plane_smem(n, [8] * 3, (107, 8, 256), F32, 3) == (
+        128 + 3 * 4 * 15 * 256 * 4 + 4 * 8 * 264 * 4)
+    # row pieces, f32 db4 (16, 128): rows of 135 + 3 -> 160 floats, Q rows 136
+    assert ck._plane_smem(n, [8] * 3, (107, 16, 128), F32, 2) == (
+        128 + 2 * 4 * 23 * 160 * 4 + 4 * 16 * 136 * 4)
+    # whole rows, f64 db4 (4, 256): 11 rows of 256 doubles, Q rows 256 - 2 + 10
+    assert ck._plane_smem(n, [8] * 3, (107, 4, 256), F64, 2) == (
+        128 + 2 * 4 * 11 * 256 * 8 + 4 * 4 * 264 * 8)
+    # bf16 db1 whole rows of 256 halves, Q in float: 256 - 4 + 8
+    assert ck._plane_smem(n, [2] * 3, (107, 8, 256), BF16, 4) == (
+        128 + 4 * 4 * 9 * 256 * 2 + 4 * 8 * 260 * 4)
+    # a padded slot 2 takes row pieces: (40, 41, 45) db2 -> m2 48, rows of
+    # 256 + 3 + 3 -> 288 floats; four stages do not fit
+    pad = (False, False, True)
+    assert not ck._plane_whole((40, 41, 45), (1, 8, 256), pad)
+    assert ck._plane_smem((40, 41, 45), [4] * 3, (1, 8, 256), F32, 2, pad) == (
+        128 + 2 * 4 * 11 * 288 * 4 + 4 * 8 * 260 * 4)
+    assert ck._plane_stages((40, 41, 45), [4] * 3, (1, 8, 256), F32, pad) == 3
 
 
 LEAD_CASES = [
