@@ -25,6 +25,9 @@ of glue). A tensor ``lam``, or a plan on the CPU, takes the generic loop.
 
 from __future__ import annotations
 
+import functools
+from contextlib import nullcontext
+
 import numpy as np
 import torch
 
@@ -126,16 +129,24 @@ def _prox_split(transform, v_pair, lam, level):
     return transform.rec_split(soft_threshold_mag_pair(y, lam))
 
 
-def _fista_schedule(iters, lam, step):
-    """The FISTA schedule, computed on the host (JAX ``cs_recon.py:98-108``):
-    the per-iteration shrink thresholds ``lam * step`` (the prox scaling)
-    and momentum coefficients ``(t_k - 1) / t_{k+1}``, ``t_1 = 1``."""
+@functools.lru_cache(maxsize=64)
+def _momenta(iters: int) -> tuple:
+    """The momentum coefficients ``(t_k - 1) / t_{k+1}``, ``t_1 = 1``, of
+    ``iters`` iterations: they depend on the count alone, so they are worked
+    out once per count and not in every solve's host time."""
     t, moms = 1.0, []
     for _ in range(iters):
         t_next = 0.5 * (1.0 + float(np.sqrt(1.0 + 4.0 * t * t)))
         moms.append((t - 1.0) / t_next)
         t = t_next
-    return [float(lam) * float(step)] * iters, moms
+    return tuple(moms)
+
+
+def _fista_schedule(iters, lam, step):
+    """The FISTA schedule, computed on the host (JAX ``cs_recon.py:98-108``):
+    the per-iteration shrink thresholds ``lam * step`` (the prox scaling)
+    and momentum coefficients (``_momenta``)."""
+    return [float(lam) * float(step)] * iters, list(_momenta(int(iters)))
 
 
 def _fwd(x, mask):
@@ -230,6 +241,29 @@ def _fista_loop(prox, b, mask, iters, step):
     return x
 
 
+def _solve_route(transform, b, lam, level, split):
+    """The route of an inpainting solve, as its span names it: ``flat``
+    where ``_fista_fused`` serves it, ``stepped`` on the stepped routes, else
+    that of the generic loop's transforms (``NDDWT.route``; ``sharded``
+    for a ``ShardedNDDWT``). The same tests as the solvers' dispatch."""
+    sharded = _sharded(transform)
+    if not hasattr(lam, "shape"):
+        if not sharded and transform._fista_fused_serves(b, split):
+            return "flat"
+        if (split or not b.is_complex()) and _stepped(transform, b):
+            return "stepped"
+    return "sharded" if sharded else transform._route(b, level, pair=split)
+
+
+def _solve_span(op, transform, b, lam, level, split=False):
+    """The span around one whole solve, ``nddwt.<op>.<route>.L<level>``
+    (``tracing.py``); the route is worked out only while tracing is on."""
+    if not tracing.active():
+        return nullcontext()
+    route = _solve_route(transform, b, lam, level, split)
+    return tracing.span(f"nddwt.{op}.{route}.L{int(level)}")
+
+
 def fista_inpaint(transform, b, mask, lam, level=2, iters=20, step=1.0):
     """FISTA for image-domain masked observation (inpainting):
     ``min_x 0.5 ||M ⊙ x - b||^2 + lam ||W x||_1``. ``b`` may be complex
@@ -237,20 +271,24 @@ def fista_inpaint(transform, b, mask, lam, level=2, iters=20, step=1.0):
     ``lam`` the whole solve is one launch where ``_fista_fused`` serves it,
     else the stepped route. With a ``ShardedNDDWT``, ``b`` and ``mask`` are
     this rank's blocks and so is the result; every iterate exchanges halos
-    (the stepped route on the kernel bodies on the card)."""
+    (the stepped route on the kernel bodies on the card). The solve runs
+    inside the span ``nddwt.fista_inpaint.<route>.L<level>``
+    (``tracing.py``)."""
     _check_transform(transform)
     b = transform._as_input(b)
     mask = _mask_input(transform, mask, b.real.dtype)
-    if not hasattr(lam, "shape"):
-        lams, moms = _fista_schedule(iters, lam, step)
-        if not _sharded(transform):  # no one-launch solve across ranks
-            xr = transform._fista_fused(b, mask, level, lams, moms, step)
-            if xr is not None:
-                return xr
-        if not b.is_complex() and _stepped(transform, b):
-            return _fista_stepped(transform, b, mask, lam, level, moms, step)
-    return _fista_loop(lambda v: _prox(transform, v, lam * step, level),
-                       b, mask, iters, step)
+    with _solve_span("fista_inpaint", transform, b, lam, level):
+        if not hasattr(lam, "shape"):
+            lams, moms = _fista_schedule(iters, lam, step)
+            if not _sharded(transform):  # no one-launch solve across ranks
+                xr = transform._fista_fused(b, mask, level, lams, moms, step)
+                if xr is not None:
+                    return xr
+            if not b.is_complex() and _stepped(transform, b):
+                return _fista_stepped(transform, b, mask, lam, level, moms,
+                                      step)
+        return _fista_loop(lambda v: _prox(transform, v, lam * step, level),
+                           b, mask, iters, step)
 
 
 def fista_inpaint_split(transform, b_pair, mask, lam, level=2, iters=20,
@@ -261,19 +299,23 @@ def fista_inpaint_split(transform, b_pair, mask, lam, level=2, iters=20,
     ``mask`` is real with the plan's shape. On the card with a scalar
     ``lam`` the whole solve is one launch where ``_fista_fused`` serves it,
     else the stepped route. With a ``ShardedNDDWT`` the arrays are this
-    rank's blocks, as in ``fista_inpaint``."""
+    rank's blocks, as in ``fista_inpaint``. The solve runs inside the span
+    ``nddwt.fista_inpaint_split.<route>.L<level>``."""
     _check_transform(transform)
     b_pair = transform._as_pair(b_pair)
     mask = _mask_input(transform, mask, b_pair.dtype)
-    if not hasattr(lam, "shape"):
-        lams, moms = _fista_schedule(iters, lam, step)
-        if not _sharded(transform):
-            xr = transform._fista_fused(b_pair, mask, level, lams, moms, step,
-                                        split=True)
-            if xr is not None:
-                return xr
-        if _stepped(transform, b_pair):
-            return _fista_stepped_split(transform, b_pair, mask, lam, level,
-                                        moms, step)
-    return _fista_loop(lambda v: _prox_split(transform, v, lam * step, level),
-                       b_pair, mask, iters, step)
+    with _solve_span("fista_inpaint_split", transform, b_pair, lam, level,
+                     split=True):
+        if not hasattr(lam, "shape"):
+            lams, moms = _fista_schedule(iters, lam, step)
+            if not _sharded(transform):
+                xr = transform._fista_fused(b_pair, mask, level, lams, moms,
+                                            step, split=True)
+                if xr is not None:
+                    return xr
+            if _stepped(transform, b_pair):
+                return _fista_stepped_split(transform, b_pair, mask, lam,
+                                            level, moms, step)
+        return _fista_loop(
+            lambda v: _prox_split(transform, v, lam * step, level),
+            b_pair, mask, iters, step)

@@ -41,7 +41,9 @@ the tests.
 Each wrapper launches its kernel for a CUDA tensor and raises if the
 launch fails; for a CPU tensor it runs the plain version
 (``ops/flat_ref.py``). Launches are counted in
-``cuda_kernels.launch_counts``.
+``cuda_kernels.launch_counts``; while tracing is on, a launch's grid
+barriers and window bytes in the counters ``flat_passes`` and
+``flat_window_bytes`` (``_count_passes``).
 """
 
 from __future__ import annotations
@@ -262,6 +264,35 @@ def _flat_plan(shape: tuple, k: tuple, dtype: torch.dtype, batch: int = 0) -> Fl
         f"memory for {shape} with filters of {k} taps in {dtype}")
 
 
+@functools.lru_cache(maxsize=256)
+def _level_work(shape, k, dtype, batch):
+    """What one level of a launch does in each direction, from its plan:
+    ``(groups, analysis bytes, synthesis bytes)``, its passes (one an axis
+    group) and the bytes those passes copy into shared-memory windows,
+    halos included (a pass's window words times its units)."""
+    plan = _flat_plan(shape, k, dtype, batch)
+    word = cuda_kernels._word(dtype)
+    lay = flat_layout(shape, k, plan.tile, plan.ends, max(batch, 1), word)
+    nbytes = [p["window"] * p["units"] * word for p in lay["passes"]]
+    return len(plan.ends), sum(nbytes[0::2]), sum(nbytes[1::2])
+
+
+def _count_passes(mode, shape, taps, dtype, batch, level, sweeps=1):
+    """Add a launch's grid barriers to the counter ``flat_passes`` and its
+    window copies' bytes to ``flat_window_bytes`` (``tracing.py``). The
+    kernel's barriers (``csrc/nddwt_flat.cu``): one after the analysis
+    input, one after each pass but a synthesis's last, and one between
+    sweeps; so ``2 L G`` a sweep (chain, fista, pair), ``1 + L G`` for dec
+    and ``L G - 1`` for rec, with ``G`` axis groups a level."""
+    k = tuple(int(np.shape(t)[1]) for t in taps)
+    groups, ana, syn = _level_work(tuple(shape), k, dtype, batch)
+    lg = int(level) * groups
+    barriers = {"dec": 1 + lg, "rec": lg - 1}.get(mode, 2 * lg * sweeps)
+    window = ((0 if mode == "rec" else ana) + (0 if mode == "dec" else syn))
+    tracing.count("flat_passes", barriers)
+    tracing.count("flat_window_bytes", int(level) * sweeps * window)
+
+
 def _plan_arg(shape, taps, dtype, batch):
     """The plan of a launch as its last argument (built once per shape,
     filters, dtype and batch)."""
@@ -305,10 +336,11 @@ def _device_taps(raw: bytes, ndim: int, dtype: torch.dtype, device) -> torch.Ten
 
 
 @functools.lru_cache(maxsize=64)
-def _device_sched(raw: bytes, dtype: torch.dtype, device) -> torch.Tensor:
+def _device_sched(lams: tuple, moms: tuple, dtype: torch.dtype, device) -> torch.Tensor:
     """A (lam, mom) schedule on the device, copied from pinned memory
-    without blocking the host (built once per schedule, type and device)."""
-    host = torch.frombuffer(bytearray(raw), dtype=dtype).view(-1, 2)
+    without blocking the host (built once per schedule, type and device:
+    a call finds it by the schedule's values, with no array built)."""
+    host = torch.tensor(list(zip(lams, moms)), dtype=dtype).view(-1, 2)
     if torch.device(device).type == "cuda":
         host = host.pin_memory()
     return host.to(device, non_blocking=True)
@@ -361,7 +393,7 @@ def _call(mode, arr, taps, level, preserve_l2, lam, shape, batch=0):
         raise ValueError(f"{mode}: expected {want}, got {tuple(arr.shape)}")
     if not arr.is_cuda:
         return flat_pair_ref(mode, arr, taps, level, preserve_l2, lam, batch)
-    with tracing.span("nddwt.launch.nddwt_flat_pair"):
+    with tracing.span("nddwt.launch.nddwt_flat_pair") as on:
         cuda_kernels.check_array("arr", arr)
         bands = arr if mode == "rec" else torch.empty(
             lead + (B,) + shape, dtype=arr.dtype, device=arr.device)
@@ -383,6 +415,8 @@ def _call(mode, arr, taps, level, preserve_l2, lam, shape, batch=0):
             )
         cuda_kernels.raise_on(lib, err, "nddwt_flat_pair")
         cuda_kernels.launch_counts["nddwt_flat_pair"] += 1
+        if on:
+            _count_passes(mode, shape, taps, arr.dtype, batch, level)
     return {"dec": bands, "rec": out, "pair": (bands, out)}[mode]
 
 
@@ -408,7 +442,7 @@ def _call_iter(mode, arr, mask, taps, level, preserve_l2, lams, moms, step,
     if not arr.is_cuda:
         return flat_iter_ref(mode, arr, mask, taps, level, preserve_l2, lams,
                              moms, step, batch)
-    with tracing.span("nddwt.launch.nddwt_flat_iter"):
+    with tracing.span("nddwt.launch.nddwt_flat_iter") as on:
         cuda_kernels.check_array("arr", arr)
         if mask is not None:
             cuda_kernels.check_array("mask", mask, arr)
@@ -418,9 +452,7 @@ def _call_iter(mode, arr, mask, taps, level, preserve_l2, lams, moms, step,
         z = torch.empty_like(arr) if mode == "fista" else None
         lib = load()
         work = _scratch(lib, arr, len(shape), max(batch, 1) * int(np.prod(shape)))
-        sdt = np.float64 if work.dtype == torch.float64 else np.float32
-        sched = _device_sched(np.array(list(zip(lams, moms)), dtype=sdt).tobytes(),
-                              work.dtype, arr.device)
+        sched = _device_sched(tuple(lams), tuple(moms), work.dtype, arr.device)
         tp = _taps_on(taps, arr.dtype, arr.device)
         n, k = _geometry(shape, taps)
         plan = _plan_arg(shape, taps, arr.dtype, batch)
@@ -437,6 +469,8 @@ def _call_iter(mode, arr, mask, taps, level, preserve_l2, lams, moms, step,
             )
         cuda_kernels.raise_on(lib, err, "nddwt_flat_iter")
         cuda_kernels.launch_counts["nddwt_flat_iter"] += 1
+        if on:
+            _count_passes(mode, shape, taps, arr.dtype, batch, level, len(lams))
     return out
 
 

@@ -654,6 +654,12 @@ class NDDWT:
                 _, x = self.dec_rec(x, level, threshold=lam, band_axis=0)
         return x
 
+    def _fista_fused_serves(self, b, split=False) -> bool:
+        """Whether ``_fista_fused`` serves a solve of ``b`` (a re/im pair
+        when ``split``): real, on the kernels, within ``ITER_MAX_NUMEL``."""
+        return (not b.is_complex() and self._uses_kernels(b)
+                and flat.iter_supported(self.shape, b.dtype, 2 if split else 0))
+
     def _fista_fused(self, b, mask, level, lams, moms, step, split=False):
         """A whole FISTA inpainting solve (the image-domain masked data
         term, schedule ``lams``/``moms``) in one ``nddwt_flat_iter``
@@ -677,8 +683,7 @@ class NDDWT:
                 f"{self.shape}"
             )
         level = self._check_level(level)
-        if not (self._uses_kernels(b)
-                and flat.iter_supported(self.shape, b.dtype, 2 if split else 0)):
+        if not self._fista_fused_serves(b, split):
             return None
         _no_adjoint_on_kernels(b, "the fused FISTA solve")
         solve = flat.fista_split_flat if split else flat.fista_flat

@@ -32,7 +32,17 @@ Span names (``PERF.md`` lists the metric that reads each):
   per count in ``ops.cuda_kernels.launch_counts``;
 * ``nddwt.solve.iter``, with ``nddwt.solve.data``, ``nddwt.solve.prox``
   and ``nddwt.solve.momentum`` inside it: one iteration of
-  ``models.fista_cs_mri``.
+  ``models.fista_cs_mri``;
+* ``nddwt.<solver>.<route>.L<level>``: one whole ``models.fista_inpaint``
+  or ``fista_inpaint_split`` solve, the route ``flat`` (one
+  ``nddwt_flat_iter`` launch), ``stepped`` or, on the generic loop, that
+  of its transforms (``NDDWT.route``; ``sharded`` for a ``ShardedNDDWT``).
+
+Counters of the one-launch flat kernels (``ops/flat.py``), counted on the
+host from the plan each launch is given: ``flat_passes``, the passes of a
+launch that end at a grid barrier (its grid barriers), and
+``flat_window_bytes``, the bytes its passes copy into shared-memory
+windows, halos included.
 """
 
 from __future__ import annotations
@@ -99,6 +109,12 @@ class _Span:
         if self.range is not None:
             self.range.__exit__(*exc)
         return False
+
+
+def active() -> bool:
+    """Whether tracing is on: for a caller that has work to do before it
+    can name a span."""
+    return _enabled or _profiler._is_profiler_enabled
 
 
 def span(name: str):

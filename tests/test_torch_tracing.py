@@ -430,7 +430,8 @@ def test_plan_host_ms_counts_outermost_entries_only(on_card, traced):
 
 
 @pytest.mark.parametrize("metric", ["plan_host_ms.coil", "launch_host_us.coil",
-                                    "split_join_gb.cs"])
+                                    "split_join_gb.cs", "plan_host_ms.inpaint",
+                                    "flat_passes.inpaint", "flat_window_mb.inpaint"])
 def test_readers_find_nothing_without_spans(monkeypatch, metric):
     assert _reader(metric)(_rec(metric, 4)) is None  # nothing recorded
     # A program without the tracing module, as before it existed.
