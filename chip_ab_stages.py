@@ -24,18 +24,18 @@ alone and whether the two overlap.
 Each build but the diagnostic ones is held against the kernels' plain
 versions at small shapes (an A/B never times a wrong kernel). Then it
 times, per build, the four stage kernels at (128, 128, 128, 32) db4
-float32 (the two lane stages in float64 too), ``nddwt_lead_dec`` and the
-two lane stages at 128^3 db20 (the 3D
-long-filter route) and ``nddwt_dec_level`` at 256^3 db4 float32 and float64
-with CUDA events: every build once in the order given, then once in
-reverse, so the card's clock drifts against no one build. Then it times
-this checkout's kernels over forced launch plans (the plan functions
-bypassed): the lane body's plans ``(R, Zc, stages)`` of ``nddwt_lane_dec``
-and ``nddwt_lane_adj`` (units of R whole slabs, or chunks of Zc outputs
-along Z, and the unit buffers), the streamed plans ``(C, T1, T2)`` of
-``nddwt_lead_adj``, ``nddwt_lead_dec`` and ``nddwt_dec_level``.
-``nddwt_rec_level``'s 3D views of 2 to 8 taps run the plane
-body (``csrc/nddwt_plane.cuh``), which ``chip_ab_rec.py`` times.
+float32 (the two lane stages in float64 too) and ``nddwt_lead_dec`` and
+the two lane stages at 128^3 db20 (the 3D long-filter route) with CUDA
+events: every build once in the order given, then once in reverse, so the
+card's clock drifts against no one build. Then it times this checkout's
+kernels over forced launch plans (the plan functions bypassed): the lane
+body's plans ``(R, Zc, stages)`` of ``nddwt_lane_dec`` and
+``nddwt_lane_adj`` (units of R whole slabs, or chunks of Zc outputs along
+Z, and the unit buffers), the streamed plans ``(C, T1, T2)`` of
+``nddwt_lead_adj`` and ``nddwt_lead_dec``. ``nddwt_rec_level``'s and
+``nddwt_dec_level``'s 3D views of 2 to 8 taps run the plane bodies
+(``csrc/nddwt_plane.cuh``), which ``chip_ab_rec.py`` and ``chip_ab_dec.py``
+time.
 
 Prints the card's name and power limit first and one JSON object last. It
 exits non-zero without a CUDA device or if a build disagrees with the plain
@@ -51,7 +51,6 @@ import tempfile
 from pathlib import Path
 
 SHAPE = (128, 128, 128, 32)
-SHAPE3 = (256, 256, 256)
 # The lane body's plans (R, Zc, stages): Zc >= Z (128) marks units of R whole
 # slabs, else chunks of Zc outputs along Z (their windows Zc + 7 rows).
 LANE_DEC_PLANS = [(1, 128, 4), (1, 128, 3), (1, 128, 2), (2, 128, 2), (1, 64, 4),
@@ -67,10 +66,7 @@ LANE20_PLANS = [(15, 128, 4), (8, 128, 4), (32, 128, 4), (4, 128, 4), (15, 128, 
 # Streamed plans (C, T1, T2); T1 * T2 = 256 * 4 where the taps are unrolled.
 LEAD_ADJ_PLANS = [(128, 4, 256), (128, 8, 128), (128, 16, 64), (64, 4, 256),
                   (128, 2, 512)]
-# The analysis: T1 * T2 = 256 * items, items 2 at db4 in float32 (a ring of
-# 8 x 4 x 2 registers), 1 in float64, 4 in the lead stage.
-DEC_PLANS = [(128, 8, 64), (128, 4, 128), (64, 8, 64), (128, 16, 32), (256, 8, 64)]
-DEC64_PLANS = [(256, 4, 64), (128, 4, 64), (128, 8, 32), (256, 8, 32), (64, 8, 32)]
+# The lead analysis: T1 * T2 = 256 * 4.
 LEAD_DEC_PLANS = [(128, 4, 256), (128, 8, 128), (128, 16, 64), (64, 4, 256),
                   (128, 2, 512)]
 # The lead analysis of the 3D long-filter route (128^3 db20: 40 taps, the
@@ -244,12 +240,9 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
         return 1
 
     taps = tw.NDDWT("db4", SHAPE, device=dev).taps_hp
-    taps3 = tw.NDDWT("db4", SHAPE3, device=dev).taps_hp
     x = torch.randn(SHAPE, generator=gen, device=dev)
     temp = torch.randn((4,) + SHAPE, generator=gen, device=dev)
     big = torch.randn((16,) + SHAPE, generator=gen, device=dev)
-    x32, b32 = torch.randn(SHAPE3, generator=gen, device=dev), torch.empty((8,) + SHAPE3, device=dev)
-    x64, b64 = x32.double(), b32.double()
     taps20 = tw.NDDWT("db20", SHAPE20, device=dev).taps_hp
     temp20 = torch.randn((2,) + SHAPE20, generator=gen, device=dev)
     x20 = torch.randn(SHAPE20, generator=gen, device=dev)
@@ -266,10 +259,8 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
         "nddwt_lane_adj db20": lambda: ck.lane_adj(temp20, taps20, 1 / 8),
         "nddwt_lane_dec f64": lambda: ck.lane_dec(x64d, taps),
         "nddwt_lane_adj f64": lambda: ck.lane_adj(temp64, taps, 1 / 16),
-        "nddwt_dec_level f32": lambda: ck.dec_level(x32, b32, 1, taps3, 0.0, True),
-        "nddwt_dec_level f64": lambda: ck.dec_level(x64, b64, 1, taps3, 0.0, True),
     }
-    out = {"card": smi, "shape": SHAPE, "shape3": SHAPE3, "ms": {}, "lane_plans": {},
+    out = {"card": smi, "shape": SHAPE, "ms": {}, "lane_plans": {},
            "plans": {}}
     order = [name for name in libs if name != RING_SMEM]
     for name in order + order[::-1]:
@@ -295,9 +286,7 @@ def run(torch, tw, ck, r3, r4, libs, smi) -> int:
     for name, kernel, plans in (
             ("checkout", "nddwt_lead_adj", LEAD_ADJ_PLANS),
             ("checkout", "nddwt_lead_dec", LEAD_DEC_PLANS),
-            ("checkout", "nddwt_lead_dec db20", LEAD_DEC20_PLANS),
-            ("checkout", "nddwt_dec_level f32", DEC_PLANS),
-            ("checkout", "nddwt_dec_level f64", DEC64_PLANS)):
+            ("checkout", "nddwt_lead_dec db20", LEAD_DEC20_PLANS)):
         use(name)
         row = {}
         for t in plans:

@@ -53,9 +53,12 @@
 // nddwt_dec_level runs the streamed analysis: one window per input plane
 // (the tile body copied an (11, 11, 35) window per (8, 8, 32) tile with the
 // same divided, wrapped loads), the in-plane lo/hi passes depth first into
-// registers, a ring of the last K planes' 4 in-plane bands, and the 8
-// bands of each output plane written from registers. What bounds each is in
-// nddwt_stream.cuh and PERF.md.
+// registers, a ring of the last K planes' in-plane bands, and the 8 bands
+// of each output plane written from registers. 3D views with filters of 2
+// to 8 taps run the plane body (nddwt_plane.cuh: a bulk copy of each input
+// plane's window a stage, slot 1 before slot 2, the in-plane bands split
+// between the CTA's halves), the others the window body (nddwt_stream.cuh).
+// What bounds each is in those headers and PERF.md.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (ops/cuda_kernels.py does this at first use).
@@ -65,15 +68,22 @@
 
 namespace {
 
-// The analysis streams slot 0 (nddwt_stream.cuh) over the same view as the
-// synthesis, t = (C, T1, T2), gw in-plane bands a walk: 4 in-plane bands in
-// 3D, 2 in 2D.
+// The analysis streams slot 0 over the same view as the synthesis, t = (C,
+// T1, T2). A 3D view with one unrolled filter length, input rows on 16
+// bytes and a plan of the analysis plane body's form that fits runs the
+// plane body (nddwt_plane.cuh: *body = 1), every other view the window body
+// (nddwt_stream.cuh: *body = 0) with gw in-plane bands a walk: 4 in-plane
+// bands in 3D, 2 in 2D.
 template <typename T, typename C = compute_t<T>>
 int launch_dec(const void* x, void* big, void* approx_out, const int* n,
                const int* k, const int* t, const int* left, const int* bit,
                const int* pad, const void* taps, long long band_off,
-               double lam, int gw, cudaStream_t stream) {
+               double lam, int gw, cudaStream_t stream, int* body) {
   const LevelT<C> g = make_level<C>(n, k, t, left, bit, taps, pad);
+  *body = plane_ana_takes<T>(g, x) ? 1 : 0;
+  if (*body)
+    return launch_plane_ana<T>((const T*)x, (T*)big, (T*)approx_out, g, band_off, (C)lam,
+                               stream);
   if (k[1] > 1 && k[2] > 1)
     return launch_stream_ana<T, 4>((const T*)x, (T*)big, (T*)approx_out, g, 1, gw,
                                    band_off, (C)lam, stream);
@@ -109,8 +119,8 @@ int launch_rec(const void* y, const void* approx, void* out, const int* n,
 // inputs then have extent n + k - 1; pad comes last before the stream); gw:
 // the analysis's in-plane bands a walk; taps:
 // 3 * 2 * 76 of the compute type (float for dtypes 0 and 1, double for 2);
-// body: nddwt_rec_level writes the body the launch took there (1: the plane
-// body, 0: the window body).
+// body: nddwt_dec_level and nddwt_rec_level write the body the launch took
+// there (1: the plane body, 0: the window body).
 // The caller makes the arrays' device current. Returns the cudaError_t of
 // the launch (0 on success); the launch is asynchronous on `stream`.
 extern "C" int nddwt_max_taps() { return kMaxTaps; }
@@ -119,17 +129,18 @@ extern "C" int nddwt_dec_level(const void* x, void* big, void* approx_out,
                                int dtype, const int* n, const int* k,
                                const int* t, const int* left, const int* bit,
                                const void* taps, long long band_off,
-                               double lam, int gw, const int* pad, void* stream) {
+                               double lam, int gw, const int* pad, void* stream,
+                               int* body) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_dec<float>(x, big, approx_out, n, k, t, left, bit, pad,
-                             taps, band_off, lam, gw, s);
+                             taps, band_off, lam, gw, s, body);
   if (dtype == 1)
     return launch_dec<__nv_bfloat16>(x, big, approx_out, n, k, t, left, bit,
-                                     pad, taps, band_off, lam, gw, s);
+                                     pad, taps, band_off, lam, gw, s, body);
   if (dtype == 2)
     return launch_dec<double>(x, big, approx_out, n, k, t, left, bit, pad,
-                              taps, band_off, lam, gw, s);
+                              taps, band_off, lam, gw, s, body);
   return (int)cudaErrorInvalidValue;
 }
 

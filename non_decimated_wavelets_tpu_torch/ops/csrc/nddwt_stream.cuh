@@ -623,7 +623,10 @@ int launch_stream(const T* y, const T* approx, T* out, const LevelT<C>& g,
 // The lead analysis at (128, 128, 128, 32) takes about 2.9 ms for a 1.6 ms
 // bound, 1.3 ms of it the 16 band writes; there the copies-only (0.86 ms)
 // and passes-only (2.02 ms) builds add up to the whole: the copies and the
-// stores do not overlap.
+// stores do not overlap. nddwt_dec_level's 3D views with filters of 2 to 8
+// taps therefore run the analysis plane body instead (nddwt_plane.cuh:
+// plane_ana_kernel); this body keeps the 2D levels, nddwt_lead_dec, runtime
+// filter lengths and the multilevel kernels.
 
 constexpr int kAnaRingRegs = 64;
 

@@ -33,7 +33,9 @@ output planes (synthesis) or of the last K planes' in-plane bands
 input rows on 16 bytes runs the plane body instead
 (``csrc/nddwt_plane.cuh``, ``_plane_plan``, ``stream_ref.plane_replay``):
 bulk copies of each (input plane, s0) stage's four band windows on an
-mbarrier, slot 1 before slot 2.
+mbarrier, slot 1 before slot 2; ``nddwt_dec_level`` of the same levels the
+analysis plane body of the same header (``_plane_ana_plan``,
+``stream_ref.plane_ana_replay``): one input plane's window a stage.
 ``nddwt_lane_dec`` and ``nddwt_lane_adj`` run the lane body
 (``csrc/nddwt_lane.cuh``): persistent CTAs walk units of whole (Z, T)
 slabs of the (X*Y, Z, T) view (or chunks of Z with their halo rows), each
@@ -155,24 +157,27 @@ _STREAM_T2 = {"rec": 128, "lead": 256}
 _ANA_T1 = 8
 _ANALYSIS = ("dec", "lead_dec")
 _STREAM_CTAS = 2 * 132
-# The plane body of nddwt_rec_level's 3D views (csrc/nddwt_plane.cuh): its
-# threads (kPlaneThreads, one CTA an SM), the most stage buffers in flight
-# (kPlaneMaxStages), the dynamic shared memory a CTA may take (kPlaneSmem),
-# the alignment of its buffers (kPlaneAlign), the rows of a slot-1 item
-# (kPlaneRows), the slot-1 items a thread at most (kPlaneRounds), its plane
-# elements a thread (NI) by compute word, and the plane tile's preferred and
-# most rows where the tile cannot span slot 2: the fastest in sweeps of
-# (C, T1, T2) at (320, 320, 256) and 256^3 db4 on an H100 (PERF.md).
+# The plane bodies of nddwt_rec_level's and nddwt_dec_level's 3D views
+# (csrc/nddwt_plane.cuh): their threads (kPlaneThreads, one CTA an SM), the
+# most stage buffers in flight (kPlaneMaxStages), the dynamic shared memory
+# a CTA may take (kPlaneSmem), the alignment of its buffers (kPlaneAlign),
+# the rows of a slot-1 item of the synthesis (kPlaneRows) and of the
+# analysis (kPlaneAnaRows), the slot-1 items a thread at most
+# (kPlaneRounds), the plane elements a thread (NI) by compute word, and the
+# synthesis's plane tile's preferred and most rows where the tile cannot
+# span slot 2: the fastest in sweeps of (C, T1, T2) at (320, 320, 256) and
+# 256^3 db4 on an H100 (PERF.md).
 _PLANE_THREADS = 512
 _PLANE_MAX_STAGES = 4
 _PLANE_SMEM = 220 * 1024
 _PLANE_ALIGN = 128
 _PLANE_ROWS = 4
+_PLANE_ANA_ROWS = 2
 _PLANE_ROUNDS = 3
 _PLANE_ITEMS = {4: 4, 8: 2}
 _PLANE_T1 = 8
 _PLANE_T1_MAX = 64
-_REC_BODIES = {1: "plane", 0: "window"}  # nddwt_rec_level's `body`
+_BODIES = {1: "plane", 0: "window"}  # the level kernels' `body`
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 launch_counts = {
@@ -283,7 +288,7 @@ def load() -> ctypes.CDLL:
     vp = ctypes.c_void_p
     geom = [ctypes.c_int, ip, ip, ip, ip, ip, vp]  # dtype, n, k, t, left, bit, taps
     lib.nddwt_dec_level.argtypes = [vp, vp, vp] + geom + [
-        ctypes.c_longlong, ctypes.c_double, ctypes.c_int, ip, vp]  # ..., gw, pad, stream
+        ctypes.c_longlong, ctypes.c_double, ctypes.c_int, ip, vp, ip]  # ..., stream, body
     lib.nddwt_dec_level.restype = ctypes.c_int
     lib.nddwt_rec_level.argtypes = [vp, vp, vp] + geom + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, ip, vp, ip]  # ..., stream, body
@@ -457,8 +462,10 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False, padded=None):
     details into ``big[band_off : band_off + 2^d - 1]``, shrunk by ``lam``;
     the approximation into ``big[0]`` when ``final``, else returned.
 
-    On the card it streams slot 0 (``_dec_stream_geometry``: axis 0 of a 2D
-    or 3D array).
+    On the card it streams slot 0 (``dec_stream_args``: axis 0 of a 2D or
+    3D array) on the body ``_dec_body`` names, with its plan, and counts the
+    body the library took in the counter ``nddwt.dec_level.body.plane`` or
+    ``.window`` (``tracing``; not in ``launch_counts``).
 
     ``padded`` (one flag per axis): the halo-padded mode, which replaces
     the concat and slab "valid" modes of ``_fused_dec_level``
@@ -490,19 +497,21 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False, padded=None):
             )
         out = big[0] if final else torch.empty(shape, dtype=approx.dtype,
                                                device=approx.device)
-        n, k, t, left, bit, vpad, arr = _dec_stream_geometry(shape, taps, approx.dtype,
-                                                             pad)
+        (n, k, t, left, bit, vpad, arr), body = dec_stream_args(approx, shape, taps, pad)
         lib = load()
+        took = ctypes.c_int(-1)
         with torch.cuda.device(approx.device):
             err = lib.nddwt_dec_level(
                 approx.data_ptr(), big.data_ptr(), out.data_ptr(),
                 DTYPE_CODE[approx.dtype], _ints(n), _ints(k), _ints(t), _ints(left),
                 _ints(bit), _taps_ptr(arr), int(band_off), float(lam),
-                _walk_bands(k, t, approx.dtype), _ints(vpad),
-                torch.cuda.current_stream().cuda_stream,
+                _walk_bands(k, t, approx.dtype) if body == "window" else 0, _ints(vpad),
+                torch.cuda.current_stream().cuda_stream, ctypes.byref(took),
             )
         raise_on(lib, err, "nddwt_dec_level")
         _count("nddwt_dec_level", pad)
+        if took.value in _BODIES:  # the body the library says it took
+            tracing.count(f"nddwt.dec_level.body.{_BODIES[took.value]}", 1)
     return None if final else out
 
 
@@ -653,14 +662,16 @@ def _plane_whole(n, t, pad) -> bool:
     return not pad[2] and t[2] >= n[2]
 
 
-def _plane_smem(n, k, t, dtype, stages, pad=(False,) * 3) -> int:
+def _plane_smem(n, k, t, dtype, stages, pad=(False,) * 3, windows=4) -> int:
     """Dynamic shared memory of a plane-body launch (``plane_layout`` in
-    the source), bytes: ``stages`` stage buffers of four band windows of
-    ``t[1] + k[1] - 1`` rows in the storage type (whole input rows where
-    the tile spans slot 2, else the tile's columns and halo, shifted, in
-    whole 128 bytes); then Q, two stage parities x two halves x ``t[1]``
-    rows in the compute type, each row long enough for the vector reads of
-    its last thread; and 128 bytes to align the buffers."""
+    the source; ``plane_ana_layout`` with ``windows`` 1), bytes: ``stages``
+    stage buffers of ``windows`` windows (the synthesis's four band
+    windows, the analysis's one) of ``t[1] + k[1] - 1`` rows in the storage
+    type (whole input rows where the tile spans slot 2, else the tile's
+    columns and halo, shifted, in whole 128 bytes); then Q, two stage
+    parities x two halves x ``t[1]`` rows in the compute type, each row long
+    enough for the vector reads of its last thread; and 128 bytes to align
+    the buffers."""
     store, word = torch.empty((), dtype=dtype).element_size(), _word(dtype)
     vec, vq, ni = 16 // store, 16 // word, _PLANE_ITEMS[word]
     if _plane_whole(n, t, pad):
@@ -669,16 +680,16 @@ def _plane_smem(n, k, t, dtype, stages, pad=(False,) * 3) -> int:
         row = _PLANE_ALIGN // store
         ws = -(-(t[2] + k[2] - 1 + vec - 1) // row) * row
     qs = t[2] - ni + -(-(ni + k[2] - 1) // vq) * vq
-    return (_PLANE_ALIGN + stages * 4 * (t[1] + k[1] - 1) * ws * store
+    return (_PLANE_ALIGN + stages * windows * (t[1] + k[1] - 1) * ws * store
             + 4 * t[1] * qs * word)
 
 
-def _plane_stages(n, k, t, dtype, pad=(False,) * 3) -> int:
-    """The stage buffers of a plane-body plan (``plane_stages``): the most,
-    up to ``_PLANE_MAX_STAGES``, that fit ``_PLANE_SMEM``; 0 where two do
-    not."""
+def _plane_stages(n, k, t, dtype, pad=(False,) * 3, windows=4) -> int:
+    """The stage buffers of a plane-body plan (``plane_stages``,
+    ``plane_ana_stages`` with ``windows`` 1): the most, up to
+    ``_PLANE_MAX_STAGES``, that fit ``_PLANE_SMEM``; 0 where two do not."""
     for stages in range(_PLANE_MAX_STAGES, 1, -1):
-        if _plane_smem(n, k, t, dtype, stages, pad) <= _PLANE_SMEM:
+        if _plane_smem(n, k, t, dtype, stages, pad, windows) <= _PLANE_SMEM:
             return stages
     return 0
 
@@ -696,27 +707,40 @@ def _plane_plan(n, k, dtype=torch.float32, pad=(False,) * 3):
     return _plane_tile(tuple(n), tuple(k), dtype, tuple(bool(p) for p in pad))
 
 
+def _plane_ana_plan(n, k, dtype=torch.float32, pad=(False,) * 3):
+    """``(C, T1, T2)`` of an analysis plane-body launch
+    (``plane_ana_kernel``), or None where no plane tile's stages fit: as
+    ``_plane_plan``'s, with a tile of ``T1 x T2 = _PLANE_THREADS / 2 * NI``
+    outputs (each half of the CTA one slot-1 band), ``T1`` any multiple of
+    ``_PLANE_ANA_ROWS`` (every tile ``plane_ana_takes`` accepts) and one
+    window a stage."""
+    return _plane_tile(tuple(n), tuple(k), dtype, tuple(bool(p) for p in pad), True)
+
+
 @functools.lru_cache(maxsize=None)
-def _plane_tile(n, k, dtype, pad):
-    """``_plane_plan`` of tuples, computed once per view."""
+def _plane_tile(n, k, dtype, pad, ana=False):
+    """``_plane_plan`` (``_plane_ana_plan`` where ``ana``) of tuples,
+    computed once per view."""
     word = _word(dtype)
-    ni, rw = _PLANE_ITEMS[word], _PLANE_ROWS
-    tt = _PLANE_THREADS * ni
+    ni = _PLANE_ITEMS[word]
+    rw, tt = (_PLANE_ANA_ROWS, _PLANE_THREADS // 2 * ni) if ana else (_PLANE_ROWS,
+                                                                      _PLANE_THREADS * ni)
+    halves = 1 if ana else 2  # slot-1 items a row group and column
 
     def cols(t):  # the slot-1 pass's columns
         return n[2] if _plane_whole(n, t, pad) else t[2] + k[2] - 1
 
-    tiles = [(1, t1, tt // t1) for t1 in range(rw, _PLANE_T1_MAX + 1, rw)
+    tiles = [(1, t1, tt // t1) for t1 in range(rw, (tt // ni if ana else _PLANE_T1_MAX) + 1, rw)
              if tt % t1 == 0 and (tt // t1) & (tt // t1 - 1) == 0 and tt // t1 >= ni]
-    tiles = [t for t in tiles if 2 * (t[1] // rw) * cols(t) <= _PLANE_ROUNDS * _PLANE_THREADS]
+    tiles = [t for t in tiles
+             if halves * (t[1] // rw) * cols(t) <= _PLANE_ROUNDS * _PLANE_THREADS]
     whole = [t[1] for t in tiles if _plane_whole(n, t, pad)]
     want = max(whole) if whole else _PLANE_T1
     tiles.sort(key=lambda t: (t[1] > want, abs(t[1] - want)))
     for t in tiles:
-        if _plane_stages(n, k, t, dtype, pad):
+        if _plane_stages(n, k, t, dtype, pad, 1 if ana else 4):
             units = -(-n[1] // t[1]) * -(-n[2] // t[2])
-            C = _plane_chunk(n[0], k[0], units)
-            return (C, t[1], t[2])
+            return (_plane_chunk(n[0], k[0], units), t[1], t[2])
     return None
 
 
@@ -733,21 +757,37 @@ def _plane_chunk(n0, K, units) -> int:
     return min(range(min(n0, K), n0 + 1), key=lambda C: (cost(C), -C))
 
 
-def _rec_body(n, k, pad, dtype, ptrs) -> str:
-    """The body of an ``nddwt_rec_level`` launch over the view ``n`` with
-    taps ``k`` and halo-padded flags ``pad``, reading arrays at the device
-    addresses ``ptrs`` (``plane_takes`` in the source): "plane" for a 3D
-    view with one length of ``_STREAM_UNROLLED`` on every slot, input rows
-    that start on 16 bytes (the slot-2 input extent a multiple of 16 bytes
-    and every array 16-byte aligned) and a plane plan that fits; "window"
-    otherwise."""
+def _plane_class(n, k, pad, dtype, ptrs) -> bool:
+    """Whether a level launch over the view ``n`` with taps ``k`` and
+    halo-padded flags ``pad``, reading arrays at the device addresses
+    ``ptrs``, is of the plane bodies' class: a 3D view with one length of
+    ``_STREAM_UNROLLED`` on every slot and input rows that start on 16 bytes
+    (the slot-2 input extent a multiple of 16 bytes and every array 16-byte
+    aligned)."""
     K = k[0]
-    vec = 16 // torch.empty((), dtype=dtype).element_size()
     m2 = n[2] + (k[2] - 1 if pad[2] else 0)
-    if (K not in _STREAM_UNROLLED or k[1] != K or k[2] != K or m2 % vec
-            or any(p % 16 for p in ptrs)):
+    return (K in _STREAM_UNROLLED and k[1] == K and k[2] == K
+            and not m2 % (16 // dtype.itemsize) and not any(p % 16 for p in ptrs))
+
+
+def _rec_body(n, k, pad, dtype, ptrs) -> str:
+    """The body of an ``nddwt_rec_level`` launch (``plane_takes`` in the
+    source): "plane" for a view of the plane bodies' class
+    (``_plane_class``) with a plane plan that fits; "window"
+    otherwise."""
+    if not _plane_class(n, k, pad, dtype, ptrs):
         return "window"
     return "plane" if _plane_plan(n, k, dtype, pad) is not None else "window"
+
+
+def _dec_body(n, k, pad, dtype, ptrs) -> str:
+    """The body of an ``nddwt_dec_level`` launch reading its input at the
+    device address ``ptrs[0]`` (``plane_ana_takes`` in the source): "plane"
+    for a view of the plane bodies' class (``_plane_class``) with an
+    analysis plane plan that fits; "window" otherwise."""
+    if not _plane_class(n, k, pad, dtype, ptrs):
+        return "window"
+    return "plane" if _plane_ana_plan(n, k, dtype, pad) is not None else "window"
 
 
 def _stream_view(shape, taps, pad):
@@ -762,12 +802,9 @@ def _stream_view(shape, taps, pad):
         [pad[0], False, pad[1]]
 
 
-def _level_stream_geometry(shape, taps, dtype, pad, rec: bool):
-    """The view geometry ``(n, k, t, left, bit, pad, tap_array)`` of one
-    streamed level launch whose output has ``shape`` (``pad``: its
-    halo-padded axes): ``_stream_view``, the halos (``halo_widths``), the
-    plan ``(C, T1, T2)`` and the taps in the compute type, reversed for the
-    synthesis."""
+def _level_stream_view(shape, taps, dtype, pad, rec: bool):
+    """``_level_stream_geometry`` without the plan: ``(n, k, left, bit,
+    pad, tap_array)``."""
     pad = _padded_flags(pad, len(shape))
     n, slot_taps, bit, vpad = _stream_view(shape, taps, pad)
     k = [1 if t is None else int(np.shape(t)[1]) for t in slot_taps]
@@ -776,8 +813,17 @@ def _level_stream_geometry(shape, taps, dtype, pad, rec: bool):
     if any(K > m and not p for K, m, p in zip(k, n, vpad)):
         raise ValueError(f"filters of lengths {k} are longer than the axes {n}")
     left = [0 if t is None else halo_widths([t], rec)[0][0] for t in slot_taps]
-    return (n, k, _stream_plan(n, k, dtype, "rec" if rec else "dec"), left, bit, vpad,
-            _tap_array(slot_taps, rec, _compute_dtype(dtype)))
+    return n, k, left, bit, vpad, _tap_array(slot_taps, rec, _compute_dtype(dtype))
+
+
+def _level_stream_geometry(shape, taps, dtype, pad, rec: bool):
+    """The view geometry ``(n, k, t, left, bit, pad, tap_array)`` of one
+    streamed level launch whose output has ``shape`` (``pad``: its
+    halo-padded axes): ``_stream_view``, the halos (``halo_widths``), the
+    plan ``(C, T1, T2)`` and the taps in the compute type, reversed for the
+    synthesis."""
+    n, k, left, bit, vpad, arr = _level_stream_view(shape, taps, dtype, pad, rec)
+    return n, k, _stream_plan(n, k, dtype, "rec" if rec else "dec"), left, bit, vpad, arr
 
 
 def _rec_stream_geometry(shape, taps, dtype=torch.float32, pad=None):
@@ -791,6 +837,20 @@ def _dec_stream_geometry(shape, taps, dtype=torch.float32, pad=None):
     (``_level_stream_geometry``): the analysis halos, the taps as given;
     its walk takes ``_walk_bands(k, t, dtype)`` bands."""
     return _level_stream_geometry(shape, taps, dtype, pad, rec=False)
+
+
+def dec_stream_args(approx, shape, taps, padded=None):
+    """The view geometry of one ``nddwt_dec_level`` launch reading
+    ``approx`` into bands of ``shape`` (``_dec_stream_geometry``'s, its plan
+    ``_plane_ana_plan``'s where the plane body runs) and the body the
+    launch takes (``_dec_body``: "plane" or "window"), built the same on
+    any device. ``ops/stream_ref.py`` replays a launch from these."""
+    dtype = approx.dtype
+    n, k, left, bit, vpad, arr = _level_stream_view(shape, taps, dtype, padded, rec=False)
+    body = _dec_body(n, k, vpad, dtype, [approx.data_ptr()])
+    t = (_plane_ana_plan(n, k, dtype, vpad) if body == "plane"
+         else _stream_plan(n, k, dtype, "dec"))
+    return (n, k, t, left, bit, vpad, arr), body
 
 
 def rec_stream_args(y, approx, band_src, taps, padded=None):
@@ -857,8 +917,8 @@ def rec_level(y, approx, band_src, taps, scale, padded=None):
             )
         raise_on(lib, err, "nddwt_rec_level")
         _count("nddwt_rec_level", pad)
-        if took.value in _REC_BODIES:  # the body the library says it took
-            tracing.count(f"nddwt.rec_level.body.{_REC_BODIES[took.value]}", 1)
+        if took.value in _BODIES:  # the body the library says it took
+            tracing.count(f"nddwt.rec_level.body.{_BODIES[took.value]}", 1)
     return out
 
 

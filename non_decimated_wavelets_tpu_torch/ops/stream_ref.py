@@ -21,6 +21,13 @@ windows arrive by bulk copies of their rows (split at the periodic wrap),
 then the slot-1 pass (both s1 into two halves of Q), the slot-2 pass and
 the ring. ``plane_replay`` replays it.
 
+The same header holds the analysis plane body, which runs
+``nddwt_dec_level`` on those views instead of the streamed analysis: a
+stage is one input plane, whose window arrives the same way, then the
+slot-1 lo/hi pass into Q, the slot-2 pass (each half of the CTA one s1)
+and a ring of the last K planes' bands, gathered into each output plane's
+bands. ``plane_ana_replay`` replays it.
+
 ``csrc/nddwt_lane.cuh`` holds the lane body of ``nddwt_lane_dec`` and
 ``nddwt_lane_adj`` over the lane view ``(X*Y, Z, T)``: persistent CTAs walk
 units of whole ``(Z, T)`` slabs (or one slab's chunk of Z with its halo
@@ -330,6 +337,128 @@ def plane_replay(y, approx, idx, n, k, t, left, bit, pad, arr, scale, stages=2,
                 ring = torch.cat([ring[1:], torch.zeros_like(ring[:1])])
     assert bool((written == 1).all()), "an output written other than once"
     return out.to(T)
+
+
+def plane_ana_replay(x, big, approx_out, band_off, n, k, t, left, bit, pad, arr, lam,
+                     stages=2, threads=512):
+    """One ``nddwt_dec_level`` launch on the analysis plane body
+    (``plane_ana_kernel`` in ``csrc/nddwt_plane.cuh``), CTA by CTA and stage
+    by stage: band ``d`` into ``big[band_off + d - 1]`` (shrunk by ``lam >
+    0``), ``d == 0`` into ``approx_out``. ``x`` is the input on the view,
+    ``(m0, m1, m2)`` (``m`` = ``n`` plus ``k - 1`` on a padded slot), its
+    rows starting on 16 bytes; ``big`` and ``approx_out`` views of the
+    outputs, ``(B, *n)`` and ``n``; ``n, k, t, left, bit, pad`` the view
+    geometry with the plan ``t = (C, T1, T2)``, ``arr`` the (3, 2,
+    kMaxTaps) tap array, ``stages`` the stage buffers, ``threads`` the
+    CTA's (kPlaneThreads).
+
+    A stage is one input plane of the chunk's walk, its window copied as
+    warp 0 copies it (``plane_replay``'s runs of whole rows or row pieces)
+    into a stage buffer that holds nothing else (NaN), refilled with stage
+    ``s + stages`` only after stage ``s`` read it. The slot-1 pass runs on
+    the kernel's items of ``RA = 2`` rows (asserted to cover Q's ``T1 x``
+    columns once) over every row of the tile (rows past the window read
+    NaN), lo into Q[0] and hi into Q[1] (whole rows: the row's columns,
+    read wrapped, and the first ``K - 1`` again past its end); the slot-2
+    pass runs on each thread's half (its s1) and ``NI`` columns, both s2;
+    the ring keeps the last K planes' bands, and once full each output
+    plane's four bands (s0, s2) of each half are gathered over it and
+    shrunk as the kernel shrinks, ``sign(v) (|v| - min(|v|, lam))``. Every
+    output is asserted written once."""
+    T = x.dtype
+    cdt = _compute_dtype(T)
+    store, word = x.element_size(), torch.empty((), dtype=cdt).element_size()
+    vec, vq = 16 // store, 16 // word
+    ni, ra = (2 if word == 8 else 4), 2
+    half = threads // 2
+    C, T1, T2 = t
+    K = k[0]
+    assert K in (2, 4, 6, 8) and list(k) == [K] * 3 and 2 <= stages <= 4
+    assert C >= 1 and T1 % ra == 0 and T2 & (T2 - 1) == 0 and T1 * T2 == half * ni
+    ins = [n[a] + (k[a] - 1 if pad[a] else 0) for a in range(3)]
+    assert tuple(x.shape) == tuple(ins) and ins[2] % vec == 0, "rows not on 16 bytes"
+    whole = not pad[2] and T2 >= n[2]
+    taps = torch.as_tensor(np.asarray(arr), dtype=cdt)
+    row = 128 // store  # a buffer row of the tile's columns in whole 128 bytes
+    ws = n[2] if whole else -(-(T2 + K - 1 + vec - 1) // row) * row
+    qs = T2 - ni + -(-(ni + K - 1) // vq) * vq
+    tpr = T2 // ni
+    outs = [(tid // half, tid % half // tpr, tid % half % tpr * ni) for tid in range(threads)]
+    assert sorted((s1, l1, c + i) for s1, l1, c in outs for i in range(ni)) == [
+        (s1, l1, c) for s1 in range(2) for l1 in range(T1) for c in range(T2)]
+    written = torch.zeros((8,) + tuple(n), dtype=torch.int32)
+
+    def dst(d):
+        return approx_out if d == 0 else big[band_off + d - 1]
+
+    for p0, o1, o2 in _units(n, t, -(-n[0] // C) * -(-n[1] // T1) * -(-n[2] // T2)):
+        w1, w2, cc = min(T1, n[1] - o1), min(T2, n[2] - o2), min(C, n[0] - p0)
+        E1, E2 = w1 + K - 1, w2 + K - 1
+        rows = _window_index(o1 - left[1] + torch.arange(E1), n[1], left[1], pad[1])
+        if whole:
+            assert o2 == 0
+            runs = _plane_runs(o1 - left[1], E1, n[1], left[1], pad[1])
+            assert [r for r0, _, m in runs for r in range(r0, r0 + m)] == rows.tolist()
+            stage_bytes = E1 * ins[2] * store
+            cols = n[2]
+            colpos = _window_index(torch.arange(n[2]) - left[2], n[2], left[2], False)
+        else:
+            pieces, sh = _plane_pieces(o2, E2, n[2], ins[2], left[2], pad[2], vec)
+            assert sh + E2 <= ws and pieces[-1][1] + pieces[-1][2] <= ws
+            stage_bytes = E1 * sum(m for *_, m in pieces) * store
+            cols = E2
+            colpos = sh + torch.arange(E2)
+        assert stage_bytes < 2 ** 20, "beyond an mbarrier's tx-count"
+        items = [(f // cols, f % cols) for f in range(T1 // ra * cols)]
+        assert len(items) <= 3 * threads, "more slot-1 items than kPlaneRounds"
+        assert sorted((g * ra + i, c) for g, c in items for i in range(ra)) == [
+            (l, c) for l in range(T1) for c in range(cols)]
+
+        def fill(s):
+            """Stage s's buffer: (T1 + K - 1, ws), input plane s of the walk."""
+            g0 = _window_index(torch.tensor([p0 - left[0] + s]), n[0], left[0], pad[0])[0]
+            W = torch.full((T1 + K - 1, ws), float("nan"), dtype=T)
+            if whole:  # one copy a run of whole rows
+                for r0, l, m in runs:
+                    W[l:l + m] = x[g0, r0:r0 + m]
+            else:
+                src = x[g0][rows]  # (E1, m2): whole input rows
+                for lo, pd, m in pieces:
+                    W[:E1, pd:pd + m] = src[:, lo:lo + m]
+            return s, W
+
+        ns = cc + K - 1
+        bufs = [fill(s) for s in range(min(stages, ns))]
+        ring = []  # the last K planes' (2, 2, T1, T2): s1, s2
+        for s in range(ns):
+            held, W = bufs[s % stages]
+            assert held == s, "a stage read from a buffer that holds another"
+            Wc = W[:, colpos].to(cdt)
+            Q = torch.full((2, T1, qs), float("nan"), dtype=cdt)
+            for s1 in range(2):
+                Q[s1, :, :cols] = _corr(Wc, taps[1, s1, :K], 0)
+                if whole:  # the first K - 1 columns again past the row's end
+                    Q[s1, :, cols:cols + K - 1] = Q[s1, :, :K - 1]
+            if s + stages < ns:
+                bufs[s % stages] = fill(s + stages)
+            P = torch.stack([torch.stack([_corr(Q[s1, :, :T2 + K - 1], taps[2, s2, :K], 1)
+                                          for s2 in range(2)]) for s1 in range(2)])
+            ring = (ring + [P])[-K:]
+            if s < K - 1:
+                continue
+            at = (p0 + s - (K - 1), slice(o1, o1 + w1), slice(o2, o2 + w2))
+            lohi = torch.tensordot(taps[0, :, :K], torch.stack(ring), dims=([1], [0]))
+            for s0 in range(2):
+                for s1 in range(2):
+                    for s2 in range(2):
+                        d = s0 << bit[0] | s1 << bit[1] | s2 << bit[2]
+                        v = lohi[s0, s1, s2, :w1, :w2]
+                        if d > 0 and lam > 0:
+                            m = v.abs()
+                            v = torch.copysign(m - torch.clamp(m, max=lam), v)
+                        dst(d)[at] = v.to(T)
+                        written[d][at] += 1
+    assert bool((written == 1).all()), "an output written other than once"
 
 
 def _ana_unit(src, dst, count, origin, n, k, t, gw, left, bit, pad, taps, groups, lam):

@@ -417,8 +417,9 @@ def _on_card(t):
 
 def test_cuda_branches_against_a_stub_library(stub):
     """The padded flags go last before the stream (the older arguments keep
-    their places; ``nddwt_rec_level``'s pointer to the body it took comes
-    after the stream), the outputs take the block's extent, and each padded
+    their places; ``nddwt_dec_level``'s and ``nddwt_rec_level``'s pointers
+    to the body they took come after the stream), the outputs take the
+    block's extent, and each padded
     launch counts in ``launch_counts`` and ``padded_launch_counts``; an
     unpadded launch passes zero flags and counts once."""
     before = dict(ck.launch_counts)
@@ -434,9 +435,9 @@ def test_cuda_branches_against_a_stub_library(stub):
     ck.dec_level(_on_card(torch.zeros(local)), big, 1, taps)
     names = [name for name, _ in stub]
     assert names == ["nddwt_dec_level", "nddwt_rec_level", "nddwt_dec_level"]
-    assert list(stub[0][1][-2]) == [1, 0, 0] and list(stub[0][1][4]) == [8, 16, 16]
+    assert list(stub[0][1][-3]) == [1, 0, 0] and list(stub[0][1][4]) == [8, 16, 16]
     assert list(stub[1][1][-3]) == [0, 1, 0] and list(stub[1][1][4]) == [8, 16, 16]
-    assert list(stub[2][1][-2]) == [0, 0, 0]
+    assert list(stub[2][1][-3]) == [0, 0, 0]
     taps4 = tw.NDDWT("db2", (8, 8, 4, 6), device="cpu").taps_hp
     big4 = _on_card(torch.zeros((16, 4, 8, 4, 6)))
     ck.lead_dec(_on_card(torch.zeros((4, 7, 8, 4, 6))), big4, 1, taps4,

@@ -25,6 +25,12 @@
   ``nddwt_lead_adj``, db5 and up, mixed filters, rows off 16 bytes and the
   multilevel kernels; its plans (``_plane_plan``, ``_plane_chunk``) and
   shared memory (``_plane_smem``).
+* The analysis plane body of ``nddwt_dec_level``'s same views
+  (``plane_ana_kernel``) replayed (``stream_ref.plane_ana_replay``)
+  against ``dec_level_ref`` the same way, lam 0 and > 0, ``final`` both
+  ways; the body ``nddwt_dec_level`` takes (``_dec_body``), its plans
+  (``_plane_ana_plan``) and shared memory; and on the card (marked
+  ``cuda``, skipped elsewhere) against the window body.
 * The plans: shared memory within the budget for every filter length and
   dtype, the launch constraints the kernels check, and chunks and plane
   tiles that cover every output once.
@@ -233,18 +239,25 @@ def test_rec_body_of_arrays(dtype):
 
 
 def test_multilevel_and_lead_stage_keep_the_window_body():
-    """The multilevel kernels' and ``nddwt_lead_adj``'s synthesis is the
-    window body: their plans are ``_stream_plan``'s, and only
-    ``nddwt_level.cu`` includes the plane body's header."""
+    """The multilevel kernels' synthesis and analysis and the synthesis
+    and analysis of the lead stage (``nddwt_lead_adj``,
+    ``nddwt_lead_dec``) are the window bodies: their plans are
+    ``_stream_plan``'s, and only ``nddwt_level.cu`` includes the plane
+    bodies' header, and only it launches their kernels."""
     taps = tw.NDDWT("db4", (64, 64, 64), device="cpu").taps_hp
-    n, k, t, *_ = multi._multi_geometry((64, 64, 64), taps, True, F32, 2)
-    assert tuple(t) == ck._stream_plan(n, k, F32, "rec", 2)
+    for rec, kind in ((True, "rec"), (False, "dec")):
+        n, k, t, *_ = multi._multi_geometry((64, 64, 64), taps, rec, F32, 2)
+        assert tuple(t) == ck._stream_plan(n, k, F32, kind, 2)
     taps4 = tw.NDDWT("db4", (16, 16, 8, 8), device="cpu").taps_hp
-    n, k, t, *_ = ck._stage_geometry((16, 16, 8, 8), taps4, False, True, F32)
-    assert tuple(t) == ck._stream_plan(n, k, F32, "lead")
+    for adj, kind in ((True, "lead"), (False, "lead_dec")):
+        n, k, t, *_ = ck._stage_geometry((16, 16, 8, 8), taps4, False, adj, F32)
+        assert tuple(t) == ck._stream_plan(n, k, F32, kind)
     including = sorted(p.name for p in ck.CSRC.glob("*.c*")
                        if '#include "nddwt_plane.cuh"' in p.read_text())
     assert including == ["nddwt_level.cu"]
+    for name in ("launch_plane<", "launch_plane_ana<", "plane_takes<", "plane_ana_takes<"):
+        using = sorted(p.name for p in ck.CSRC.glob("*.cu") if name in p.read_text())
+        assert using == ["nddwt_level.cu"], name
 
 
 # shapes of the plane body's plans: the benchmark's, 256^3, and narrow ones
@@ -344,6 +357,230 @@ def test_plane_smem_is_the_sources_layout():
     assert ck._plane_smem((40, 41, 45), [4] * 3, (1, 8, 256), F32, 2, pad) == (
         128 + 2 * 4 * 11 * 288 * 4 + 4 * 8 * 260 * 4)
     assert ck._plane_stages((40, 41, 45), [4] * 3, (1, 8, 256), F32, pad) == 3
+
+
+# The analysis plane body (plane_ana_kernel in csrc/nddwt_plane.cuh):
+# (output shape, wavelet, dtype, halo-padded axes, plan override (C, T1,
+# T2)). Filters of 2 to 8 taps in every dtype; whole-row windows (the tile
+# spans slot 2) and row pieces; tiles wider than their axes (window rows
+# wrapped at both ends, three pieces or runs); rows and columns no multiple
+# of the tile and a last chunk short of C; a chunk longer than the axis;
+# each axis halo-padded.
+PLANE_ANA_CASES = [
+    ((9, 10, 12), "db1", F32, None, None),
+    ((10, 16, 24), "db2", BF16, None, None),
+    ((12, 14, 16), "db3", F64, None, None),
+    ((8, 12, 16), "db4", F32, None, None),  # slot 0 of extent K
+    ((9, 12, 16), "db4", F64, None, None),
+    ((8, 12, 24), "db4", BF16, None, None),
+    ((9, 12, 20), "db4", F32, None, (9, 64, 16)),  # the tile wider than n1, row pieces
+    ((11, 40, 36), "db2", F32, None, (4, 8, 128)),  # whole rows, ragged rows, chunk
+    ((11, 20, 40), "db2", F32, None, (4, 32, 32)),  # row pieces, ragged columns
+    ((10, 20, 34), "db4", F64, None, (3, 16, 32)),
+    ((12, 24, 72), "db3", BF16, None, (5, 32, 32)),
+    ((13, 20, 24), "db2", F32, None, (5, 2, 512)),  # whole rows of a tile twice as wide
+    ((9, 24, 16), "db3", F32, None, (20, 8, 128)),  # a chunk longer than n0
+    ((10, 22, 12), "db1", F64, None, (4, 32, 16)),
+    ((12, 9, 12), "db2", F32, (True, False, False), None),
+    ((10, 12, 16), "db4", F64, (False, True, False), None),
+    ((10, 9, 13), "db2", F32, (False, False, True), None),  # row pieces, unwrapped
+    ((11, 12, 15), "db1", BF16, (True, True, True), None),
+    ((9, 11, 19), "db3", F32, (True, False, True), (3, 4, 256)),
+]
+
+
+@pytest.mark.parametrize("lam,final", [(0.0, False), (0.1, True)])
+@pytest.mark.parametrize("shape,wv,dtype,padded,plan", PLANE_ANA_CASES)
+def test_plane_ana_schedule_matches_plain(monkeypatch, shape, wv, dtype, padded, plan, lam,
+                                          final):
+    """The replay of the analysis plane body's schedule
+    (``stream_ref.plane_ana_replay``: one stage a plane, the bulk copies of
+    the window's rows in pieces split at the periodic wrap with their
+    16-byte slack, or in runs of whole rows, slot 1 before slot 2, the
+    in-plane bands split between the CTA's halves, the division-free
+    shrink) on the launch ``dec_stream_args`` builds, against
+    ``dec_level_ref``: every band of ``big`` (written at offset 8, the rest
+    untouched) and the approximation, with every stage count the layout
+    allows."""
+    if plan is not None:
+        monkeypatch.setattr(ck, "_plane_ana_plan", lambda *args: plan)
+    rng = np.random.default_rng(shape[0] * 17 + shape[2])
+    taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
+    x = _randn(rng, _padded_in(shape, taps, padded), dtype)
+    (n, k, t, left, bit, pad, arr), body = ck.dec_stream_args(x, shape, taps, padded)
+    assert body == "plane"
+    stages = ck._plane_stages(n, k, t, dtype, pad, 1)
+    assert stages >= 2
+    for used in sorted({2, stages}):
+        big, approx = _dec_outputs(rng, 8, shape, dtype)
+        want_big, want_approx = big.clone(), approx.clone()
+        got_approx = big[0] if final else approx
+        stream_ref.plane_ana_replay(x, big, got_approx, 8, n, k, t, left, bit, pad, arr, lam,
+                                    used, ck._PLANE_THREADS)
+        ref = level_ref.dec_level_ref(x, want_big, 8, taps, lam, final, padded)
+        _close(big, want_big, dtype)
+        if not final:
+            _close(approx, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16, F64])
+def test_plane_ana_matches_window_body_on_card(dtype):
+    """On the card, ``dec_level`` on the analysis plane body against the
+    window body on the same input moved off 16 bytes (the counter
+    ``nddwt.dec_level.body.*`` says which ran) and against
+    ``dec_level_ref``: whole rows and row pieces, a halo-padded axis, lam 0
+    and 0.1, ``final`` both ways."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from non_decimated_wavelets_tpu_torch import tracing
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shape, wv, padded in (((24, 40, 72), "db4", None), ((9, 6, 600), "db2", None),
+                              ((11, 12, 16), "db3", (True, False, False)),
+                              ((10, 9, 13), "db2", (False, False, True))):
+        taps = tw.NDDWT(wv, shape, device="cuda").taps_hp
+        ins = _padded_in(shape, taps, padded)
+        x = torch.randn(ins, generator=gen, device="cuda").to(dtype)
+        moved = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")[1:].view(ins).copy_(x)
+        for lam, final in ((0.0, False), (0.1, True), (0.1, False)):
+            got = []
+            for inp, want in ((x, "plane"), (moved, "window")):
+                big = torch.zeros((15,) + shape, dtype=dtype, device="cuda")
+                tracing.reset()
+                tracing.enable()
+                a = ck.dec_level(inp, big, 8, taps, lam, final, padded)
+                torch.cuda.synchronize()
+                tracing.disable()
+                counters = tracing.summary()["counters"]
+                assert [c for c in counters if c.startswith("nddwt.dec_level.body.")] == [
+                    f"nddwt.dec_level.body.{want}"]
+                got.append(big if final else torch.cat([big, a[None]]))
+            rb = torch.zeros((15,) + shape, dtype=dtype)
+            ra = level_ref.dec_level_ref(x.cpu(), rb, 8, taps, lam, final, padded)
+            want = rb if final else torch.cat([rb, ra[None]])
+            _close(got[0].cpu(), want, dtype)
+            _close(got[0], got[1], dtype)
+
+
+# (view n, taps per slot, halo-padded flags, dtype, the input off 16 bytes):
+# the body nddwt_dec_level takes
+DEC_BODIES = [
+    ((320, 320, 256), [8] * 3, [False] * 3, F32, False, "plane"),
+    ((320, 320, 256), [8] * 3, [False] * 3, F64, False, "plane"),
+    ((256, 256, 256), [8] * 3, [False] * 3, BF16, False, "plane"),
+    ((40, 41, 48), [2] * 3, [False] * 3, F32, False, "plane"),
+    ((40, 41, 48), [6] * 3, [True, True, False], BF16, False, "plane"),
+    ((40, 41, 45), [4] * 3, [False, False, True], F32, False, "plane"),  # m2 = 48
+    ((40, 41, 46), [4] * 3, [False] * 3, F64, False, "plane"),
+    ((40, 41, 46), [4] * 3, [False] * 3, F32, False, "window"),  # rows off 16 bytes
+    ((40, 41, 44), [4] * 3, [False] * 3, BF16, False, "window"),
+    ((40, 41, 48), [4] * 3, [False] * 3, F32, True, "window"),  # the input off 16 bytes
+    ((320, 1, 256), [8, 1, 8], [False] * 3, F32, False, "window"),  # 2D
+    ((64, 64, 512), [8, 8, 1], [False] * 3, F32, False, "window"),  # lead_dec's view
+    ((48, 48, 48), [10] * 3, [False] * 3, F32, False, "window"),  # db5
+    ((48, 48, 48), [8, 4, 6], [False] * 3, F32, False, "window"),  # mixed
+]
+
+
+@pytest.mark.parametrize("n,k,pad,dtype,off,want", DEC_BODIES)
+def test_dec_body_choice(n, k, pad, dtype, off, want):
+    """``_dec_body`` (``plane_ana_takes``): the plane body for 3D views with
+    one length of 2 to 8 taps on every slot whose input rows start on 16
+    bytes; the window body for 2D views, ``nddwt_lead_dec``'s view, db5 and
+    up, mixed filters and rows or an input off 16 bytes."""
+    ptrs = [4096 + (2 if off else 0)]
+    assert ck._dec_body(list(n), k, pad, dtype, ptrs) == want
+    if want == "plane":
+        assert ck._plane_ana_plan(list(n), k, dtype, pad) is not None
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, F64])
+def test_dec_body_of_arrays(dtype):
+    """``dec_stream_args`` on arrays: the plane body, with
+    ``_plane_ana_plan``'s plan, for a 3D db4 level with rows on 16 bytes;
+    the window body, with ``_stream_plan``'s plan, for the same input moved
+    off 16 bytes, for 2D levels and for db5."""
+    shape = (10, 12, 16)
+    taps = tw.NDDWT("db4", shape, device="cpu").taps_hp
+    x = torch.zeros(shape, dtype=dtype)
+    for a, want in ((x, "plane"), (_offset(x, 1), "window")):
+        (n, k, t, *_), body = ck.dec_stream_args(a, shape, taps)
+        assert body == want
+        assert tuple(t) == (ck._plane_ana_plan(n, k, dtype) if want == "plane"
+                            else ck._stream_plan(n, k, dtype, "dec"))
+    for shape, wv in (((24, 40), "db4"), ((12, 12, 16), "db5")):
+        taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
+        assert ck.dec_stream_args(torch.zeros(shape, dtype=dtype), shape, taps)[1] == "window"
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, F64])
+def test_plane_ana_plan_fits_and_covers(dtype):
+    """Every analysis plane plan: the form ``plane_ana_takes`` checks,
+    shared memory (with the static taps and barriers) within one SM's 227
+    KB, a chunk of at least K0, and chunks and tiles that cover each output
+    once."""
+    word = 8 if dtype == F64 else 4
+    ni = {4: 4, 8: 2}[word]
+    static = 3 * 2 * 76 * word + 32
+    threads = ck._PLANE_THREADS
+    for n in PLANE_SHAPES:
+        for K in (2, 4, 6, 8):
+            for pad in ([False] * 3, [True, True, False], [False, False, True]):
+                k = [K] * 3
+                m2 = n[2] + (K - 1 if pad[2] else 0)
+                if m2 % (16 // torch.empty((), dtype=dtype).element_size()):
+                    continue
+                C, T1, T2 = t = ck._plane_ana_plan(list(n), k, dtype, pad)
+                assert T1 % 2 == 0 and T2 & (T2 - 1) == 0 and T1 * T2 == threads // 2 * ni
+                cols = n[2] if ck._plane_whole(n, t, pad) else T2 + K - 1
+                assert T1 // 2 * cols <= 3 * threads
+                stages = ck._plane_stages(n, k, t, dtype, pad, 1)
+                smem = ck._plane_smem(n, k, t, dtype, stages, pad, 1)
+                assert 2 <= stages <= 4 and smem <= ck._PLANE_SMEM
+                assert smem + static <= 227 * 1024
+                assert min(n[0], K) <= C <= n[0]
+                for extent, step in ((n[0], C), (n[1], T1), (n[2], T2)):
+                    starts = range(0, extent, step)
+                    cover = [p for s in starts for p in range(s, min(s + step, extent))]
+                    assert cover == list(range(extent))
+
+
+def test_plane_ana_plans_of_the_benchmark():
+    """knee3d's (320, 320, 256) db4 level: the float32 analysis plan's tile
+    spans the rows (whole-row windows of 4 rows a tile, four stages), its
+    240 CTAs two waves of one CTA an SM; float64 tiles of 2 rows, 640 CTAs
+    in five; 256^3 and its {"x": 2} block in one wave."""
+    k = [8] * 3
+    for n, dtype, plan, ctas in (((320, 320, 256), F32, (107, 4, 256), 240),
+                                 ((320, 320, 256), F64, (80, 2, 256), 640),
+                                 ((320, 320, 256), BF16, (107, 4, 256), 240),
+                                 ((256, 256, 256), F32, (128, 4, 256), 128),
+                                 ((256, 256, 256), F64, (256, 2, 256), 128),
+                                 ((128, 256, 256), F32, (64, 4, 256), 128)):
+        t = ck._plane_ana_plan(list(n), k, dtype)
+        assert t == plan and ck._plane_whole(n, t, [False] * 3)
+        assert -(-n[0] // t[0]) * -(-n[1] // t[1]) == ctas
+        assert ck._dec_body(list(n), k, [False] * 3, dtype, [0]) == "plane"
+    assert ck._plane_stages((320, 320, 256), k, (107, 4, 256), F32, windows=1) == 4
+
+
+def test_plane_ana_smem_is_the_sources_layout():
+    """``_plane_smem`` of the analysis (one window a stage) at a few plans,
+    worked by hand from ``plane_ana_layout``: 128 bytes to align the
+    buffers, stage buffers of one window of T1 + K - 1 rows (whole rows of
+    n2, else T2 + K - 1 columns and the shift's slack in whole 128 bytes),
+    and Q, 2 x 2 x T1 rows of T2 - NI + NI + K - 1 rounded to a vector."""
+    n = (320, 320, 256)
+    # whole rows, f32 db4 (4, 256): 11 rows of 256 floats; Q rows of 256 - 4 + 12
+    assert ck._plane_smem(n, [8] * 3, (107, 4, 256), F32, 4, windows=1) == (
+        128 + 4 * 11 * 256 * 4 + 4 * 4 * 264 * 4)
+    # row pieces, f32 db4 (8, 128): rows of 135 + 3 -> 160 floats, Q rows 136
+    assert ck._plane_smem(n, [8] * 3, (107, 8, 128), F32, 3, windows=1) == (
+        128 + 3 * 15 * 160 * 4 + 4 * 8 * 136 * 4)
+    # whole rows, f64 db4 (2, 256): 9 rows of 256 doubles, Q rows 256 - 2 + 10
+    assert ck._plane_smem(n, [8] * 3, (80, 2, 256), F64, 4, windows=1) == (
+        128 + 4 * 9 * 256 * 8 + 4 * 2 * 264 * 8)
 
 
 LEAD_CASES = [
