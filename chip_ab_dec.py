@@ -16,7 +16,8 @@ straddling the periodic wrap on both in-plane axes, whole-row windows and
 row pieces, ragged tiles and chunks, each axis halo-padded, and views the
 window body keeps (2D, db5, mixed filters, rows off 16 bytes). Each case
 also checks the body the launch took against ``_dec_body`` (the counter
-``nddwt.dec_level.body.*``), and where the plane body ran, holds it against
+``nddwt.dec_level.body.*``: the body the wrapper names, which the library
+runs or refuses), and where the plane body ran, holds it against
 the window body on the same input moved off 16 bytes. Then it prints that
 counter and the launch counts of one denoising call and one FISTA CS-MRI
 iteration at knee3d's (320, 320, 256).

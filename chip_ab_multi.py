@@ -276,12 +276,13 @@ def child(root: str, variants: bool, files: list) -> int:
         row = {"shape": list(shape), "items": items}
         order = list(libs) + ["per-level"] + list(libs)[::-1]
         for name in order:
-            if name == "per-level":
+            if name == "per-level":  # the plan on the per-level route, item by item
+                per_level = tw.NDDWT("db4", shape, device=dev)
                 with xover.limits(0, 0, 0):
                     times = (
-                        queued(torch, lambda: [ck.dec_levels(v, taps, LEVEL) for v in x], 2),
-                        queued(torch, lambda: [ck.rec_levels(v, taps, LEVEL, False)
-                                               for v in y], 2))
+                        queued(torch, lambda: [per_level.dec(v, LEVEL, band_axis=0)
+                                               for v in x], 2),
+                        queued(torch, lambda: [per_level.rec(v, band_axis=0) for v in y], 2))
             else:
                 use(name)
                 times = (queued(torch, lambda: multi.dec_multi(x, taps, LEVEL), 10),

@@ -17,7 +17,8 @@ ends), whole-row windows and row pieces, ragged tiles and chunks, each
 axis halo-padded, and views the
 window body keeps (2D, db5, mixed filters, rows off 16 bytes); each case
 also checks the body the launch took against ``_rec_body`` (the counter
-``nddwt.rec_level.body.*``). Then it prints that counter and the launch
+``nddwt.rec_level.body.*``: the body the wrapper names, which the library
+runs or refuses). Then it prints that counter and the launch
 counts of one denoising call and one FISTA CS-MRI iteration at knee3d's
 (320, 320, 256).
 

@@ -813,7 +813,7 @@ def main() -> int:
         if plan:
             ck._lane_plan = lambda *a, p=plan: p
         try:
-            routes_of = [ck._stage_geometry(shape, taps, True, adj, dt)[2] for adj in (0, 1)]
+            routes_of = [ck._stage_geometry(shape, taps, True, adj, dt) for adj in (0, 1)]
             k = ck.lane_dec(x, taps)
             r = level4_ref.lane_dec_ref(x, taps)
             torch.cuda.synchronize()
@@ -827,9 +827,9 @@ def main() -> int:
         finally:
             ck._lane_plan = lane_plan
         tag = f"{shape} {wv} offset {off} {str(dt).removeprefix('torch.')}"
-        for name, e, t, geo in (("nddwt_lane_dec", err_dec, tol_dec, routes_of[0]),
-                                ("nddwt_lane_adj", err, tol, routes_of[1])):
-            how = f"plan {tuple(geo)}" if geo[2] > 0 else f"tile body {tuple(geo)}"
+        for name, e, t, (geo, body) in (("nddwt_lane_dec", err_dec, tol_dec, routes_of[0]),
+                                        ("nddwt_lane_adj", err, tol, routes_of[1])):
+            how = f"plan {tuple(geo[2])}" if body == "lane" else f"tile body {tuple(geo[2])}"
             check(f"{name} lane {tag}, {how}", e, t)
         del x, part, k, r
     torch.cuda.empty_cache()
@@ -1062,11 +1062,13 @@ def main() -> int:
         the plan's own route is one of the first two). Returns (route,
         result) for each run; the counts are set to 0 just before each."""
         ways = [("per-level route", lambda: xover.limits(0, 0, 0), per_level)]
-        if multi.multi_supported(plan.shape, plan.taps_hp, dtype, level):
+        with xover.limits(0, 0, multi.MULTI_MAX_NUMEL):
+            on_multi = plan.route(dtype, level) == "multi"
+        if on_multi:
             to_multi.append(what)
             ways.append(("multilevel route",
                          lambda: xover.limits(0, 0, multi.MULTI_MAX_NUMEL), ONE_MULTI))
-        if flat.flat_supported(plan.shape, dtype, batch, taps=plan.taps_hp):
+        if plan.route(dtype, level, pair=batch == 2) == "flat":
             to_flat.append(what)
             ways.append(("flat route", contextlib.nullcontext, on_flat))
         out = []
@@ -1359,7 +1361,7 @@ def main() -> int:
     xl = randn((N1,))
     ck.reset_launch_counts()
     y, xr = plan1l.dec_rec(xl, 4, threshold=THRESHOLD, band_axis=0)
-    if flat.flat_supported((N1,), torch.float32, taps=plan1l.taps_hp):
+    if plan1l.route(torch.float32, 4) == "flat":
         failures.append(f"1D {N1}: within the flat kernel's size, no path runs the 1D kernels")
     got = check_launches(f"1D {N1} db6 L4 dec_rec", dict(ck.launch_counts),
                          dict.fromkeys(LEVEL1, 4))
@@ -1466,8 +1468,8 @@ def main() -> int:
           SOLVER_TOL * ref.abs().max().item())
 
     split_shape = SPLIT_SHAPE
-    while not flat.flat_supported(split_shape, torch.float32, 2,
-                                  taps=tw.NDDWT("db4", split_shape, device=dev).taps_hp):
+    while tw.NDDWT("db4", split_shape, device=dev).route(torch.float32, LEVEL,
+                                                         pair=True) != "flat":
         split_shape = tuple(n // 2 for n in split_shape)
     if split_shape != SPLIT_SHAPE:
         print(f"  the flat kernel's limit is below 2 * {SPLIT_SHAPE}: the split "
@@ -1561,7 +1563,7 @@ def main() -> int:
     vplan = tw.NDDWT("db4", CPLX_VOLUME, device=dev)
     vdirect = tw.NDDWT("db4", CPLX_VOLUME, path="direct", device=dev)
     xv = torch.randn(CPLX_VOLUME, generator=gen, device=dev, dtype=torch.complex64)
-    if flat.flat_supported(CPLX_VOLUME, torch.float32, 2, taps=vplan.taps_hp):
+    if vplan.route(torch.complex64, LEVEL) == "flat":
         failures.append(f"complex {CPLX_VOLUME}: within the flat kernel's size")
     on_card(f"complex dec_rec({THRESHOLD}) {CPLX_VOLUME}",
             {**ONE_MULTI, "nddwt_mag_shrink_pair": 1},
@@ -1952,7 +1954,7 @@ def main() -> int:
                        ("stage kernels", 0)):
         with xover.limits(cap, cap, 0):
             t20.setdefault(route, []).append(timed(step20, 10))
-    own = flat.flat_supported(plan20.shape, torch.float32, taps=plan20.taps_hp)
+    own = plan20.route(torch.float32, 2) == "flat"
     print(f"  dec_rec {plan20.shape} db20 L2 f32 per call: stage kernels "
           f"{sum(t20['stage kernels']) / 2:.4f} ms, flat kernel {sum(t20['flat kernel']) / 2:.4f} "
           f"ms (the plan takes the {'flat' if own else 'stage'} route) {card}")

@@ -14,19 +14,20 @@ transform applied hundreds of times (``README.md:2``).
 as in the JAX package. The masked-Fourier solver needs a sharded FFT, which
 is not ported yet: ``fista_cs_mri`` and ``ista_step`` refuse a sharded
 transform (``ROADMAP.md`` queue 1 item 14). The schedule (per-iteration thresholds and momenta) is computed on the host
-(``_fista_schedule``). With a scalar ``lam`` on a plan whose tensors go to
-the CUDA kernels, the inpainting solvers try the routes in the JAX
-package's order: the one-launch whole solve (``NDDWT._fista_fused``, one
-``nddwt_flat_iter`` launch up to ``ITER_MAX_NUMEL`` elements; never for a
-sharded transform), then the stepped routes, where every iterate is
-kernels end to end (the transforms, the shrink, and one ``fista_step`` pass
-of glue). A tensor ``lam``, or a plan on the CPU, takes the generic loop.
+(``_fista_schedule``). The inpainting solvers decide their route once
+(``_solve_route``) and dispatch on it, in the JAX package's order: with a
+scalar ``lam`` on a plan whose tensors go to the CUDA kernels, the
+one-launch whole solve (``NDDWT._fista_fused``, one ``nddwt_flat_iter``
+launch up to ``ITER_MAX_NUMEL`` elements, where ``NDDWT.route`` says
+``iter``; never for a sharded transform), else the stepped route, where
+every iterate is kernels end to end (the transforms, the shrink, and one
+``fista_step`` pass of glue). A tensor ``lam``, or a plan on the CPU, takes
+the generic loop.
 """
 
 from __future__ import annotations
 
 import functools
-from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -92,14 +93,6 @@ def _dec_rec(transform, x, level, threshold):
     if _sharded(transform):
         return transform.dec_rec(x, level, threshold=threshold)[1]
     return transform.dec_rec(x, level, threshold=threshold, band_axis=0)[1]
-
-
-def _stepped(transform, t) -> bool:
-    """Whether the iterates on ``t`` run on kernels end to end (the stepped
-    route): on the card, on a sharded transform's kernel bodies."""
-    if _sharded(transform):
-        return t.is_cuda and transform.use_pallas
-    return transform._uses_kernels(t)
 
 
 def _shrink_details(y, lam):
@@ -242,51 +235,42 @@ def _fista_loop(prox, b, mask, iters, step):
 
 
 def _solve_route(transform, b, lam, level, split):
-    """The route of an inpainting solve, as its span names it: ``flat``
-    where ``_fista_fused`` serves it, ``stepped`` on the stepped routes, else
-    that of the generic loop's transforms (``NDDWT.route``; ``sharded``
-    for a ``ShardedNDDWT``). The same tests as the solvers' dispatch."""
-    sharded = _sharded(transform)
-    if not hasattr(lam, "shape"):
-        if not sharded and transform._fista_fused_serves(b, split):
-            return "flat"
-        if (split or not b.is_complex()) and _stepped(transform, b):
-            return "stepped"
-    return "sharded" if sharded else transform._route(b, level, pair=split)
-
-
-def _solve_span(op, transform, b, lam, level, split=False):
-    """The span around one whole solve, ``nddwt.<op>.<route>.L<level>``
-    (``tracing.py``); the route is worked out only while tracing is on."""
-    if not tracing.active():
-        return nullcontext()
-    route = _solve_route(transform, b, lam, level, split)
-    return tracing.span(f"nddwt.{op}.{route}.L{int(level)}")
+    """The route of an inpainting solve, on which the solver dispatches and
+    after which its span is named: ``iter`` where one ``nddwt_flat_iter``
+    launch runs the whole solve (a scalar ``lam``; ``NDDWT.route``),
+    ``stepped`` where every iterate runs on kernels end to end (a scalar
+    ``lam``, real or split data, on the card, or on a sharded transform's
+    kernel bodies), else that of the generic loop's transforms
+    (``NDDWT.route``; ``sharded`` for a ``ShardedNDDWT``)."""
+    scalar = not hasattr(lam, "shape")
+    steppable = scalar and (split or not b.is_complex())
+    if _sharded(transform):
+        return "stepped" if steppable and b.is_cuda and transform.use_pallas else "sharded"
+    route = transform.route(b.dtype, level, pair=split, whole=scalar)
+    return "stepped" if steppable and route in ("flat", "multi", "stage", "level") else route
 
 
 def fista_inpaint(transform, b, mask, lam, level=2, iters=20, step=1.0):
     """FISTA for image-domain masked observation (inpainting):
     ``min_x 0.5 ||M ⊙ x - b||^2 + lam ||W x||_1``. ``b`` may be complex
     (generic loop, joint-magnitude shrink). On the card with a scalar
-    ``lam`` the whole solve is one launch where ``_fista_fused`` serves it,
-    else the stepped route. With a ``ShardedNDDWT``, ``b`` and ``mask`` are
-    this rank's blocks and so is the result; every iterate exchanges halos
-    (the stepped route on the kernel bodies on the card). The solve runs
-    inside the span ``nddwt.fista_inpaint.<route>.L<level>``
-    (``tracing.py``)."""
+    ``lam`` the whole solve is one launch where ``NDDWT.route`` says
+    ``iter``, else the stepped route. With a ``ShardedNDDWT``, ``b`` and
+    ``mask`` are this rank's blocks and so is the result; every iterate
+    exchanges halos (the stepped route on the kernel bodies on the card).
+    The solve runs inside the span ``nddwt.fista_inpaint.<route>.L<level>``
+    (``tracing.entry``)."""
     _check_transform(transform)
     b = transform._as_input(b)
     mask = _mask_input(transform, mask, b.real.dtype)
-    with _solve_span("fista_inpaint", transform, b, lam, level):
-        if not hasattr(lam, "shape"):
+    route = _solve_route(transform, b, lam, level, False)
+    with tracing.entry("fista_inpaint", route, level):
+        if route == "iter":
             lams, moms = _fista_schedule(iters, lam, step)
-            if not _sharded(transform):  # no one-launch solve across ranks
-                xr = transform._fista_fused(b, mask, level, lams, moms, step)
-                if xr is not None:
-                    return xr
-            if not b.is_complex() and _stepped(transform, b):
-                return _fista_stepped(transform, b, mask, lam, level, moms,
-                                      step)
+            return transform._fista_fused(b, mask, level, lams, moms, step)
+        if route == "stepped":
+            return _fista_stepped(transform, b, mask, lam, level,
+                                  _fista_schedule(iters, lam, step)[1], step)
         return _fista_loop(lambda v: _prox(transform, v, lam * step, level),
                            b, mask, iters, step)
 
@@ -296,26 +280,22 @@ def fista_inpaint_split(transform, b_pair, mask, lam, level=2, iters=20,
     """FISTA for image-domain masked observation of complex data carried as
     a split re/im pair ``(2, *shape)``: ``min_x 0.5 ||M ⊙ x - b||^2 +
     lam ||W x||_{1,c}`` with the complex l1 norm (joint re/im magnitude).
-    ``mask`` is real with the plan's shape. On the card with a scalar
-    ``lam`` the whole solve is one launch where ``_fista_fused`` serves it,
-    else the stepped route. With a ``ShardedNDDWT`` the arrays are this
-    rank's blocks, as in ``fista_inpaint``. The solve runs inside the span
+    ``mask`` is real with the plan's shape. Its routes are
+    ``fista_inpaint``'s; with a ``ShardedNDDWT`` the arrays are this rank's
+    blocks, as there. The solve runs inside the span
     ``nddwt.fista_inpaint_split.<route>.L<level>``."""
     _check_transform(transform)
     b_pair = transform._as_pair(b_pair)
     mask = _mask_input(transform, mask, b_pair.dtype)
-    with _solve_span("fista_inpaint_split", transform, b_pair, lam, level,
-                     split=True):
-        if not hasattr(lam, "shape"):
+    route = _solve_route(transform, b_pair, lam, level, True)
+    with tracing.entry("fista_inpaint_split", route, level):
+        if route == "iter":
             lams, moms = _fista_schedule(iters, lam, step)
-            if not _sharded(transform):
-                xr = transform._fista_fused(b_pair, mask, level, lams, moms,
-                                            step, split=True)
-                if xr is not None:
-                    return xr
-            if _stepped(transform, b_pair):
-                return _fista_stepped_split(transform, b_pair, mask, lam,
-                                            level, moms, step)
+            return transform._fista_fused(b_pair, mask, level, lams, moms, step,
+                                          split=True)
+        if route == "stepped":
+            return _fista_stepped_split(transform, b_pair, mask, lam, level,
+                                        _fista_schedule(iters, lam, step)[1], step)
         return _fista_loop(
             lambda v: _prox_split(transform, v, lam * step, level),
             b_pair, mask, iters, step)

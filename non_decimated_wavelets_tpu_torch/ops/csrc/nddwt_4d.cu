@@ -46,7 +46,7 @@
 // db4 in float32, beyond 167 at db38 in float32) runs on the tile body
 // below instead (ops/cuda_kernels.py: _lane_plan finds no plan): a CTA
 // loads a tile's halo'd window and runs the two K-tap passes there, flat
-// indices split by multiply-high. The wrapper marks it with t[2] < 0. At
+// indices split by multiply-high. The wrapper names the body (body 1). At
 // db38 in float64 no tile fits that body's 32 KB either, and the wrapper
 // raises (the adjoint beyond T = 83, the analysis beyond 112).
 //
@@ -374,21 +374,26 @@ auto lane_adj_kernel_for(int kt) {
   }
 }
 
-// The tile body's plan arrives as (t0, t1, -t2).
+// Whether t is a tile of the tile body's form: at least one output on
+// every slot, within the view.
 template <typename C>
-LevelT<C> tile_level(const Geom& v) {
-  const int t[3] = {v.t[0], v.t[1], -v.t[2]};
-  return stage_level<C>(v.n, v.k, t, v.left, v.pad, v.taps);
+bool tile_fits(const LevelT<C>& g) {
+  for (int a = 0; a < 3; ++a)
+    if (g.t[a] < 1 || g.t[a] > g.n[a]) return false;
+  return true;
 }
 
+// The lane stages run the body the wrapper names: body 0 the lane body on
+// its plan (R, Zc, stages), body 1 the tile body on its tile (t0, t1, t2);
+// a plan that does not fit the named body returns cudaErrorInvalidValue.
 template <typename T, typename C = compute_t<T>>
-int lane_dec(const void* x, void* temp, const Geom& v, cudaStream_t s) {
-  if (v.t[2] < 0) {
-    const LevelT<C> g = tile_level<C>(v);
-    return launch(lane_dec_kernel<T, C>, g, stage_smem(g, 1, false), s,
-                  (const T*)x, (T*)temp, g);
-  }
+int lane_dec(const void* x, void* temp, const Geom& v, int body, cudaStream_t s) {
   const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.pad, v.taps);
+  if (body == 1)
+    return tile_fits(g) ? launch(lane_dec_kernel<T, C>, g, stage_smem(g, 1, false), s,
+                                 (const T*)x, (T*)temp, g)
+                        : (int)cudaErrorInvalidValue;
+  if (body != 0) return (int)cudaErrorInvalidValue;
   return launch_lane<T>(lane_dec_kernel_for<T, C>(lane_unrolled(g.k)), g, 1, false, s,
                         (const T*)x, (T*)temp, g);
 }
@@ -419,13 +424,13 @@ int lead_adj(const void* y, const void* approx, void* partial, const Geom& v,
 
 template <typename T, typename C = compute_t<T>>
 int lane_adj(const void* partial, void* out, const Geom& v, const Sources& src,
-             double scale, cudaStream_t s) {
-  if (v.t[2] < 0) {
-    const LevelT<C> g = tile_level<C>(v);
-    return launch(lane_adj_kernel<T, C>, g, stage_smem(g, 1, true), s,
-                  (const T*)partial, (T*)out, g, src, (C)scale);
-  }
+             double scale, int body, cudaStream_t s) {
   const LevelT<C> g = stage_level<C>(v.n, v.k, v.t, v.left, v.pad, v.taps);
+  if (body == 1)
+    return tile_fits(g) ? launch(lane_adj_kernel<T, C>, g, stage_smem(g, 1, true), s,
+                                 (const T*)partial, (T*)out, g, src, (C)scale)
+                        : (int)cudaErrorInvalidValue;
+  if (body != 0) return (int)cudaErrorInvalidValue;
   return launch_lane<T>(lane_adj_kernel_for<T, C>(lane_unrolled(g.k)), g,
                         g.k[2] > 1 ? 4 : 2, true, s, (const T*)partial, (T*)out, g,
                         (C)scale);
@@ -436,8 +441,9 @@ int lane_adj(const void* partial, void* out, const Geom& v, const Sources& src,
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
 // 2 = float64. n, k, t, left: 3 ints each, the stage's view (slot 0
 // slowest; n the output extents); t: the lane stages' plan (R, Zc, stages)
-// of the lane body, or the tile body's tile (t0, t1, -t2); the lead stages'
-// streamed plan (C, T1, T2); gw (the lead analysis): its in-plane bands a walk; pad
+// of the lane body, or the tile body's tile (t0, t1, t2); the lead stages'
+// streamed plan (C, T1, T2); body (the lane stages): 0 the lane body, 1 the
+// tile body; gw (the lead analysis): its in-plane bands a walk; pad
 // (the lead stages, last before the stream): 3 ints, 1 on a halo-padded
 // slot, whose inputs then have extent n + k - 1; taps:
 // 3 * 2 * 76 of the compute type (float for dtypes 0 and 1,
@@ -448,13 +454,13 @@ extern "C" int nddwt_max_taps() { return kMaxTaps; }
 
 extern "C" int nddwt_lane_dec(const void* x, void* temp, int dtype,
                               const int* n, const int* k, const int* t,
-                              const int* left, const void* taps,
+                              const int* left, const void* taps, int body,
                               void* stream) {
   const Geom v{n, k, t, left, nullptr, taps};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return lane_dec<float>(x, temp, v, s);
-  if (dtype == 1) return lane_dec<__nv_bfloat16>(x, temp, v, s);
-  if (dtype == 2) return lane_dec<double>(x, temp, v, s);
+  if (dtype == 0) return lane_dec<float>(x, temp, v, body, s);
+  if (dtype == 1) return lane_dec<__nv_bfloat16>(x, temp, v, body, s);
+  if (dtype == 2) return lane_dec<double>(x, temp, v, body, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -494,14 +500,14 @@ extern "C" int nddwt_lead_adj(const void* y, const void* approx, void* partial,
 extern "C" int nddwt_lane_adj(const void* partial, void* out, int dtype,
                               const int* n, const int* k, const int* t,
                               const int* left, const void* taps, double scale,
-                              void* stream) {
+                              int body, void* stream) {
   const Geom v{n, k, t, left, nullptr, taps};
   Sources src;  // partial c is sub-band c
   for (int d = 0; d < kMaxBands; ++d) src.idx[d] = d;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return lane_adj<float>(partial, out, v, src, scale, s);
-  if (dtype == 1) return lane_adj<__nv_bfloat16>(partial, out, v, src, scale, s);
-  if (dtype == 2) return lane_adj<double>(partial, out, v, src, scale, s);
+  if (dtype == 0) return lane_adj<float>(partial, out, v, src, scale, body, s);
+  if (dtype == 1) return lane_adj<__nv_bfloat16>(partial, out, v, src, scale, body, s);
+  if (dtype == 2) return lane_adj<double>(partial, out, v, src, scale, body, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -49,7 +49,7 @@
 //
 // A lane stage whose smallest unit (one row chunk of K1 rows of the whole
 // T row, for every input array, in one stage) does not fit shared memory
-// runs on the tile body (nddwt_4d.cu: its plan is sent with t[2] < 0).
+// runs on the tile body (nddwt_4d.cu: the wrapper names that body).
 
 #pragma once
 

@@ -69,21 +69,23 @@
 namespace {
 
 // The analysis streams slot 0 over the same view as the synthesis, t = (C,
-// T1, T2). A 3D view with one unrolled filter length, input rows on 16
-// bytes and a plan of the analysis plane body's form that fits runs the
-// plane body (nddwt_plane.cuh: *body = 1), every other view the window body
-// (nddwt_stream.cuh: *body = 0) with gw in-plane bands a walk: 4 in-plane
-// bands in 3D, 2 in 2D.
+// T1, T2), on the body the wrapper names: body 1 the plane body
+// (nddwt_plane.cuh; a 3D view with one unrolled filter length, input rows on
+// 16 bytes and a plan of the analysis plane body's form that fits, else
+// cudaErrorInvalidValue), body 0 the window body (nddwt_stream.cuh) with gw
+// in-plane bands a walk: 4 in-plane bands in 3D, 2 in 2D.
 template <typename T, typename C = compute_t<T>>
 int launch_dec(const void* x, void* big, void* approx_out, const int* n,
                const int* k, const int* t, const int* left, const int* bit,
                const int* pad, const void* taps, long long band_off,
-               double lam, int gw, cudaStream_t stream, int* body) {
+               double lam, int gw, int body, cudaStream_t stream) {
   const LevelT<C> g = make_level<C>(n, k, t, left, bit, taps, pad);
-  *body = plane_ana_takes<T>(g, x) ? 1 : 0;
-  if (*body)
-    return launch_plane_ana<T>((const T*)x, (T*)big, (T*)approx_out, g, band_off, (C)lam,
-                               stream);
+  if (body == 1)
+    return plane_ana_takes<T>(g, x)
+               ? launch_plane_ana<T>((const T*)x, (T*)big, (T*)approx_out, g, band_off,
+                                     (C)lam, stream)
+               : (int)cudaErrorInvalidValue;
+  if (body != 0) return (int)cudaErrorInvalidValue;
   if (k[1] > 1 && k[2] > 1)
     return launch_stream_ana<T, 4>((const T*)x, (T*)big, (T*)approx_out, g, 1, gw,
                                    band_off, (C)lam, stream);
@@ -93,20 +95,22 @@ int launch_dec(const void* x, void* big, void* approx_out, const int* n,
 
 // The synthesis streams slot 0: n, k, left, bit, pad describe the view the
 // wrapper hands over ((n0, n1, n2) in 3D, (n0, 1, n1) in 2D) and t = (C, T1,
-// T2) its chunk and plane tile. A 3D view with one unrolled filter length,
-// input rows on 16 bytes and a plan of the plane body's form that fits runs
-// the plane body (nddwt_plane.cuh: *body = 1), every other view the window
-// body (nddwt_stream.cuh: *body = 0).
+// T2) its chunk and plane tile, on the body the wrapper names: body 1 the
+// plane body (nddwt_plane.cuh; a 3D view with one unrolled filter length,
+// input rows on 16 bytes and a plan of the plane body's form that fits, else
+// cudaErrorInvalidValue), body 0 the window body (nddwt_stream.cuh).
 template <typename T, typename C = compute_t<T>>
 int launch_rec(const void* y, const void* approx, void* out, const int* n,
                const int* k, const int* t, const int* left, const int* bit,
                const int* pad, const void* taps, const StreamSources& src,
-               double scale, cudaStream_t stream, int* body) {
+               double scale, int body, cudaStream_t stream) {
   const LevelT<C> g = make_level<C>(n, k, t, left, bit, taps, pad);
-  *body = plane_takes<T>(g, y, approx) ? 1 : 0;
-  if (*body)
-    return launch_plane<T>((const T*)y, (const T*)approx, (T*)out, g, src, (C)scale,
-                           stream);
+  if (body == 1)
+    return plane_takes<T>(g, y, approx)
+               ? launch_plane<T>((const T*)y, (const T*)approx, (T*)out, g, src, (C)scale,
+                                 stream)
+               : (int)cudaErrorInvalidValue;
+  if (body != 0) return (int)cudaErrorInvalidValue;
   return launch_stream<T>((const T*)y, (const T*)approx, (T*)out, g, src, 1,
                           (C)scale, stream);
 }
@@ -119,8 +123,8 @@ int launch_rec(const void* y, const void* approx, void* out, const int* n,
 // inputs then have extent n + k - 1; pad comes last before the stream); gw:
 // the analysis's in-plane bands a walk; taps:
 // 3 * 2 * 76 of the compute type (float for dtypes 0 and 1, double for 2);
-// body: nddwt_dec_level and nddwt_rec_level write the body the launch took
-// there (1: the plane body, 0: the window body).
+// body: the body the launch runs, named by the wrapper (1: the plane body,
+// 0: the window body).
 // The caller makes the arrays' device current. Returns the cudaError_t of
 // the launch (0 on success); the launch is asynchronous on `stream`.
 extern "C" int nddwt_max_taps() { return kMaxTaps; }
@@ -129,18 +133,18 @@ extern "C" int nddwt_dec_level(const void* x, void* big, void* approx_out,
                                int dtype, const int* n, const int* k,
                                const int* t, const int* left, const int* bit,
                                const void* taps, long long band_off,
-                               double lam, int gw, const int* pad, void* stream,
-                               int* body) {
+                               double lam, int gw, const int* pad, int body,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_dec<float>(x, big, approx_out, n, k, t, left, bit, pad,
-                             taps, band_off, lam, gw, s, body);
+                             taps, band_off, lam, gw, body, s);
   if (dtype == 1)
     return launch_dec<__nv_bfloat16>(x, big, approx_out, n, k, t, left, bit,
-                                     pad, taps, band_off, lam, gw, s, body);
+                                     pad, taps, band_off, lam, gw, body, s);
   if (dtype == 2)
     return launch_dec<double>(x, big, approx_out, n, k, t, left, bit, pad,
-                              taps, band_off, lam, gw, s, body);
+                              taps, band_off, lam, gw, body, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -148,20 +152,20 @@ extern "C" int nddwt_rec_level(const void* y, const void* approx, void* out,
                                int dtype, const int* n, const int* k,
                                const int* t, const int* left, const int* bit,
                                const void* taps, const long long* band_idx,
-                               double scale, const int* pad, void* stream,
-                               int* body) {
+                               double scale, const int* pad, int body,
+                               void* stream) {
   StreamSources src;
   for (int b = 0; b < kStreamBands; ++b) src.idx[b] = b < 8 ? band_idx[b] : -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_rec<float>(y, approx, out, n, k, t, left, bit, pad, taps,
-                             src, scale, s, body);
+                             src, scale, body, s);
   if (dtype == 1)
     return launch_rec<__nv_bfloat16>(y, approx, out, n, k, t, left, bit, pad,
-                                     taps, src, scale, s, body);
+                                     taps, src, scale, body, s);
   if (dtype == 2)
     return launch_rec<double>(y, approx, out, n, k, t, left, bit, pad, taps,
-                              src, scale, s, body);
+                              src, scale, body, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -44,10 +44,17 @@ copied once by bulk asynchronous copies into a ring of unit buffers;
 it. A lane stage whose T row is too long for it runs on the older tile
 body (where ``_lane_plan`` finds no plan).
 
-A 3D level whose filters are too long for the per-level kernels' tile
-(about 30 taps and up on every axis, db15 and longer) runs on the stage
-kernels too, with one lane axis: ``dec_levels``/``rec_levels`` pick the
-route from the taps (``stage_route``).
+The wrapper decides the body of every launch of these three kernels
+(``dec_stream_args``, ``rec_stream_args``, ``_stage_geometry``), builds
+that body's plan alone and names the body to the library, which runs it
+and refuses (``cudaErrorInvalidValue``) a plan that does not fit it; the
+counters ``nddwt.{dec,rec}_level.body.{plane,window}`` count the
+wrapper's choice.
+
+A 3D level whose filters are too long for the tile the per-level kernels
+had before they streamed (about 30 taps and up on every axis, db15 and
+longer: ``stage_route``) runs on the stage kernels too, with one lane axis;
+``NDDWT.route`` picks that route and ``dec_levels``/``rec_levels`` run it.
 
 ``csrc/nddwt_1d.cu`` holds the two kernels of a 1D level
 (``non_decimated_wavelets_tpu/ops/pallas_padded.py``):
@@ -60,9 +67,7 @@ route from the taps (``stage_route``).
 and whole-solve kernels of small arrays of any ndim, bound in
 ``ops/flat.py``; ``csrc/nddwt_multi.cu`` the one-launch multilevel kernels
 of batches of 2D and 3D arrays, bound in ``ops/multi.py``, which run the
-streamed bodies for every level and item in one launch:
-``dec_levels``/``rec_levels`` take them where ``multi.multi_supported``
-holds.
+streamed bodies for every level and item in one launch.
 
 Every kernel takes float32 and bfloat16 arrays, computing in float32, and
 float64 arrays, computing in float64 with float64 taps: the float64
@@ -119,9 +124,6 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 _MAX_TAPS = 76  # kMaxTaps in the source
-# The shared memory of the tile that sizes a 3D level's route (_tiles,
-# stage_route): two CTAs fit one SM's 227 KB.
-_SMEM_BUDGET = 100 * 1024
 # The tile body's lane-stage tiles (csrc/nddwt_4d.cu: the class no plan of
 # the lane body fits, _lane_plan) take less, so that more CTAs share an SM
 # and hide each other's window loads: the budget that was fastest in a sweep
@@ -177,7 +179,6 @@ _PLANE_ROUNDS = 3
 _PLANE_ITEMS = {4: 4, 8: 2}
 _PLANE_T1 = 8
 _PLANE_T1_MAX = 64
-_BODIES = {1: "plane", 0: "window"}  # the level kernels' `body`
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 launch_counts = {
@@ -288,10 +289,10 @@ def load() -> ctypes.CDLL:
     vp = ctypes.c_void_p
     geom = [ctypes.c_int, ip, ip, ip, ip, ip, vp]  # dtype, n, k, t, left, bit, taps
     lib.nddwt_dec_level.argtypes = [vp, vp, vp] + geom + [
-        ctypes.c_longlong, ctypes.c_double, ctypes.c_int, ip, vp, ip]  # ..., stream, body
+        ctypes.c_longlong, ctypes.c_double, ctypes.c_int, ip, ctypes.c_int, vp]  # ..., body, stream
     lib.nddwt_dec_level.restype = ctypes.c_int
     lib.nddwt_rec_level.argtypes = [vp, vp, vp] + geom + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, ip, vp, ip]  # ..., stream, body
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, ip, ctypes.c_int, vp]  # ..., body, stream
     lib.nddwt_rec_level.restype = ctypes.c_int
     return _check_level_library(lib)
 
@@ -314,12 +315,12 @@ def load4() -> ctypes.CDLL:
     ip = ctypes.POINTER(ctypes.c_int)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     geom = [i, ip, ip, ip, ip, vp]  # dtype, n, k, t, left, taps
-    lib.nddwt_lane_dec.argtypes = [vp, vp] + geom + [vp]
+    lib.nddwt_lane_dec.argtypes = [vp, vp] + geom + [i, vp]  # ..., body, stream
     lib.nddwt_lead_dec.argtypes = [vp, vp, vp] + geom + [
         i, ctypes.c_longlong, f, i, ip, vp]  # ..., gw, pad, stream
     lib.nddwt_lead_adj.argtypes = [vp, vp, vp] + geom + [
         ctypes.POINTER(ctypes.c_longlong), i, ip, vp]
-    lib.nddwt_lane_adj.argtypes = [vp, vp] + geom + [f, vp]
+    lib.nddwt_lane_adj.argtypes = [vp, vp] + geom + [f, i, vp]  # ..., scale, body, stream
     for name in ("lane_dec", "lead_dec", "lead_adj", "lane_adj"):
         getattr(lib, f"nddwt_{name}").restype = ctypes.c_int
     return _check_level_library(lib)
@@ -346,29 +347,6 @@ def _compute_dtype(dtype: torch.dtype):
 def _word(dtype: torch.dtype) -> int:
     """Bytes of one shared-memory word of a launch on ``dtype`` arrays."""
     return np.dtype(_compute_dtype(dtype)).itemsize
-
-
-def _tiles(n, k, rec: bool, word: int = 4):
-    """Output tile per slot: (8, 8, 32) for 3D, (1, 32, 128) for 2D, capped
-    by the extents and halved on the largest axis until the shared-memory
-    tile plan (``word`` bytes a word: the halo'd window and two
-    intermediates, and for the synthesis the output tile) fits the budget;
-    None if no tile fits. It sizes a 3D level's route (``stage_route``): the
-    tile the per-level and multilevel kernels took before they streamed."""
-    base = (8, 8, 32) if k[0] > 1 else (1, 32, 128)
-    t = [min(b, m) for b, m in zip(base, n)]
-
-    def words(t):
-        e = [t[a] + k[a] - 1 for a in range(3)]
-        w = e[0] * e[1] * e[2] + t[0] * e[1] * e[2] + t[0] * t[1] * e[2]
-        return w + (t[0] * t[1] * t[2] if rec else 0)
-
-    while word * words(t) > _SMEM_BUDGET:
-        a = max(range(3), key=lambda i: t[i])
-        if t[a] == 1:
-            return None
-        t[a] = (t[a] + 1) // 2
-    return t
 
 
 def halo_widths(taps, rec: bool) -> tuple:
@@ -463,8 +441,8 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False, padded=None):
     the approximation into ``big[0]`` when ``final``, else returned.
 
     On the card it streams slot 0 (``dec_stream_args``: axis 0 of a 2D or
-    3D array) on the body ``_dec_body`` names, with its plan, and counts the
-    body the library took in the counter ``nddwt.dec_level.body.plane`` or
+    3D array) on the body ``_dec_body`` names, with that body's plan, and
+    counts the body in the counter ``nddwt.dec_level.body.plane`` or
     ``.window`` (``tracing``; not in ``launch_counts``).
 
     ``padded`` (one flag per axis): the halo-padded mode, which replaces
@@ -499,19 +477,17 @@ def dec_level(approx, big, band_off, taps, lam=0.0, final=False, padded=None):
                                                device=approx.device)
         (n, k, t, left, bit, vpad, arr), body = dec_stream_args(approx, shape, taps, pad)
         lib = load()
-        took = ctypes.c_int(-1)
         with torch.cuda.device(approx.device):
             err = lib.nddwt_dec_level(
                 approx.data_ptr(), big.data_ptr(), out.data_ptr(),
                 DTYPE_CODE[approx.dtype], _ints(n), _ints(k), _ints(t), _ints(left),
                 _ints(bit), _taps_ptr(arr), int(band_off), float(lam),
                 _walk_bands(k, t, approx.dtype) if body == "window" else 0, _ints(vpad),
-                torch.cuda.current_stream().cuda_stream, ctypes.byref(took),
+                int(body == "plane"), torch.cuda.current_stream().cuda_stream,
             )
         raise_on(lib, err, "nddwt_dec_level")
         _count("nddwt_dec_level", pad)
-        if took.value in _BODIES:  # the body the library says it took
-            tracing.count(f"nddwt.dec_level.body.{_BODIES[took.value]}", 1)
+        tracing.count(f"nddwt.dec_level.body.{body}", 1)
     return None if final else out
 
 
@@ -803,8 +779,11 @@ def _stream_view(shape, taps, pad):
 
 
 def _level_stream_view(shape, taps, dtype, pad, rec: bool):
-    """``_level_stream_geometry`` without the plan: ``(n, k, left, bit,
-    pad, tap_array)``."""
+    """The view geometry ``(n, k, left, bit, pad, tap_array)`` of one
+    streamed level launch whose output has ``shape`` (``pad``: its
+    halo-padded axes), without the plan: ``_stream_view``, the halos
+    (``halo_widths``) and the taps in the compute type, reversed for the
+    synthesis."""
     pad = _padded_flags(pad, len(shape))
     n, slot_taps, bit, vpad = _stream_view(shape, taps, pad)
     k = [1 if t is None else int(np.shape(t)[1]) for t in slot_taps]
@@ -816,35 +795,14 @@ def _level_stream_view(shape, taps, dtype, pad, rec: bool):
     return n, k, left, bit, vpad, _tap_array(slot_taps, rec, _compute_dtype(dtype))
 
 
-def _level_stream_geometry(shape, taps, dtype, pad, rec: bool):
-    """The view geometry ``(n, k, t, left, bit, pad, tap_array)`` of one
-    streamed level launch whose output has ``shape`` (``pad``: its
-    halo-padded axes): ``_stream_view``, the halos (``halo_widths``), the
-    plan ``(C, T1, T2)`` and the taps in the compute type, reversed for the
-    synthesis."""
-    n, k, left, bit, vpad, arr = _level_stream_view(shape, taps, dtype, pad, rec)
-    return n, k, _stream_plan(n, k, dtype, "rec" if rec else "dec"), left, bit, vpad, arr
-
-
-def _rec_stream_geometry(shape, taps, dtype=torch.float32, pad=None):
-    """The view geometry of one ``nddwt_rec_level`` launch
-    (``_level_stream_geometry``): the synthesis halos, reversed taps."""
-    return _level_stream_geometry(shape, taps, dtype, pad, rec=True)
-
-
-def _dec_stream_geometry(shape, taps, dtype=torch.float32, pad=None):
-    """The view geometry of one ``nddwt_dec_level`` launch
-    (``_level_stream_geometry``): the analysis halos, the taps as given;
-    its walk takes ``_walk_bands(k, t, dtype)`` bands."""
-    return _level_stream_geometry(shape, taps, dtype, pad, rec=False)
-
-
 def dec_stream_args(approx, shape, taps, padded=None):
     """The view geometry of one ``nddwt_dec_level`` launch reading
-    ``approx`` into bands of ``shape`` (``_dec_stream_geometry``'s, its plan
-    ``_plane_ana_plan``'s where the plane body runs) and the body the
-    launch takes (``_dec_body``: "plane" or "window"), built the same on
-    any device. ``ops/stream_ref.py`` replays a launch from these."""
+    ``approx`` into bands of ``shape`` (``_level_stream_view``'s: the
+    analysis halos, the taps as given) with the plan of the body the launch
+    takes (``_dec_body``: "plane", ``_plane_ana_plan``; "window",
+    ``_stream_plan``, whose walk takes ``_walk_bands`` bands), and that
+    body, built the same on any device. ``ops/stream_ref.py`` replays a
+    launch from these."""
     dtype = approx.dtype
     n, k, left, bit, vpad, arr = _level_stream_view(shape, taps, dtype, padded, rec=False)
     body = _dec_body(n, k, vpad, dtype, [approx.data_ptr()])
@@ -856,11 +814,11 @@ def dec_stream_args(approx, shape, taps, padded=None):
 def rec_stream_args(y, approx, band_src, taps, padded=None):
     """Everything one ``nddwt_rec_level`` launch is given, built the same
     on any device: the output shape, the band-source table (``2^d``
-    entries, ``_band_indices``), the view geometry
-    (``_rec_stream_geometry``, its plan replaced by ``_plane_plan``'s where
-    the plane body runs) and the body the launch takes (``_rec_body``:
-    "plane" or "window"). ``ops/stream_ref.py`` replays a launch from
-    these."""
+    entries, ``_band_indices``), the view geometry (``_level_stream_view``'s:
+    the synthesis halos, the taps reversed) with the plan of the body the
+    launch takes (``_rec_body``: "plane", ``_plane_plan``; "window",
+    ``_stream_plan``), and that body. ``ops/stream_ref.py`` replays a launch
+    from these."""
     in_shape = tuple(y.shape[1:])
     if len(in_shape) not in (2, 3) or len(taps) != len(in_shape):
         raise NotImplementedError(
@@ -870,11 +828,11 @@ def rec_stream_args(y, approx, band_src, taps, padded=None):
     pad = _padded_flags(padded, len(in_shape))
     shape = _unpadded_shape(in_shape, taps, pad, "band array")
     idx = _band_indices(band_src, 2 ** len(shape), y, approx, in_shape)
-    n, k, t, left, bit, vpad, arr = _rec_stream_geometry(shape, taps, y.dtype, pad)
+    n, k, left, bit, vpad, arr = _level_stream_view(shape, taps, y.dtype, pad, rec=True)
     ptrs = [y.data_ptr()] + ([approx.data_ptr()] if -1 in idx else [])
     body = _rec_body(n, k, vpad, y.dtype, ptrs)
-    if body == "plane":
-        t = _plane_plan(n, k, y.dtype, vpad)
+    t = (_plane_plan(n, k, y.dtype, vpad) if body == "plane"
+         else _stream_plan(n, k, y.dtype, "rec"))
     return shape, idx, (n, k, t, left, bit, vpad, arr), body
 
 
@@ -883,9 +841,9 @@ def rec_level(y, approx, band_src, taps, scale, padded=None):
     ``b`` is ``y[i]`` for ``band_src[b] == ("y", i)`` or ``approx`` for
     ``("a", 0)``; returns ``scale *`` the adjoint, shaped ``y.shape[1:]``.
     On the card it streams slot 0 (``rec_stream_args``: axis 0 of a 2D or
-    3D array) on the body ``_rec_body`` names, with its plan, and counts
-    the body the library took in the counter ``nddwt.rec_level.body.plane``
-    or ``.window`` (``tracing``; not in ``launch_counts``).
+    3D array) on the body ``_rec_body`` names, with that body's plan, and
+    counts the body in the counter ``nddwt.rec_level.body.plane`` or
+    ``.window`` (``tracing``; not in ``launch_counts``).
 
     ``padded`` (one flag per axis): the halo-padded mode, which replaces
     the concat and slab "valid" modes of ``_fused_rec_level``
@@ -905,20 +863,18 @@ def rec_level(y, approx, band_src, taps, scale, padded=None):
             approx = y
         out = torch.empty(shape, dtype=y.dtype, device=y.device)
         lib = load()
-        took = ctypes.c_int(-1)
         with torch.cuda.device(y.device):
             err = lib.nddwt_rec_level(
                 y.data_ptr(), approx.data_ptr(), out.data_ptr(),
                 DTYPE_CODE[y.dtype], _ints(n), _ints(k), _ints(t), _ints(left),
                 _ints(bit), _taps_ptr(arr),
                 (ctypes.c_longlong * 8)(*(idx + [-1] * (8 - len(idx)))),
-                float(scale), _ints(pad), torch.cuda.current_stream().cuda_stream,
-                ctypes.byref(took),
+                float(scale), _ints(pad), int(body == "plane"),
+                torch.cuda.current_stream().cuda_stream,
             )
         raise_on(lib, err, "nddwt_rec_level")
         _count("nddwt_rec_level", pad)
-        if took.value in _BODIES:  # the body the library says it took
-            tracing.count(f"nddwt.rec_level.body.{_BODIES[took.value]}", 1)
+        tracing.count(f"nddwt.rec_level.body.{body}", 1)
     return out
 
 
@@ -1055,13 +1011,14 @@ def _stage_geometry(shape, taps, lane: bool, adj: bool, dtype=torch.float32,
     """ctypes arguments of one stage launch on ``dtype`` arrays: view
     extents, taps, plan and left halo per slot (``halo_widths``), and the
     taps in the compute type (reversed for an adjoint, whose halo is
-    mirrored: K//2 left instead of K//2 - 1). The lane stages' plan is the
-    lane body's ``(R, Zc, stages)`` (``_lane_plan``), or, for the class no
-    plan fits, the tile body's tile ``(t0, t1, -t2)`` (``_stage_tiles``;
-    NotImplementedError where none fits that body's budget either); the
-    lead stages' is their streamed plan ``(C, T1, T2)`` (``_stream_plan``;
-    the analysis takes ``_walk_bands`` bands a walk). ``padded``: the
-    lead stage's halo-padded slots 0 and 1, which may be shorter than their
+    mirrored: K//2 left instead of K//2 - 1); and the body the launch runs.
+    The lane stages run the lane body ("lane") on its plan ``(R, Zc,
+    stages)`` (``_lane_plan``), or, for the class no plan fits, the tile
+    body ("tile") on its tile (``_stage_tiles``; NotImplementedError where
+    none fits that body's budget either); the lead stages the streamed
+    body ("window") on its plan ``(C, T1, T2)`` (``_stream_plan``; the
+    analysis takes ``_walk_bands`` bands a walk). ``padded``: the lead
+    stage's halo-padded slots 0 and 1, which may be shorter than their
     filters."""
     n, slot_taps = _stage_slots(shape, taps, lane)
     k = [1 if t is None else int(np.shape(t)[1]) for t in slot_taps]
@@ -1072,31 +1029,32 @@ def _stage_geometry(shape, taps, lane: bool, adj: bool, dtype=torch.float32,
         raise ValueError(f"filters of lengths {k} are longer than the axes {n}")
     left = [0 if t is None else halo_widths([t], adj)[0][0] for t in slot_taps]
     if not lane:  # the lead stages stream X (csrc/nddwt_stream.cuh)
-        t = _stream_plan(n, k, dtype, "lead" if adj else "lead_dec")
-    else:  # the lane body's plan, or the tile body's tile as (t0, t1, -t2)
-        t = _lane_plan(tuple(n), tuple(k), dtype, adj)
+        t, body = _stream_plan(n, k, dtype, "lead" if adj else "lead_dec"), "window"
+    else:
+        t, body = _lane_plan(tuple(n), tuple(k), dtype, adj), "lane"
         if t is None:
-            tile = _stage_tiles(tuple(n), tuple(k), adj, _word(dtype))
-            if tile is None:
+            t, body = _stage_tiles(tuple(n), tuple(k), adj, _word(dtype)), "tile"
+            if t is None:
                 raise NotImplementedError(
                     f"a lane stage of {k[1]}-tap filters on the view {tuple(n)} "
                     f"in {dtype} fits neither the lane body nor the tile body")
-            t = (tile[0], tile[1], -tile[2])
     return (_ints(n), _ints(k), _ints(t), _ints(left),
-            _tap_array(slot_taps, adj, _compute_dtype(dtype)))
+            _tap_array(slot_taps, adj, _compute_dtype(dtype))), body
 
 
 def stage_route(shape, taps, dtype=torch.float32) -> bool:
     """Whether a level of this shape runs on the stage kernels: every 4D
-    level, and a 3D level whose filters do not fit the per-level kernels'
-    tile (the synthesis's, the larger; both directions go together) at the
-    word size of ``dtype``."""
-    if len(shape) == 4:
-        return True
+    level, and a 3D level whose filters overflow the tile the per-level
+    kernels had before they streamed: where even its one-output synthesis
+    tile (the window of ``K0 K1 K2`` words, the intermediates of ``K1 K2``
+    and ``K2``, and the output) at the word size of ``dtype`` takes more
+    than 100 KiB, two CTAs' share of an SM, whatever the shape (db15 and up
+    in float32 and bfloat16, db12 and up in float64). ``NDDWT.route`` asks
+    it; the rule is kept so that no route moved when that tile went."""
     if len(shape) != 3:
-        return False
-    k = [int(np.shape(t)[1]) for t in taps]
-    return _tiles([int(m) for m in shape], k, True, _word(dtype)) is None
+        return len(shape) == 4
+    k0, k1, k2 = (int(np.shape(t)[1]) for t in taps)
+    return _word(dtype) * (k0 * k1 * k2 + k1 * k2 + k2 + 1) > 100 * 1024
 
 
 def _check_stage_array(name, t, taps, lead: int = 0):
@@ -1119,12 +1077,13 @@ def lane_dec(x, taps):
         check_array("x", x)
         temp = torch.empty((2 ** (x.ndim - 2),) + tuple(x.shape), dtype=x.dtype,
                            device=x.device)
-        n, k, t, left, arr = _stage_geometry(x.shape, taps, True, False, x.dtype)
+        (n, k, t, left, arr), body = _stage_geometry(x.shape, taps, True, False, x.dtype)
         lib = load4()
         with torch.cuda.device(x.device):
             err = lib.nddwt_lane_dec(
                 x.data_ptr(), temp.data_ptr(), DTYPE_CODE[x.dtype], n, k, t, left,
-                _taps_ptr(arr), torch.cuda.current_stream().cuda_stream,
+                _taps_ptr(arr), int(body == "tile"),
+                torch.cuda.current_stream().cuda_stream,
             )
         raise_on(lib, err, "nddwt_lane_dec")
         launch_counts["nddwt_lane_dec"] += 1
@@ -1162,7 +1121,7 @@ def lead_dec(temp, big, band_off, taps, lam=0.0, final=False, padded=None):
         check_array("big", big, temp)
         out = big[0] if final else torch.empty(shape, dtype=temp.dtype,
                                                device=temp.device)
-        n, k, t, left, arr = _stage_geometry(shape, taps, False, False, temp.dtype, pad)
+        (n, k, t, left, arr), _ = _stage_geometry(shape, taps, False, False, temp.dtype, pad)
         lib = load4()
         with torch.cuda.device(temp.device):
             err = lib.nddwt_lead_dec(
@@ -1204,7 +1163,7 @@ def lead_adj(y, approx, band_src, taps, padded=None):
             approx = y
         nl = 2 ** (len(shape) - 2)
         partial = torch.empty((nl,) + shape, dtype=y.dtype, device=y.device)
-        n, k, t, left, arr = _stage_geometry(shape, taps, False, True, y.dtype, pad)
+        (n, k, t, left, arr), _ = _stage_geometry(shape, taps, False, True, y.dtype, pad)
         lib = load4()
         with torch.cuda.device(y.device):
             err = lib.nddwt_lead_adj(
@@ -1231,12 +1190,12 @@ def lane_adj(partial, taps, scale):
     with tracing.span("nddwt.launch.nddwt_lane_adj"):
         check_array("partial", partial)
         out = torch.empty(shape, dtype=partial.dtype, device=partial.device)
-        n, k, t, left, arr = _stage_geometry(shape, taps, True, True, partial.dtype)
+        (n, k, t, left, arr), body = _stage_geometry(shape, taps, True, True, partial.dtype)
         lib = load4()
         with torch.cuda.device(partial.device):
             err = lib.nddwt_lane_adj(
                 partial.data_ptr(), out.data_ptr(), DTYPE_CODE[partial.dtype],
-                n, k, t, left, _taps_ptr(arr), float(scale),
+                n, k, t, left, _taps_ptr(arr), float(scale), int(body == "tile"),
                 torch.cuda.current_stream().cuda_stream,
             )
         raise_on(lib, err, "nddwt_lane_adj")
@@ -1325,27 +1284,20 @@ def rec1_level(y, approx, band_src, taps, scale):
 # ------------------------------------------------------------------ levels
 
 
-def dec_levels(x, taps, level: int, lam: float = 0.0, out=None):
-    """Multilevel analysis, ``(B, *s)``, written into ``out`` when given:
-    one ``nddwt_dec_multi`` launch for all levels where
-    ``multi.multi_supported`` holds (the multi branch of
-    ``pallas_kernels._dec_dispatch``); else per level one ``dec1_level``
-    launch in 1D (``pallas_padded.dec_padded1``), one ``dec_level`` launch
-    in 2D and 3D, or a lane and a lead stage launch where ``stage_route``
-    says so (``pallas_4d.dec4``). Level ``l`` writes its details at ``B -
-    (2^d - 1)(l + 1)`` (the tail of ``pallas_kernels._dec_dispatch``), the
-    last one its approximation into band 0."""
-    from . import multi  # which imports this module
-
-    if multi.multi_supported(x.shape, taps, x.dtype, level):
-        return multi.dec_multi(x[None], taps, level, lam,
-                               None if out is None else out[None])[0]
+def dec_levels(x, taps, level: int, lam: float = 0.0, out=None, *, stages: bool):
+    """Multilevel analysis, ``(B, *s)``, written into ``out`` when given,
+    on the per-level kernels: per level one ``dec1_level`` launch in 1D
+    (``pallas_padded.dec_padded1``), one ``dec_level`` launch in 2D and 3D,
+    or, on the stage route (``stages``, which ``NDDWT.route`` decides), a
+    lane and a lead stage launch (``pallas_4d.dec4``). Level ``l`` writes
+    its details at ``B - (2^d - 1)(l + 1)`` (the tail of
+    ``pallas_kernels._dec_dispatch``), the last one its approximation into
+    band 0."""
     nb = 2**x.ndim
     B = num_bands(x.ndim, level)
     big = out if out is not None else torch.empty(
         (B,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     one_level = dec1_level if x.ndim == 1 else dec_level
-    stages = stage_route(x.shape, taps, x.dtype)
     approx = x
     for lvl in range(level):
         off, final = B - (nb - 1) * (lvl + 1), lvl == level - 1
@@ -1356,20 +1308,15 @@ def dec_levels(x, taps, level: int, lam: float = 0.0, out=None):
     return big
 
 
-def rec_levels(y, taps, level: int, preserve_l2: bool):
-    """Multilevel synthesis: one ``nddwt_rec_multi`` launch where
-    ``multi.multi_supported`` holds; else per level one ``rec1_level``
-    launch in 1D (``pallas_padded.rec_padded1``), one ``rec_level`` launch
-    in 2D and 3D, or a lead and a lane stage adjoint (``pallas_4d.rec4``):
-    band 0 comes from the previous level's output, the details from
-    ``y[pos + b - 1]`` (the tail of ``pallas_kernels._rec_dispatch``)."""
-    from . import multi  # which imports this module
-
-    if multi.multi_supported(y.shape[1:], taps, y.dtype, level):
-        return multi.rec_multi(y[None], taps, level, preserve_l2)[0]
+def rec_levels(y, taps, level: int, preserve_l2: bool, *, stages: bool):
+    """Multilevel synthesis on the per-level kernels: per level one
+    ``rec1_level`` launch in 1D (``pallas_padded.rec_padded1``), one
+    ``rec_level`` launch in 2D and 3D, or, on the stage route (``stages``),
+    a lead and a lane stage adjoint (``pallas_4d.rec4``): band 0 comes from
+    the previous level's output, the details from ``y[pos + b - 1]`` (the
+    tail of ``pallas_kernels._rec_dispatch``)."""
     nb = 2 ** (y.ndim - 1)
     scale = 1.0 if preserve_l2 else 1.0 / nb
-    stages = stage_route(y.shape[1:], taps, y.dtype)
     level_kernel = rec1_level if y.ndim == 2 else rec_level
 
     def one_level(acc, src):

@@ -121,27 +121,20 @@ def _count(shape, dtype, batch: int):
     return max(batch, 1) * int(np.prod(shape))
 
 
-def flat_limit(shape, taps, dtype) -> int:
-    """The most elements (a pair's two components counted) of a ``dtype``
-    array of ``shape``, one filter of ``taps`` per axis, that take
-    ``nddwt_flat_pair``: the entry of the per-level route it stands in
-    for."""
-    if len(shape) == 1:
-        route = "1d"
-    elif len(shape) in (3, 4) and cuda_kernels.stage_route(shape, taps, dtype):
-        route = "stage"
-    else:
-        route = None
-    return FLAT_MAX_NUMEL.get(route, FLAT_MAX_NUMEL[None])
+def flat_limit(replaces=None) -> int:
+    """The most elements (a pair's two components counted) of an array that
+    take ``nddwt_flat_pair`` in place of the per-level route ``replaces``
+    (``'1d'``, ``'stage'``, or None for the others and 5D and up): its
+    entry of ``FLAT_MAX_NUMEL``. ``NDDWT.route`` names the route."""
+    return FLAT_MAX_NUMEL.get(replaces, FLAT_MAX_NUMEL[None])
 
 
-def flat_supported(shape, dtype, batch: int = 0, *, taps) -> bool:
-    """Whether ``dec``/``rec``/``dec_rec`` of ``shape`` (with a leading pair
-    when ``batch`` is 2) in ``dtype``, one filter of ``taps`` per axis, take
-    ``nddwt_flat_pair``."""
-    shape = tuple(int(s) for s in shape)
-    n = _count(shape, dtype, batch)
-    return n is not None and n <= flat_limit(shape, taps, dtype)
+def flat_supported(shape, dtype, batch: int = 0, *, replaces=None) -> bool:
+    """Whether ``nddwt_flat_pair`` takes ``dec``/``rec``/``dec_rec`` of
+    ``shape`` (with a leading pair when ``batch`` is 2) in ``dtype`` in
+    place of the per-level route ``replaces`` (``flat_limit``)."""
+    n = _count(tuple(int(s) for s in shape), dtype, batch)
+    return n is not None and n <= flat_limit(replaces)
 
 
 def iter_supported(shape, dtype, batch: int = 0) -> bool:

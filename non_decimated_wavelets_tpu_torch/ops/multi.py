@@ -18,10 +18,11 @@ narrower than a plane tile is one view ``(n0, N, n1)``, its items in the
 pass-through slot, so that a plane tile covers several items' rows.
 ``ops/stream_ref.multi_replay`` replays the schedule on the CPU. They take
 float32, bfloat16 (float32 compute) and float64 arrays.
-``multi_supported`` is the counterpart of ``multi_feasible``: where it holds,
-the level loops (``cuda_kernels.dec_levels``/``rec_levels``), the plan's
-complex and split pairs and ``NDDWT.dec_batched``/``rec_batched`` take one
-launch per direction. ``MULTI_MAX_NUMEL`` is the largest item, in elements,
+``multi_supported`` is the counterpart of ``multi_feasible``: whether these
+kernels take an item. ``NDDWT.route`` decides where they run (route
+``multi``: one array, a complex array's or split pair's two components, or
+a ``dec_batched``/``rec_batched`` batch, one launch per direction; never a
+level of the stage route). ``MULTI_MAX_NUMEL`` is the largest item, in elements,
 up to which a batch of 2 (a complex array's or split pair's parts) and of
 8 items on these kernels was no slower than the same batch item by item on
 the per-level route, in 2D and 3D db4 L3 float32 on an H100
@@ -86,17 +87,14 @@ def _lengths(taps) -> tuple:
 
 
 def multi_supported(shape, taps, dtype, level) -> bool:
-    """Whether a ``level``-level transform of ``dtype`` items of ``shape``,
-    one filter of ``taps`` per axis, takes the multilevel kernels: 2 or 3
+    """Whether the multilevel kernels take a ``level``-level transform of
+    ``dtype`` items of ``shape``, one filter of ``taps`` per axis: 2 or 3
     axes, at least two levels, at most ``MULTI_MAX_NUMEL`` elements an
-    item, not a 3D level of the stage route (``cuda_kernels.stage_route``:
-    filters of db15 and up), and a streamed plan for both directions
-    (``_plan``)."""
+    item, and a streamed plan for both directions (``_plan``)."""
     shape = tuple(int(s) for s in shape)
     if (len(shape) not in (2, 3) or len(taps) != len(shape) or int(level) < 2
             or dtype not in ck.DTYPE_CODE
-            or int(np.prod(shape)) > MULTI_MAX_NUMEL
-            or ck.stage_route(shape, taps, dtype)):
+            or int(np.prod(shape)) > MULTI_MAX_NUMEL):
         return False
     return all(_plan(shape, _lengths(taps), dtype, rec, 1) is not None
                for rec in (False, True))
@@ -110,11 +108,6 @@ def _multi_geometry(shape, taps, rec: bool, dtype, items: int):
     analysis's in-plane bands a walk (``_plan``). Raises where the streamed
     bodies take no such level."""
     shape = tuple(int(s) for s in shape)
-    if ck.stage_route(shape, taps, dtype):
-        raise NotImplementedError(
-            f"filters of lengths {list(_lengths(taps))} are too long for the "
-            "per-level kernels' streamed bodies in 3D (such levels run on the "
-            "stage kernels: cuda_kernels.stage_route)")
     plan = _plan(shape, _lengths(taps), dtype, rec, int(items))
     if plan is None:
         raise NotImplementedError(

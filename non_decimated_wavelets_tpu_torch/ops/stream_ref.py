@@ -56,7 +56,7 @@ the passes, the ring and its emits. The tests hold them against the plain
 versions (``level_ref.rec_level_ref``, ``level4_ref.lead_adj_ref``,
 ``level_ref.dec_level_ref``, ``level4_ref.lead_dec_ref``,
 ``level4_ref.lane_dec_ref``, ``level4_ref.lane_adj_ref``) for the geometry
-that ``cuda_kernels`` builds (``rec_stream_args``, ``_dec_stream_geometry``,
+that ``cuda_kernels`` builds (``rec_stream_args``, ``dec_stream_args``,
 ``_stage_geometry``, ``_walk_bands``, ``_lane_plan``), so a plan that drops,
 repeats or misplaces a plane, a row or a band fails here. Nothing on the
 CUDA path calls them.

@@ -19,7 +19,7 @@ Dispatch:
   complex forms are one launch each, complex data as a re/im pair whose
   shrink is the joint magnitude. ``dec_rec_n`` and the solvers' fused
   route (``_fista_fused``) run a whole chain or solve in one
-  ``nddwt_flat_iter`` launch up to ``ITER_MAX_NUMEL``;
+  ``nddwt_flat_iter`` launch up to ``ITER_MAX_NUMEL`` (route ``iter``);
 * a larger CUDA tensor, 2D or 3D, with at least two levels and at most
   ``ops/multi.py``'s ``MULTI_MAX_NUMEL`` elements a component, whose
   levels the per-level kernels' streamed bodies take (in 3D, filters
@@ -30,8 +30,8 @@ Dispatch:
   ``dec_multi`` -> ``mag_shrink_pair`` -> ``rec_multi``;
 * any other larger CUDA tensor, 1D to 4D: the hand-written level kernels
   (``ops/cuda_kernels.py``): per level and direction one launch in 1D, 2D
-  and 3D, two (a lane and a lead stage) in 4D and for 3D filters too long
-  for the streamed bodies (``stage_route``); the shrink of ``dec_rec``
+  and 3D, two (a lane and a lead stage) in 4D and for the 3D filters of
+  ``stage_route`` (db15 and up); the shrink of ``dec_rec``
   fused into the analysis. Complex data (complex64, complex128) and split
   re/im pairs run each component through its own level chain (the filters
   are real); their shrink is the joint-magnitude ``mag_shrink_pair`` kernel
@@ -58,8 +58,9 @@ cannot end up on the host.
 
 Every public call decides its route once, from shapes and dtypes
 (``NDDWT.route``: ``fft``, ``direct``, ``flat``, ``multi``, ``stage`` or
-``level``), dispatches on it and runs inside the span
-``nddwt.<op>.<route>.L<level>`` (``tracing.py``); the copies between
+``level``, and ``iter`` for a whole chain or solve in one launch), hands it
+down to the kernel wrappers, which do not decide it again, and runs inside
+the span ``nddwt.<op>.<route>.L<level>`` (``tracing.entry``); the copies between
 complex and re/im form run inside ``nddwt.split`` and ``nddwt.join`` and
 count their bytes in ``split_join_bytes``.
 
@@ -116,11 +117,6 @@ def _as_real_dtype(dtype) -> torch.dtype:
     return dt
 
 
-def _is_cuda(t: torch.Tensor) -> bool:
-    """Whether a transform of ``t`` runs on the CUDA kernels."""
-    return t.is_cuda
-
-
 def _copied(name: str, fn, src):
     """``fn(src)``, a copy between complex and re/im form or one that
     gathers per-component results, inside the span ``name``; the bytes it
@@ -160,11 +156,6 @@ def _batch_join(t: torch.Tensor) -> torch.Tensor:
     ``(N, ...)``."""
     n = t.shape[0] // 2
     return _copied("nddwt.join", lambda c: torch.complex(c[:n], c[n:]), t)
-
-
-def _entry(op: str, route: str, level: int):
-    """The span of one public call: ``nddwt.<op>.<route>.L<level>``."""
-    return tracing.span(f"nddwt.{op}.{route}.L{level}")
 
 
 _REAL_PART = {torch.complex64: torch.float32, torch.complex128: torch.float64}
@@ -300,7 +291,7 @@ class NDDWT:
 
     # ------------------------------------------------------------ dispatch
     def route(self, dtype, level: int, *, pair: bool = False, batch: int = 0,
-              on_card=None) -> str:
+              whole: bool = False, on_card=None) -> str:
         """The route a transform of ``level`` levels of ``dtype`` arrays
         takes, from shapes and dtypes alone: ``'fft'`` or ``'direct'`` (the
         torch paths), or on the CUDA kernels ``'flat'`` (the one-launch flat
@@ -308,10 +299,23 @@ class NDDWT:
         (the lane and lead stage kernels) or ``'level'`` (the per-level
         kernels). ``pair``: a split re/im pair of real arrays (a complex
         ``dtype`` is one too); ``batch``: the items of a ``dec_batched`` or
-        ``rec_batched`` call, 0 for one array; ``on_card``: whether the
-        arrays lie on a CUDA device (by default the plan's device). Raises
-        where the port serves no route. Every public call dispatches on it
-        and names its span after it."""
+        ``rec_batched`` call, 0 for one array; ``whole``: the caller runs a
+        whole chain of sweeps or a whole solve (``dec_rec_n``, the fused
+        inpainting solve), which is ``'iter'`` where one ``nddwt_flat_iter``
+        launch takes it (real arrays, up to ``ITER_MAX_NUMEL``) and
+        otherwise the route of its iterates; ``on_card``: whether the arrays
+        lie on a CUDA device (by default the plan's device). Raises where the
+        port serves no route. The only place a route is chosen: every public
+        call dispatches on it and names its span after it (``tracing.entry``).
+
+        On the kernels, in order: a batch takes the multilevel kernels
+        where ``multi.multi_supported`` holds; one array (or pair) takes the
+        flat kernel up to the limit measured against the route it replaces
+        (``flat.FLAT_MAX_NUMEL``: ``'1d'``, ``'stage'`` or the others), else
+        the multilevel kernels as a batch does; the rest takes the stage
+        kernels (every 4D level, and the 3D levels of
+        ``cuda_kernels.stage_route``, which the multilevel kernels never
+        take) or the per-level kernels."""
         if self.path in ("fft", "direct"):
             return self.path
         if not (self.device.type == "cuda" if on_card is None else on_card):
@@ -321,42 +325,31 @@ class NDDWT:
                     "tensor is not on a CUDA device; use path='auto' or 'direct'"
                 )
             return "direct"
+        if whole and not dtype.is_complex and flat.iter_supported(
+                self.shape, dtype, 2 if pair else 0):
+            return "iter"
         real = _REAL_PART.get(dtype, dtype)
-        if batch and self._on_multi(real, level):
+        stage = cuda_kernels.stage_route(self.shape, self.taps_hp, real)
+
+        def on_multi():
+            return not stage and multi.multi_supported(self.shape, self.taps_hp, real, level)
+
+        if batch and on_multi():
             return "multi"
-        if self._on_flat(real, 2 if pair or dtype.is_complex else 0):
+        replaces = "1d" if self.ndim == 1 else ("stage" if stage else None)
+        if flat.flat_supported(self.shape, real, 2 if pair or dtype.is_complex else 0,
+                               replaces=replaces):
             return "flat"
-        if self._on_multi(real, level):
-            return "multi"
-        if cuda_kernels.stage_route(self.shape, self.taps_hp, real):
-            return "stage"
-        return "level"
-
-    def _route(self, x: torch.Tensor, level: int, pair: bool = False,
-               batch: int = 0) -> str:
-        """``route`` of the tensor ``x``."""
-        return self.route(x.dtype, level, pair=pair, batch=batch,
-                          on_card=_is_cuda(x))
-
-    def _on_flat(self, dtype: torch.dtype, batch: int = 0) -> bool:
-        """Whether a kernel-route call on ``dtype`` components (a re/im pair
-        when ``batch`` is 2) takes the one-launch flat kernel; a 5D+ plan
-        that it does not take raises."""
-        if flat.flat_supported(self.shape, dtype, batch, taps=self.taps_hp):
-            return True
         if self.ndim > 4:
             raise NotImplementedError(
                 f"{self.ndim}D transforms on CUDA run on the one-launch flat "
-                "kernel only, up to "
-                f"{flat.flat_limit(self.shape, self.taps_hp, dtype)} elements (a "
+                f"kernel only, up to {flat.flat_limit(replaces)} elements (a "
                 "pair's two components counted); larger ones are not ported yet "
                 "(ROADMAP.md queue 1 item 16)"
             )
-        return False
-
-    def _uses_kernels(self, x: torch.Tensor) -> bool:
-        """Whether a transform of ``x`` runs on the CUDA kernels."""
-        return self.path not in ("fft", "direct") and _is_cuda(x)
+        if on_multi():
+            return "multi"
+        return "stage" if stage else "level"
 
     def _resp(self, device) -> tuple:
         """The FFT path's per-axis responses on ``device``."""
@@ -394,16 +387,11 @@ class NDDWT:
             )
         return x_pair
 
-    def _on_multi(self, dtype, level) -> bool:
-        """Whether a kernel-route call on ``dtype`` components takes the
-        one-launch multilevel kernels (one item's size counted)."""
-        return multi.multi_supported(self.shape, self.taps_hp, dtype, level)
-
     def _dec_bands(self, x, level, batched=False, route=None):
         """Band-first analysis on ``route`` (``x``'s own when None), no
         autograd; ``batched``: ``(N, *s)`` -> ``(N, B, *s)``."""
         if route is None:
-            route = self._route(x, level, batch=x.shape[0] if batched else 0)
+            route = self.route(x.dtype, level, batch=x.shape[0] if batched else 0)
         if batched:
             return self._dec_batch(x, level, route)
         if route == "fft":
@@ -416,13 +404,13 @@ class NDDWT:
             return _join(self._dec_pair(_parts(x), level, route))
         if route == "flat":
             return flat.dec_flat(x.contiguous(), self.taps_hp, level)
-        return cuda_kernels.dec_levels(x.contiguous(), self.taps_hp, level)
+        return self._dec_kernels(x.contiguous(), level, route)
 
     def _rec_bands(self, y, level, preserve_l2, batched=False, route=None):
         """Band-first synthesis on ``route`` (``y``'s own when None), no
         autograd; ``batched``: ``(N, B, *s)`` -> ``(N, *s)``."""
         if route is None:
-            route = self._route(y, level, batch=y.shape[0] if batched else 0)
+            route = self.route(y.dtype, level, batch=y.shape[0] if batched else 0)
         if batched:
             return self._rec_batch(y, level, preserve_l2, route)
         if route == "fft":
@@ -435,9 +423,26 @@ class NDDWT:
             return _join(self._rec_pair(_parts(y), level, preserve_l2, route))
         if route == "flat":
             return flat.rec_flat(y.contiguous(), self.taps_hp, level, preserve_l2)
-        return cuda_kernels.rec_levels(
-            y.contiguous(), self.taps_hp, level, preserve_l2
-        )
+        return self._rec_kernels(y.contiguous(), level, preserve_l2, route)
+
+    def _dec_kernels(self, x, level, route, lam=0.0, out=None):
+        """``(*s)`` -> ``(B, *s)`` (into ``out`` when given), the details
+        shrunk by ``lam``, on ``route``'s kernels: one multilevel launch
+        (a batch of one), or the per-level loop of the level or the stage
+        kernels."""
+        if route == "multi":
+            return multi.dec_multi(x[None], self.taps_hp, level, lam,
+                                   None if out is None else out[None])[0]
+        return cuda_kernels.dec_levels(x, self.taps_hp, level, lam, out,
+                                       stages=route == "stage")
+
+    def _rec_kernels(self, y, level, preserve_l2, route):
+        """``(B, *s)`` -> ``(*s)`` on ``route``'s kernels, as
+        ``_dec_kernels``."""
+        if route == "multi":
+            return multi.rec_multi(y[None], self.taps_hp, level, preserve_l2)[0]
+        return cuda_kernels.rec_levels(y, self.taps_hp, level, preserve_l2,
+                                       stages=route == "stage")
 
     def _dec_pair(self, xp, level, route):
         """``(2, *s)`` real components -> ``(2, B, *s)`` on a pair's
@@ -457,8 +462,7 @@ class NDDWT:
         out = torch.empty((2, self.num_bands(level)) + self.shape,
                           dtype=xp.dtype, device=xp.device)
         for c in range(2):
-            cuda_kernels.dec_levels(xp[c].contiguous(), self.taps_hp, level,
-                                    out=out[c])
+            self._dec_kernels(xp[c].contiguous(), level, route, out=out[c])
         return out
 
     def _rec_pair(self, yp, level, preserve_l2, route):
@@ -478,11 +482,8 @@ class NDDWT:
         if route == "multi":
             return multi.rec_multi(yp.contiguous(), self.taps_hp, level,
                                    preserve_l2)
-        return _gather([
-            cuda_kernels.rec_levels(yp[c].contiguous(), self.taps_hp, level,
-                                    preserve_l2)
-            for c in range(2)
-        ])
+        return _gather([self._rec_kernels(yp[c].contiguous(), level, preserve_l2, route)
+                        for c in range(2)])
 
     def _dec_batch(self, x, level, route):
         """``(N, *s)`` -> ``(N, B, *s)`` on a batch's ``route``, no autograd
@@ -544,8 +545,8 @@ class NDDWT:
         last = self._bands_last(band_axis)
         x = self._as_input(x)
         self._check_shape(x)
-        route = self._route(x, level)
-        with _entry("dec", route, level):
+        route = self.route(x.dtype, level)
+        with tracing.entry("dec", route, level):
             y = _Dec.apply(x, self, level, False, route)
         return y.movedim(0, -1) if last else y
 
@@ -566,8 +567,8 @@ class NDDWT:
                 f"match plan shape {self.shape}"
             )
         level = _oracle.level_from_bands(self.ndim, y.shape[0])
-        route = self._route(y, level)
-        with _entry("rec", route, level):
+        route = self.route(y.dtype, level)
+        with tracing.entry("rec", route, level):
             return _Rec.apply(y, self, level, False, route)
 
     @staticmethod
@@ -594,11 +595,11 @@ class NDDWT:
         threshold = self._check_threshold(threshold)
         x = self._as_input(x)
         self._check_shape(x)
-        route = self._route(x, level)
+        route = self.route(x.dtype, level)
         kernels = route not in ("fft", "direct")
         if kernels and threshold:
             _no_adjoint_on_kernels(x, "dec_rec with a threshold (non-linear)")
-        with _entry("dec_rec", route, level):
+        with tracing.entry("dec_rec", route, level):
             if route == "flat" and not _needs_grad(x):
                 if x.is_complex():
                     y, xr = (_join(t) for t in flat.pair_split_flat(
@@ -613,10 +614,8 @@ class NDDWT:
                     y = _join(yp)
                     xr = _join(self._rec_pair(yp, level, self.preserve_l2, route))
                 else:
-                    y = cuda_kernels.dec_levels(x.contiguous(), self.taps_hp,
-                                                level, lam=threshold)
-                    xr = cuda_kernels.rec_levels(y, self.taps_hp, level,
-                                                 self.preserve_l2)
+                    y = self._dec_kernels(x.contiguous(), level, route, lam=threshold)
+                    xr = self._rec_kernels(y, level, self.preserve_l2, route)
             else:
                 y = _Dec.apply(x, self, level, False, route)
                 if threshold:
@@ -643,10 +642,9 @@ class NDDWT:
                 "dec_rec_n is real-only; split complex data and use the "
                 "split entry points"
             )
-        chain = self._uses_kernels(x) and flat.iter_supported(self.shape, x.dtype)
-        route = "flat" if chain else self._route(x, level)
-        with _entry("dec_rec_n", route, level):
-            if chain:
+        route = self.route(x.dtype, level, whole=True)
+        with tracing.entry("dec_rec_n", route, level):
+            if route == "iter":
                 _no_adjoint_on_kernels(x, "dec_rec_n")
                 return flat.chain_flat(x.contiguous(), self.taps_hp, level,
                                        self.preserve_l2, thresholds)
@@ -654,37 +652,24 @@ class NDDWT:
                 _, x = self.dec_rec(x, level, threshold=lam, band_axis=0)
         return x
 
-    def _fista_fused_serves(self, b, split=False) -> bool:
-        """Whether ``_fista_fused`` serves a solve of ``b`` (a re/im pair
-        when ``split``): real, on the kernels, within ``ITER_MAX_NUMEL``."""
-        return (not b.is_complex() and self._uses_kernels(b)
-                and flat.iter_supported(self.shape, b.dtype, 2 if split else 0))
-
     def _fista_fused(self, b, mask, level, lams, moms, step, split=False):
         """A whole FISTA inpainting solve (the image-domain masked data
-        term, schedule ``lams``/``moms``) in one ``nddwt_flat_iter``
-        launch, or ``None`` where that kernel does not serve it: a CPU or
-        complex ``b``, or more than ``ITER_MAX_NUMEL`` elements (JAX
-        ``plan.py:561-601``). ``split`` takes a ``(2, *shape)`` re/im pair
-        with the joint-magnitude shrink. Used by ``models.fista_inpaint``
-        and ``fista_inpaint_split``."""
-        b = self._as_input(b)
-        if b.is_complex():
-            return None  # the generic loop serves complex data
+        term, schedule ``lams``/``moms``) in one ``nddwt_flat_iter`` launch,
+        on the route ``'iter'`` (JAX ``plan.py:561-601``). ``split`` takes a
+        ``(2, *shape)`` re/im pair with the joint-magnitude shrink. Used by
+        ``models.fista_inpaint`` and ``fista_inpaint_split``, which give
+        ``b`` and ``mask`` on the plan's device."""
         want = ((2,) + self.shape) if split else self.shape
         if tuple(b.shape) != want:
             raise ValueError(
                 f"input shape {tuple(b.shape)} does not match plan shape {want}"
             )
-        mask = self._as_input(mask)
         if tuple(mask.shape) != self.shape:
             raise ValueError(
                 f"mask shape {tuple(mask.shape)} does not match plan shape "
                 f"{self.shape}"
             )
         level = self._check_level(level)
-        if not self._fista_fused_serves(b, split):
-            return None
         _no_adjoint_on_kernels(b, "the fused FISTA solve")
         solve = flat.fista_split_flat if split else flat.fista_flat
         return solve(b.contiguous(), mask.to(b.dtype).contiguous(), self.taps_hp,
@@ -705,8 +690,8 @@ class NDDWT:
                 f"expected (N, *{self.shape}) batch with N >= 1, got "
                 f"{tuple(x.shape)}"
             )
-        route = self._route(x, level, batch=x.shape[0])
-        with _entry("dec_batched", route, level):
+        route = self.route(x.dtype, level, batch=x.shape[0])
+        with tracing.entry("dec_batched", route, level):
             return _Dec.apply(x, self, level, True, route)
 
     def rec_batched(self, y):
@@ -720,8 +705,8 @@ class NDDWT:
                 f"N >= 1, got {tuple(y.shape)}"
             )
         level = _oracle.level_from_bands(self.ndim, y.shape[1])
-        route = self._route(y, level, batch=y.shape[0])
-        with _entry("rec_batched", route, level):
+        route = self.route(y.dtype, level, batch=y.shape[0])
+        with tracing.entry("rec_batched", route, level):
             return _Rec.apply(y, self, level, True, route)
 
     # ------------------------------------------------------ split-complex
@@ -731,8 +716,8 @@ class NDDWT:
         so this equals ``dec`` of ``x_pair[0] + 1j * x_pair[1]``."""
         level = self._check_level(level)
         x_pair = self._as_pair(x_pair)
-        route = self._route(x_pair, level, pair=True)
-        with _entry("dec_split", route, level):
+        route = self.route(x_pair.dtype, level, pair=True)
+        with tracing.entry("dec_split", route, level):
             return self._dec_pair(x_pair, level, route)
 
     def rec_split(self, y_pair):
@@ -746,8 +731,8 @@ class NDDWT:
                 f"{y_pair.dtype} {tuple(y_pair.shape)}"
             )
         level = _oracle.level_from_bands(self.ndim, y_pair.shape[1])
-        route = self._route(y_pair, level, pair=True)
-        with _entry("rec_split", route, level):
+        route = self.route(y_pair.dtype, level, pair=True)
+        with tracing.entry("rec_split", route, level):
             return self._rec_pair(y_pair, level, self.preserve_l2, route)
 
     def dec_rec_split(self, x_pair, level: int, threshold: float = 0.0):
@@ -762,8 +747,8 @@ class NDDWT:
         threshold = self._check_threshold(threshold)
         level = self._check_level(level)
         x_pair = self._as_pair(x_pair)
-        route = self._route(x_pair, level, pair=True)
-        with _entry("dec_rec_split", route, level):
+        route = self.route(x_pair.dtype, level, pair=True)
+        with tracing.entry("dec_rec_split", route, level):
             if route == "flat":
                 _no_adjoint_on_kernels(x_pair, "the split iterate")
                 return flat.pair_split_flat(x_pair.contiguous(), self.taps_hp,

@@ -23,7 +23,7 @@ profiler's; nothing here keeps a list of events.
 Span names (``PERF.md`` lists the metric that reads each):
 
 * ``nddwt.<op>.<route>.L<level>``: one public call of the plan
-  (``NDDWT.route`` names the route);
+  (``NDDWT.route`` names the route, ``entry`` the span);
 * ``nddwt.split``, ``nddwt.join``: a copy between complex and re/im form,
   or one that gathers per-component results; each adds the bytes it reads
   and writes to the counter ``split_join_bytes``;
@@ -111,12 +111,6 @@ class _Span:
         return False
 
 
-def active() -> bool:
-    """Whether tracing is on: for a caller that has work to do before it
-    can name a span."""
-    return _enabled or _profiler._is_profiler_enabled
-
-
 def span(name: str):
     """A context manager around one crossing of a layer boundary. It
     yields the span while tracing is on and None while it is off, so that a
@@ -124,6 +118,15 @@ def span(name: str):
     if not (_enabled or _profiler._is_profiler_enabled):
         return _NULL
     return _Span(name)
+
+
+def entry(op: str, route: str, level: int):
+    """The span of one public call or solve, ``nddwt.<op>.<route>.L<level>``;
+    the route ``iter`` (a whole call in one ``nddwt_flat_iter`` launch) is
+    named for its kernels, ``flat``. Off, it formats no name."""
+    if not (_enabled or _profiler._is_profiler_enabled):
+        return _NULL
+    return _Span(f"nddwt.{op}.{'flat' if route == 'iter' else route}.L{int(level)}")
 
 
 def count(name: str, n: int) -> None:

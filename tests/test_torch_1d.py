@@ -23,6 +23,7 @@ CUDA cases also run on a GPU machine without JAX:
 import contextlib
 import ctypes
 import types
+from functools import partialmethod
 
 import numpy as np
 import pytest
@@ -56,7 +57,7 @@ def jx():
 def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device: the plan takes
     the kernel route, whose wrappers run their plain versions here."""
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     # The per-level route at these small shapes: tests/test_torch_flat.py
     # holds the one-launch flat route, tests/test_torch_multi.py the
     # multilevel one.
@@ -103,9 +104,9 @@ def test_levels_match_padded1(jx, calls, N, wv, level, pl2, rng):
             lambda v: jx.pallas_padded.dec_padded1(v, taps, level))(x))
         xr_j = np.asarray(jx.jax.jit(
             lambda v: jx.pallas_padded.rec_padded1(v, taps, level, pl2))(y_j))
-    y = ck.dec_levels(torch.from_numpy(x), taps, level)
+    y = ck.dec_levels(torch.from_numpy(x), taps, level, stages=False)
     np.testing.assert_allclose(y.numpy(), y_j, atol=1e-5)
-    xr = ck.rec_levels(torch.from_numpy(y_j), taps, level, pl2)
+    xr = ck.rec_levels(torch.from_numpy(y_j), taps, level, pl2, stages=False)
     np.testing.assert_allclose(xr.numpy(), xr_j, atol=1e-4)
     np.testing.assert_allclose(xr.numpy(), x, atol=1e-4)
     assert calls == {"dec1_level": level, "rec1_level": level, "dec_level": 0,
@@ -225,9 +226,9 @@ def test_1d_cuda_branches_against_a_stub_library(monkeypatch, dtype, code, ctype
     before = dict(ck.launch_counts)
     N, level = 40, 3
     taps = tw.NDDWT("db3", (N,), device="cpu").taps_hp
-    y = ck.dec_levels(on_card(torch.zeros(N, dtype=dtype)), taps, level)
+    y = ck.dec_levels(on_card(torch.zeros(N, dtype=dtype)), taps, level, stages=False)
     assert y.shape == (level + 1, N) and y.dtype == dtype
-    ck.rec_levels(on_card(y), taps, level, False)
+    ck.rec_levels(on_card(y), taps, level, False, stages=False)
     assert [name for name, _ in launched] == (
         ["nddwt_dec1_level"] * level + ["nddwt_rec1_level"] * level)
     item = y.element_size() * N

@@ -24,6 +24,7 @@ CUDA cases also run on a GPU machine without JAX:
 
 import contextlib
 import types
+from functools import partialmethod
 
 import numpy as np
 import pytest
@@ -63,7 +64,7 @@ def jx():
 def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device: the plan takes
     the kernel route, whose wrappers run their plain versions here."""
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     # The per-level route at these small shapes: tests/test_torch_flat.py
     # holds the one-launch flat route, tests/test_torch_multi.py the
     # multilevel one.
@@ -216,10 +217,10 @@ def test_levels_match_dec4_rec4(jx, shape, wv, lam, rng):
     level = 2
     x = rng.standard_normal(shape).astype(np.float32)
     want = _interpret(jx, lambda v: jx.pallas_4d.dec4(v, taps, level, lam=lam), x)
-    y = ck.dec_levels(torch.from_numpy(x), taps, level, lam)
+    y = ck.dec_levels(torch.from_numpy(x), taps, level, lam, stages=True)
     np.testing.assert_allclose(y.numpy(), np.asarray(want), atol=1e-5)
     xr_j = _interpret(jx, lambda v: jx.pallas_4d.rec4(v, taps, level, False), y.numpy())
-    xr = ck.rec_levels(y, taps, level, False)
+    xr = ck.rec_levels(y, taps, level, False, stages=True)
     np.testing.assert_allclose(xr.numpy(), np.asarray(xr_j), atol=1e-5)
     if not lam:
         np.testing.assert_allclose(xr.numpy(), x, atol=1e-4)
@@ -287,11 +288,11 @@ def test_float64_4d_levels_and_plan(jx, rng):
     shape, wv, level = (12, 10, 9, 7), ("db2", "db1", "db3", "db2"), 2
     x = rng.standard_normal(shape)
     tp = tw.NDDWT(wv, shape, dtype="float64", device="cpu")
-    y = ck.dec_levels(torch.from_numpy(x), tp.taps_hp, level)
+    y = ck.dec_levels(torch.from_numpy(x), tp.taps_hp, level, stages=True)
     assert y.dtype == torch.float64
     np.testing.assert_allclose(y.movedim(0, -1).numpy(), oracle.dec(x, wv, level),
                                atol=1e-12)
-    np.testing.assert_allclose(ck.rec_levels(y, tp.taps_hp, level, False).numpy(), x,
+    np.testing.assert_allclose(ck.rec_levels(y, tp.taps_hp, level, False, stages=True).numpy(), x,
                                atol=1e-12)
     jp = jx.nw.NDDWT(wavelet=wv, shape=shape, dtype=jx.jnp.float64)
     np.testing.assert_allclose(tp.dec(x, level).numpy(),
@@ -375,14 +376,15 @@ def test_long_filter_3d_route(calls, rng):
     shape, level, B = (40, 41, 42), 2, 15
     taps = tw.NDDWT("db20", shape, device="cpu").taps_hp
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-    y = ck.dec_levels(x, taps, level, lam=0.1)
+    stages = ck.stage_route(shape, taps)
+    y = ck.dec_levels(x, taps, level, lam=0.1, stages=stages)
     want = torch.empty_like(y)
     a = x
     for lvl in range(level):
         a = level_ref.dec_level_ref(a, want, B - 7 * (lvl + 1), taps, 0.1,
                                     final=lvl == level - 1)
     _close(y.numpy(), want.numpy(), 1e-5)
-    xr = ck.rec_levels(y, taps, level, False)
+    xr = ck.rec_levels(y, taps, level, False, stages=stages)
     acc = level_ref.rec_level_ref(y, None, [("y", b) for b in range(8)], taps, 1 / 8)
     acc = level_ref.rec_level_ref(y, acc, [("a", 0)] + [("y", 7 + b) for b in range(1, 8)],
                                   taps, 1 / 8)
@@ -418,7 +420,8 @@ def test_stage_geometry(shape, wv, lane, adj):
     the view, for the lead stages their streamed plan, inside the stream
     budget (the analysis's with the in-plane bands a walk keeps)."""
     taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
-    n, k, t, left, arr = ck._stage_geometry(shape, taps, lane, adj)
+    (n, k, t, left, arr), body = ck._stage_geometry(shape, taps, lane, adj)
+    assert body == ("lane" if lane else "window")
     lane_axes = list(range(2, len(shape)))
     if lane:
         want_n = [shape[0] * shape[1], shape[2], shape[3] if len(shape) == 4 else 1]
@@ -457,7 +460,7 @@ def test_launch_arguments():
     the extents and the tap array the kernels read through a pointer."""
     shape = (8, 8, 4, 6)
     taps = tw.NDDWT("db2", shape, device="cpu").taps_hp
-    stage = ck._stage_geometry(shape, taps, True, False)
+    stage, _ = ck._stage_geometry(shape, taps, True, False)
     multilevel = multi._multi_geometry(shape[:3], taps[:3], True, torch.float32, 1)
     for n, arr in ((stage[0], stage[-1]), (multilevel[0], multilevel[5])):
         ptr = ck._taps_ptr(arr)
@@ -494,19 +497,20 @@ def test_cuda_branches_against_a_stub_library(monkeypatch):
     before = dict(ck.launch_counts)
     shape, level = (8, 8, 4, 6), 2
     taps = tw.NDDWT("db2", shape, device="cpu").taps_hp
-    y = ck.dec_levels(on_card(torch.zeros(shape)), taps, level)
+    y = ck.dec_levels(on_card(torch.zeros(shape)), taps, level, stages=True)
     assert y.shape == (31,) + shape
-    x = ck.rec_levels(on_card(y), taps, level, False)
+    x = ck.rec_levels(on_card(y), taps, level, False, stages=True)
     assert x.shape == shape
     names = [name for name, _ in launched]
     assert names == ["nddwt_lane_dec", "nddwt_lead_dec"] * level + [
         "nddwt_lead_adj", "nddwt_lane_adj"] * level
     n = launched[0][1][3]  # lane_dec: x, temp, dtype, n, ...
     assert list(n) == [64, 4, 6]
+    assert launched[0][1][8] == 0  # body: the lane body, named by the wrapper
     src = launched[2 * level + 2][1][9]  # the second level's band sources
     assert list(src) == [-1] + list(range(16, 31))
-    y3 = ck.dec_levels(on_card(torch.zeros(shape[:3])), taps[:3], 1)
-    ck.rec_levels(on_card(y3), taps[:3], 1, True)
+    y3 = ck.dec_levels(on_card(torch.zeros(shape[:3])), taps[:3], 1, stages=False)
+    ck.rec_levels(on_card(y3), taps[:3], 1, True, stages=False)
     assert [name for name, _ in launched[-2:]] == ["nddwt_dec_level", "nddwt_rec_level"]
     for name in ck.launch_counts:
         if name.startswith("nddwt_l"):

@@ -18,6 +18,7 @@ bridge against the JAX package's, on the CPU.
 import subprocess
 import sys
 import warnings
+from functools import partialmethod
 from pathlib import Path
 
 import numpy as np
@@ -50,7 +51,7 @@ CLASSES = [
 def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device: the plans take
     the kernel route, whose wrappers run their plain versions here."""
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     # The per-level route at these small shapes: tests/test_torch_flat.py
     # holds the one-launch flat route, tests/test_torch_multi.py the
     # multilevel one.

@@ -18,6 +18,8 @@ Tolerances: float64 1e-12; float32 1e-5 (bands) and 1e-4 (reconstructions),
 the JAX tests' own.
 """
 
+from functools import partialmethod
+
 import numpy as np
 import pytest
 import torch
@@ -46,7 +48,7 @@ def _port(jp, device="cpu"):
 def routed(monkeypatch):
     """Route every tensor as if it were on a CUDA device; count the
     multilevel launches and the per-item transforms the card would run."""
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     counts = {"dec_multi": 0, "rec_multi": 0, "items": 0}
 
     def spy(module, name, key, counted=lambda a: True):
@@ -172,7 +174,7 @@ def test_batched_gradcheck(monkeypatch, kernels, pl2, rng):
     synthesis with preserve_l2, and the analysis with the per-level
     ``1/2^d`` redistributed), on the direct path and the kernel route."""
     if kernels:
-        monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+        monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     tp = tw.NDDWT("db2", (6, 8), preserve_l2=pl2, dtype="double", device="cpu")
     x = torch.from_numpy(rng.standard_normal((2, 6, 8))).requires_grad_()
     y = torch.from_numpy(rng.standard_normal((2, 7, 6, 8))).requires_grad_()

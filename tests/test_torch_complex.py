@@ -10,6 +10,8 @@ through the level-kernel chain, the joint shrink through
 the device check as ``tests/test_torch_plan.py`` does.
 """
 
+from functools import partialmethod
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,7 +38,7 @@ THRESHOLD = 0.3
 def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device, and count the
     joint-magnitude shrinks."""
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     # The per-level route at these small shapes: tests/test_torch_flat.py
     # holds the one-launch flat route, tests/test_torch_multi.py the
     # multilevel one.

@@ -11,6 +11,8 @@ in another order, and float32 vs float64 momentum coefficients; measured
 4e-7).
 """
 
+from functools import partialmethod
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -52,7 +54,7 @@ def calls(monkeypatch):
 @pytest.fixture
 def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device."""
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     # The per-level route at these small shapes: tests/test_torch_flat.py
     # holds the one-launch flat route, tests/test_torch_multi.py the
     # multilevel one.

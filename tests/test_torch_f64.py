@@ -26,6 +26,7 @@ CUDA cases also run on a GPU machine without JAX:
 import contextlib
 import ctypes
 import types
+from functools import partialmethod
 
 import numpy as np
 import pytest
@@ -64,7 +65,7 @@ def jx():
 def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device: the plan takes
     the kernel route, whose wrappers run their plain versions here."""
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     # The per-level route at these small shapes: tests/test_torch_flat.py
     # holds the one-launch flat route, tests/test_torch_multi.py the
     # multilevel one.
@@ -106,10 +107,10 @@ def test_f64_levels_match_df32(jx, shape, wv, level, pl2, rng):
     y_j = _interpret(jx, lambda v: jx.pallas_df32.dec64(v, jp.taps_hp, level), x, jit=False)
     xr_j = _interpret(jx, lambda v: jx.pallas_df32.rec64(v, jp.taps_hp, level, pl2), y_j,
                       jit=False)
-    y = ck.dec_levels(torch.from_numpy(x), jp.taps_hp, level)
+    y = ck.dec_levels(torch.from_numpy(x), jp.taps_hp, level, stages=False)
     assert y.dtype == torch.float64
     np.testing.assert_allclose(y.numpy(), y_j, atol=1e-5)
-    xr = ck.rec_levels(y, jp.taps_hp, level, pl2)
+    xr = ck.rec_levels(y, jp.taps_hp, level, pl2, stages=False)
     np.testing.assert_allclose(xr.numpy(), xr_j, atol=1e-5)
     gold = np.moveaxis(oracle.dec(x, wv, level, pl2), -1, 0)
     np.testing.assert_allclose(y.numpy(), gold, atol=1e-12)
@@ -179,47 +180,37 @@ def test_fft_path_matches_jax(jx, as_cuda, calls, shape, wv, dtype, tol, rec_tol
 @pytest.mark.parametrize("shape,wv,level", [((41, 16, 10), "db2", 2), ((19, 257), "db4", 1),
                                             ((20, 12, 10), ("db1", "db2", "db3"), 2),
                                             ((10, 6, 4, 6), "db2", 2)])
-def test_levels_serve_the_ragged_shapes(jx, calls, monkeypatch, shape, wv, level, rng):
+def test_levels_serve_the_ragged_shapes(jx, calls, shape, wv, level, rng):
     """The TPU's ragged kernels exist for odd mid-size 2D/3D shapes
     (``pallas_ragged``, the cases of ``tests/test_ragged.py``); the port's
     per-level kernels (stage kernels in 4D) wrap every index and serve the
     same class: their level loops match ``dec_ragged`` (with the fused
     shrink) and ``rec_ragged`` in interpret mode. (The multilevel kernels,
-    which run the same tiles, are switched off here and held in
-    tests/test_torch_multi.py.)"""
-    monkeypatch.setattr(multi, "MULTI_MAX_NUMEL", 0)
+    which run the same tiles, are held in tests/test_torch_multi.py.)"""
     jp = jx.nw.NDDWT(wavelet=wv, shape=shape, dtype=jx.jnp.float32)
     taps = tuple(np.asarray(t) for t in jp.taps_hp)
     x = rng.standard_normal(shape).astype(np.float32)
     y_j = _interpret(jx, lambda v: jx.pallas_ragged.dec_ragged(v, taps, level, 0.1), x)
-    y = ck.dec_levels(torch.from_numpy(x), taps, level, 0.1)
+    y = ck.dec_levels(torch.from_numpy(x), taps, level, 0.1, stages=len(shape) == 4)
     np.testing.assert_allclose(y.numpy(), y_j, atol=1e-5)
     pl2 = len(shape) % 2 == 0
     xr_j = _interpret(jx, lambda v: jx.pallas_ragged.rec_ragged(v, taps, level, pl2), y_j)
-    xr = ck.rec_levels(torch.from_numpy(y_j.copy()), taps, level, pl2).numpy()
+    xr = ck.rec_levels(torch.from_numpy(y_j.copy()), taps, level, pl2,
+                       stages=len(shape) == 4).numpy()
     np.testing.assert_allclose(xr, xr_j, atol=1e-5 * np.abs(xr_j).max())
     kernels = LEVEL_NAMES[2:] if len(shape) == 4 else LEVEL_NAMES[:2]
     assert all(calls[n] == (level if n in kernels else 0) for n in LEVEL_NAMES)
 
 
 def test_f64_tiles_and_stage_route():
-    """A float64 level sizes the tile that picks its route (``_tiles``) at
-    8 bytes a word: smaller tiles, within the budget, and shorter 3D filters
+    """A float64 level picks its route at 8 bytes a word: shorter 3D filters
     take the stage kernels; the streamed analysis keeps a ring of 8-byte words, so it
     takes one plane element a thread at db4 (two in float32) and all four
     in-plane bands a walk, within the stream budget."""
     shape = (256, 256, 256)
     taps = tw.NDDWT("db4", shape, device="cpu").taps_hp
-    k = [8, 8, 8]
-    for rec in (False, True):
-        t32 = ck._tiles(list(shape), k, rec)
-        t = ck._tiles(list(shape), k, rec, 8)
-        assert t != t32
-        e = [t[a] + k[a] - 1 for a in range(3)]
-        words = e[0] * e[1] * e[2] + t[0] * e[1] * e[2] + t[0] * t[1] * e[2]
-        assert 8 * (words + (t[0] * t[1] * t[2] if rec else 0)) <= ck._SMEM_BUDGET
-    n, k, t, left, bit, pad, arr = ck._dec_stream_geometry(shape, taps, torch.float64)
-    t32 = ck._dec_stream_geometry(shape, taps)[2]
+    n, k, left, bit, pad, arr = ck._level_stream_view(shape, taps, torch.float64, None, False)
+    t, t32 = (ck._stream_plan(n, k, dt, "dec") for dt in (torch.float64, torch.float32))
     assert arr.dtype == np.float64 and left == [3, 3, 3]
     assert t[1] * t[2] == 256 and t32[1] * t32[2] == 512
     assert ck._walk_bands(k, t, torch.float64) == 4
@@ -228,8 +219,8 @@ def test_f64_tiles_and_stage_route():
     assert not ck.stage_route((64, 64, 64), long, torch.float32)
     assert ck.stage_route((64, 64, 64), long, torch.float64)
     for lane, adj in ((True, False), (False, True)):
-        n, k, t, left, arr = ck._stage_geometry((16, 16, 8, 16), taps + taps[:1], lane, adj,
-                                                torch.float64)
+        (n, k, t, left, arr), _ = ck._stage_geometry((16, 16, 8, 16), taps + taps[:1], lane,
+                                                     adj, torch.float64)
         assert arr.dtype == np.float64
         if adj:  # the lead adjoint streams X; its windows are 8-byte words
             assert ck._stream_smem(list(k), list(t), torch.float64) <= ck._STREAM_SMEM_BUDGET
@@ -291,19 +282,21 @@ def test_f64_cuda_branches_against_a_stub_library(monkeypatch):
     dbl = ctypes.POINTER(ctypes.c_double)
     shape = (8, 8, 6)
     taps = tw.NDDWT(("db2", "db3", "db1"), shape, device="cpu").taps_hp
-    y = ck.dec_levels(on_card(torch.zeros(shape, dtype=torch.float64)), taps, 1, lam=0.25)
-    ck.rec_levels(on_card(y), taps, 1, False)
+    y = ck.dec_levels(on_card(torch.zeros(shape, dtype=torch.float64)), taps, 1, lam=0.25,
+                      stages=False)
+    ck.rec_levels(on_card(y), taps, 1, False, stages=False)
     (_, dec), (_, rec) = launched
     assert dec[3] == rec[3] == 2 and isinstance(dec[9], dbl) and isinstance(rec[9], dbl)
     # slot 1 (axis 1, db3), lo row: (1 * 2 + 0) * kMaxTaps onwards
     assert [dec[9][2 * 76 + j] for j in range(6)] == list(taps[1][0])
     assert [rec[9][2 * 76 + j] for j in range(6)] == list(taps[1][0][::-1])
     assert dec[11] == 0.25 and rec[11] == 0.125
+    assert dec[14] == rec[13] == 0  # mixed filters: the window body, named by the wrapper
     launched.clear()
     shape4 = (8, 8, 6, 6)
     y4 = ck.dec_levels(on_card(torch.zeros(shape4, dtype=torch.float64)),
-                       taps[:2] + taps[1:], 1)
-    ck.rec_levels(on_card(y4), taps[:2] + taps[1:], 1, True)
+                       taps[:2] + taps[1:], 1, stages=True)
+    ck.rec_levels(on_card(y4), taps[:2] + taps[1:], 1, True, stages=True)
     assert [name for name, _ in launched] == ["nddwt_lane_dec", "nddwt_lead_dec",
                                               "nddwt_lead_adj", "nddwt_lane_adj"]
     for name, args in launched:

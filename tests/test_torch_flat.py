@@ -29,6 +29,7 @@ CUDA cases also run on a GPU machine without JAX:
 import contextlib
 import ctypes
 import types
+from functools import partialmethod
 
 import numpy as np
 import pytest
@@ -64,7 +65,7 @@ def jx():
 def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device: the plan takes
     the kernel route, whose wrappers run their plain versions here."""
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
 
 
 @pytest.fixture
@@ -262,23 +263,30 @@ def test_fista_one_launch(jx, as_cuda, calls, split, dtype, tol, rng):
 
 
 def test_fista_fused_declines(jx, as_cuda, monkeypatch, rng):
-    """``_fista_fused`` returns None where ``nddwt_flat_iter`` does not
-    serve the solve (complex data, beyond ``ITER_MAX_NUMEL``, a CPU
-    tensor), as the JAX plan does, and checks its shapes."""
+    """The solve's route declines the one-launch solve (``iter``) where
+    ``nddwt_flat_iter`` does not serve it (complex data, beyond
+    ``ITER_MAX_NUMEL``, a CPU tensor), as the JAX plan does; and
+    ``_fista_fused`` checks its shapes."""
     tp = _port_plan(_jax_plan(jx, "db2", (16, 16)))
     good = torch.ones(16, 16)
     lams, moms = cs_recon._fista_schedule(2, 0.05, 1.0)
-    assert tp._fista_fused(good + 0j, good, 1, lams, moms, 1.0) is None
+
+    def route(b, split=False):
+        return cs_recon._solve_route(tp, b, 0.05, 1, split)
+
+    assert route(good + 0j) == "flat"  # the generic loop, on the flat kernel
+    assert route(torch.stack([good, good]), True) == "iter"
     with pytest.raises(ValueError, match="does not match"):
         tp._fista_fused(good, good, 1, lams, moms, 1.0, split=True)
     with pytest.raises(ValueError, match="mask shape"):
         tp._fista_fused(good, torch.ones(8, 8), 1, lams, moms, 1.0)
-    assert tp._fista_fused(good, good, 1, lams, moms, 1.0) is not None
+    assert route(good) == "iter"
+    assert tp._fista_fused(good, good, 1, lams, moms, 1.0).shape == (16, 16)
     monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 255)
-    assert tp._fista_fused(good, good, 1, lams, moms, 1.0) is None
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: False)
+    assert route(good) == "stepped"
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=False))
     monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 2**20)
-    assert tp._fista_fused(good, good, 1, lams, moms, 1.0) is None
+    assert route(good) == "direct"
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", (1e-5, 1e-4)),
@@ -435,9 +443,9 @@ def test_flat_wrappers_check_their_operands():
     with pytest.raises(ValueError, match="a mask of"):
         flat.fista_flat(torch.zeros(8, 8), torch.zeros(4, 4), taps, 2, True,
                         [0.1], [0.0], 1.0)
-    assert flat.flat_supported((8, 8), torch.float64, 2, taps=taps)
-    assert not flat.flat_supported((8, 8), torch.int32, taps=taps)
-    assert not flat.flat_supported((2,) * 9, torch.float32, taps=taps)
+    assert flat.flat_supported((8, 8), torch.float64, 2)
+    assert not flat.flat_supported((8, 8), torch.int32)
+    assert not flat.flat_supported((2,) * 9, torch.float32)
     assert flat.iter_supported((256, 256), torch.float32, 2)
 
 
@@ -451,13 +459,20 @@ def test_flat_wrappers_check_their_operands():
 ])
 def test_flat_limit_follows_the_per_level_route(wv, shape, route):
     """The flat kernel's size limit is the one measured against the
-    per-level route the array would take otherwise."""
-    taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
+    per-level route the array would take otherwise: ``NDDWT.route`` takes
+    the flat kernel up to it and not beyond (where 5D and up raise)."""
     limit = flat.FLAT_MAX_NUMEL[route]
-    assert flat.flat_limit(shape, taps, torch.float32) == limit
+    assert flat.flat_limit(route) == limit
+    plan = tw.NDDWT(wv, shape, device="cpu")
+    assert (plan.route(torch.float32, 2, on_card=True) == "flat") == (np.prod(shape) <= limit)
     side = round(limit ** (1 / len(shape)))
-    assert flat.flat_supported(shape, torch.float32, taps=taps) == (np.prod(shape) <= limit)
-    assert not flat.flat_supported((side + 1,) * len(shape), torch.float32, taps=taps)
+    assert not flat.flat_supported((side + 1,) * len(shape), torch.float32, replaces=route)
+    beyond = tw.NDDWT(wv, (side + 1,) * len(shape), device="cpu")
+    if len(shape) > 4:
+        with pytest.raises(NotImplementedError, match="flat kernel only"):
+            beyond.route(torch.float32, 2, on_card=True)
+    else:
+        assert beyond.route(torch.float32, 2, on_card=True) != "flat"
 
 
 # --------------------------------------------------------------- on the card

@@ -23,6 +23,7 @@ import contextlib
 import math
 import sys
 import types
+from functools import partialmethod
 from pathlib import Path
 
 import pytest
@@ -116,7 +117,8 @@ class _OnCard(torch.Tensor):
 
 @pytest.fixture
 def stub_library(monkeypatch):
-    """The flat kernels' library stubbed: a launch returns 0."""
+    """The flat kernels' library stubbed: a launch returns 0; plans route
+    as on the card."""
     class Stub:
         def __getattr__(self, name):
             return lambda *args: 0
@@ -127,6 +129,7 @@ def stub_library(monkeypatch):
                         lambda: types.SimpleNamespace(cuda_stream=0))
     empty = torch.empty
     monkeypatch.setattr(torch, "empty", lambda *a, **k: empty(*a, **k).as_subclass(_OnCard))
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     return monkeypatch
 
 
@@ -227,7 +230,7 @@ def test_the_solve_span_names_its_route(monkeypatch, route):
     plan = tw.NDDWT(("db1", "db3"), shape, preserve_l2=True, device="cpu")
     b, mask = (t.float() for t in _problem(shape))
     if route != "direct":
-        monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+        monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     if route == "stepped":
         monkeypatch.setattr(flat, "ITER_MAX_NUMEL", 0)
     tracing.enable()

@@ -76,9 +76,9 @@ def test_lane_schedule_matches_plain(shape, wv, dtype, shift, plan, ctas, adj):
     taps = _taps(wv, len(shape))
     rng = np.random.default_rng(len(shape) * 100 + shape[-1])
     x = torch.from_numpy(rng.standard_normal(shape)).to(dtype)
-    n, k, t, left, arr = (tuple(v) if i < 4 else v for i, v in
-                          enumerate(ck._stage_geometry(shape, taps, True, adj, dtype)))
-    assert t[2] > 0  # the lane body, not the tile body
+    geometry, body = ck._stage_geometry(shape, taps, True, adj, dtype)
+    n, k, t, left, arr = (tuple(v) if i < 4 else v for i, v in enumerate(geometry))
+    assert body == "lane"  # not the tile body
     t = plan or t
     nl = 2 ** (len(shape) - 2)
     if adj:
@@ -102,7 +102,7 @@ def test_lane_replay_sees_a_missed_piece(monkeypatch):
     taps = _taps("db2", 4)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(shape)).float()
     n, k, t, left, arr = (tuple(v) if i < 4 else v for i, v in
-                          enumerate(ck._stage_geometry(shape, taps, True, False)))
+                          enumerate(ck._stage_geometry(shape, taps, True, False)[0]))
     real = stream_ref._lane_bulk
 
     def drop_second_piece(a, m, size, tlo, thi):
@@ -217,9 +217,9 @@ def test_lane_route_pins_the_tile_class(shape, wv, dtype, want):
     """The class left on the tile body: a lane stage where even one Z row
     chunk (K1 rows of the whole T row of every input array, one buffer)
     overflows the stream budget, so that ``_lane_plan`` finds no plan. Its
-    geometry carries the tile body's tile as (t0, t1, -t2), inside that
-    body's 32 KB; where no tile fits 32 KB either (db38 in float64), the
-    geometry raises ("none")."""
+    geometry names the tile body and carries its tile, inside that body's
+    32 KB; where no tile fits 32 KB either (db38 in float64), the geometry
+    raises ("none")."""
     taps = _taps(wv, len(shape))
     n, slot_taps = ck._stage_slots(shape, taps, True)
     k = tuple(1 if t is None else int(np.shape(t)[1]) for t in slot_taps)
@@ -236,10 +236,11 @@ def test_lane_route_pins_the_tile_class(shape, wv, dtype, want):
             with pytest.raises(NotImplementedError, match="neither the lane body"):
                 ck._stage_geometry(shape, taps, True, adj, dtype)
             continue
-        n, k, t, left, arr = ck._stage_geometry(shape, taps, True, adj, dtype)
+        (n, k, t, left, arr), body = ck._stage_geometry(shape, taps, True, adj, dtype)
+        assert body == route
         if route == "lane":
-            assert t[2] > 0 and tuple(t) == ck._lane_plan(tuple(n), tuple(k), dtype, adj)
+            assert tuple(t) == ck._lane_plan(tuple(n), tuple(k), dtype, adj)
         else:
-            tile = (t[0], t[1], -t[2])
+            tile = tuple(t)
             assert min(tile) >= 1 and all(a <= b for a, b in zip(tile, n))
             assert word * ck._stage_words(tile, list(k), adj) <= ck._LANE_SMEM_BUDGET

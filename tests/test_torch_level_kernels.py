@@ -87,7 +87,7 @@ def test_dec_levels_match_jax_chain(jx, shape, wv, lam, rng):
             jx.jax.jit(lambda v: _jax_dec_chain(jx, v, taps_np, lam))(x)
         )
     plan = tw.NDDWT(wv, shape, device="cpu")
-    y = cuda_kernels.dec_levels(torch.from_numpy(x), plan.taps_hp, LEVEL, lam)
+    y = cuda_kernels.dec_levels(torch.from_numpy(x), plan.taps_hp, LEVEL, lam, stages=False)
     assert y.shape == y_jax.shape and y.dtype == torch.float32
     np.testing.assert_allclose(y.numpy(), y_jax, atol=1e-5)
 
@@ -101,7 +101,8 @@ def test_rec_levels_match_jax_chain(jx, shape, wv, rng):
     with jx.pltpu.force_tpu_interpret_mode():
         x_jax = np.asarray(jx.jax.jit(lambda v: _jax_rec_chain(jx, v, taps_np))(y))
     plan = tw.NDDWT(wv, shape, device="cpu")
-    xr = cuda_kernels.rec_levels(torch.from_numpy(y), plan.taps_hp, LEVEL, False)
+    xr = cuda_kernels.rec_levels(torch.from_numpy(y), plan.taps_hp, LEVEL, False,
+                                 stages=False)
     np.testing.assert_allclose(xr.numpy(), x_jax, atol=1e-5)
     np.testing.assert_allclose(xr.numpy(), x, atol=1e-4)  # the round trip
 
@@ -146,9 +147,9 @@ def test_kernel_geometry(shape, wv, rec):
     kernels' geometry of one item, which is the same launch's (their units
     are its CTA tiles)."""
     plan = tw.NDDWT(wv, shape, device="cpu")
-    geometry = (cuda_kernels._rec_stream_geometry if rec
-                else cuda_kernels._dec_stream_geometry)
-    n, k, t, left, bit, pad, arr = geometry(shape, plan.taps_hp)
+    n, k, left, bit, pad, arr = cuda_kernels._level_stream_view(
+        shape, plan.taps_hp, torch.float32, None, rec)
+    t = cuda_kernels._stream_plan(n, k, torch.float32, "rec" if rec else "dec")
     K = list(plan.filter_lengths)
     assert n == (list(shape) if len(shape) == 3 else [shape[0], 1, shape[1]])
     assert k == (K if len(shape) == 3 else [K[0], 1, K[1]])
@@ -174,9 +175,11 @@ def test_kernel_geometry(shape, wv, rec):
 
 
 def test_long_filters_raise_in_3d():
+    """Filters longer than an axis of the item: the multilevel kernels take
+    no level of it."""
     plan = tw.NDDWT("db15", (32, 32, 32), device="cpu")
-    with pytest.raises(NotImplementedError, match="too long"):
-        multi._multi_geometry(plan.shape, plan.taps_hp, False, torch.float32, 1)
+    with pytest.raises(NotImplementedError, match="take no level"):
+        multi._multi_geometry((32, 32, 28), plan.taps_hp, False, torch.float32, 1)
 
 
 @pytest.fixture

@@ -25,6 +25,7 @@ CUDA cases also run on a GPU machine without JAX:
 import contextlib
 import ctypes
 import types
+from functools import partialmethod
 
 import numpy as np
 import pytest
@@ -153,11 +154,10 @@ def test_multi_ref_f64_batch_matches_jax_and_oracle(jx, shape, wv, level, pl2, r
 
 
 @pytest.mark.parametrize("shape,wv", [((24, 40, 36), "db4"), ((32, 48), ("db1", "db3"))])
-def test_multi_ref_bf16_equals_level_chain(monkeypatch, shape, wv, rng):
+def test_multi_ref_bf16_equals_level_chain(shape, wv, rng):
     """In bfloat16 the approximation between levels is stored in bfloat16,
     as the per-level chain stores it: a batch of two equals each item's
-    per-level chain (the multilevel route switched off) exactly."""
-    monkeypatch.setattr(multi, "MULTI_MAX_NUMEL", 0)
+    per-level chain exactly."""
     taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
     x = torch.from_numpy(rng.standard_normal((2,) + shape)).to(torch.bfloat16)
     y = multi.dec_multi(x, taps, 3, LAM)
@@ -165,9 +165,9 @@ def test_multi_ref_bf16_equals_level_chain(monkeypatch, shape, wv, rng):
         xr = multi.rec_multi(y, taps, 3, pl2)
         assert xr.dtype == torch.bfloat16
         for i in range(2):
-            assert torch.equal(xr[i], ck.rec_levels(y[i], taps, 3, pl2))
+            assert torch.equal(xr[i], ck.rec_levels(y[i], taps, 3, pl2, stages=False))
     for i in range(2):
-        assert torch.equal(y[i], ck.dec_levels(x[i], taps, 3, LAM))
+        assert torch.equal(y[i], ck.dec_levels(x[i], taps, 3, LAM, stages=False))
 
 
 @pytest.mark.parametrize("shape,wv,dtype,level,want", [
@@ -177,16 +177,21 @@ def test_multi_ref_bf16_equals_level_chain(monkeypatch, shape, wv, rng):
     ((64, 128), "db2", torch.float32, 1, False),  # one level: the per-level kernel
     ((1024,), "db2", torch.float32, 3, False),  # 1D
     ((8, 8, 8, 8), "db2", torch.float32, 2, False),  # 4D
-    ((64, 64, 64), "db20", torch.float32, 2, False),  # the stage kernels' filters
-    ((64, 64, 64), "db12", torch.float64, 2, False),  # the same in float64
+    ((64, 64, 64), "db20", torch.float32, 2, "stage"),  # the stage kernels' filters
+    ((64, 64, 64), "db12", torch.float64, 2, "stage"),  # the same in float64
     ((64, 64, 64), "db4", torch.float16, 2, False),  # no float16 kernels
 ])
-def test_multi_supported_gates(shape, wv, dtype, level, want):
+def test_multi_supported_gates(monkeypatch, shape, wv, dtype, level, want):
     """``multi_supported`` (JAX ``multi_feasible``, ``test_multilevel_gates``)
     takes 2D and 3D items of at least two levels whose filters fit the tile
-    in both directions, up to ``MULTI_MAX_NUMEL`` elements an item."""
-    taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
-    assert multi.multi_supported(shape, taps, dtype, level) is want
+    in both directions, up to ``MULTI_MAX_NUMEL`` elements an item. A 3D
+    level of the stage route ("stage") is such an item, and ``NDDWT.route``
+    keeps it on the stage kernels, beyond the flat kernel's size too."""
+    plan = tw.NDDWT(wv, shape, device="cpu")
+    assert multi.multi_supported(shape, plan.taps_hp, dtype, level) is (want is not False)
+    if want == "stage":
+        monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+        assert plan.route(dtype, level, on_card=True) == "stage"
 
 
 @pytest.mark.parametrize("ndim", [2, 3])
@@ -208,7 +213,7 @@ def test_multi_supported_limit(ndim):
 def routed(monkeypatch):
     """Route every tensor as if it were on a CUDA device, beyond the flat
     kernel's size; count what the card would launch."""
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
     counts = dict.fromkeys(("dec_multi", "rec_multi", "levels", "mag_shrink_pair"), 0)
 
@@ -379,7 +384,10 @@ def test_multi_wrappers_check_their_operands():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
 @pytest.mark.parametrize("shape,wv,level,batch", [((37, 29, 41), "db4", 3, 2),
                                                   ((50, 33), ("db2", "db6"), 4, 3),
-                                                  ((16, 16, 256), ("db1", "db3", "db2"), 2, 1)])
+                                                  ((16, 16, 256), ("db1", "db3", "db2"), 2, 1),
+                                                  # the stage route's filters, which the
+                                                  # kernels take (no route sends them)
+                                                  ((40, 36, 33), "db15", 2, 1)])
 def test_cuda_multi_kernels_match_plain_versions(shape, wv, level, batch, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")

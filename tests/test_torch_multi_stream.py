@@ -13,7 +13,7 @@ once a level). Here it is held against the kernels' plain versions
 kernels ``_fused_dec_multi``/``_fused_rec_multi`` in TPU interpret mode.
 
 Also: ``multi_supported``'s boundary (an extent equal to the filter, one
-shorter, the stage route) and ``stage_route``'s answers
+shorter, the stage route's filters) and ``stage_route``'s answers
 over a grid of 3D shapes and filters, pinned to what they were before the
 multilevel kernels streamed.
 
@@ -163,17 +163,17 @@ def test_multi_replay_matches_pallas_multi(jax_multi, case):
     ((30, 8), "db4", F64, True),
     ((8, 9, 10), "db4", BF16, True),
     ((9, 10, 7), "db4", F32, False),
-    ((64, 64, 64), "db15", F32, False),  # the stage route
-    ((64, 64, 64), "db12", F64, False),
+    ((64, 64, 64), "db15", F32, True),  # the stage route's filters (NDDWT.route
+    ((64, 64, 64), "db12", F64, True),  # keeps those levels on the stage kernels)
     ((64, 64, 64), "db12", F32, True),
     ((48, 44, 46), ("db15", "db15", "db2"), F64, True),
     ((80, 90), "db38", F64, True),  # 2D: every filter length
 ])
 def test_multi_supported_boundary(shape, wv, dtype, want):
     """``multi_supported`` holds where both directions' streamed plans exist
-    (every filter no longer than its axis, outside the stage route), and
-    then ``_multi_geometry`` builds both launches at any batch; where it
-    does not, the geometry raises."""
+    (every filter no longer than its axis), and then ``_multi_geometry``
+    builds both launches at any batch; where it does not, the geometry
+    raises."""
     ext = tuple(max(s, 8) for s in shape) if not want else shape
     taps = tw.NDDWT(wv, ext, device="cpu").taps_hp
     assert multi.multi_supported(shape, taps, dtype, 3) is want

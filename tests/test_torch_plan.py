@@ -9,6 +9,7 @@ the CUDA path are all held against JAX here.
 """
 
 import importlib
+from functools import partialmethod
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +40,7 @@ TOL = {"float32": (1e-5, 1e-4), "float64": (1e-12, 1e-12)}
 @pytest.fixture
 def as_cuda(monkeypatch):
     """Route every tensor as if it were on a CUDA device."""
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     # The per-level route at these small shapes: tests/test_torch_flat.py
     # holds the one-launch flat route, tests/test_torch_multi.py the
     # multilevel one.
@@ -273,8 +274,9 @@ def test_tensor_on_another_device_raises(plan_dev, tensor_dev):
 @pytest.mark.parametrize("path", ["direct", "pallas"])
 def test_path_picks_the_route(as_cuda, monkeypatch, path, rng):
     """On a (stubbed) CUDA tensor ``'direct'`` runs the torch direct path
-    and ``'pallas'`` the kernels; both match JAX. ``'pallas'`` refuses a
-    tensor the kernels cannot take."""
+    and ``'pallas'`` the kernels (the per-level loops, the route the plan
+    names); both match JAX. ``'pallas'`` refuses a tensor the kernels
+    cannot take."""
     route = []
     for name in ("dec_levels", "rec_levels"):
         real = getattr(tplan.cuda_kernels, name)
@@ -283,13 +285,14 @@ def test_path_picks_the_route(as_cuda, monkeypatch, path, rng):
     shape = (16, 12, 20)
     jp = nw.NDDWT(wavelet="db4", shape=shape, dtype=jnp.float32)
     tp = tw.NDDWT("db4", shape, path=path, device="cpu")
+    assert tp.route(torch.float32, 3) == ("level" if path == "pallas" else "direct")
     x = rng.standard_normal(shape).astype(np.float32)
     yb_j, xr_j = jp.dec_rec(jnp.asarray(x), 3, threshold=0.1)
     yb_t, xr_t = tp.dec_rec(x, 3, threshold=0.1)
     np.testing.assert_allclose(yb_t.numpy(), np.asarray(yb_j), atol=1e-5)
     np.testing.assert_allclose(xr_t.numpy(), np.asarray(xr_j), atol=1e-4)
     assert len(route) == (2 if path == "pallas" else 0)
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: False)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=False))
     if path == "pallas":
         with pytest.raises(ValueError, match="path='pallas'"):
             tp.dec(x, 3)

@@ -4,7 +4,7 @@
 
 * Their schedules replayed (``ops/stream_ref.py``) on the geometry the
   wrappers build (``cuda_kernels.rec_stream_args``,
-  ``cuda_kernels._dec_stream_geometry``, ``cuda_kernels._stage_geometry``,
+  ``cuda_kernels._level_stream_view``, ``cuda_kernels._stage_geometry``,
   ``cuda_kernels._walk_bands``) against the plain versions
   ``level_ref.rec_level_ref``, ``level4_ref.lead_adj_ref``,
   ``level_ref.dec_level_ref`` and ``level4_ref.lead_dec_ref``, which the
@@ -34,8 +34,9 @@
 * The plans: shared memory within the budget for every filter length and
   dtype, the launch constraints the kernels check, and chunks and plane
   tiles that cover every output once.
-* ``stage_route`` and ``multi.multi_supported`` pinned to their answers on
-  a table of shapes, wavelets and dtypes: the new plan moves no route.
+* ``stage_route`` and ``NDDWT.route``'s multilevel route pinned to their
+  answers on a table of shapes, wavelets and dtypes: the new plan moves no
+  route.
 """
 
 import numpy as np
@@ -44,7 +45,7 @@ import torch
 
 import non_decimated_wavelets_tpu_torch as tw
 from non_decimated_wavelets_tpu_torch.ops import cuda_kernels as ck
-from non_decimated_wavelets_tpu_torch.ops import level4_ref, level_ref, multi, stream_ref
+from non_decimated_wavelets_tpu_torch.ops import flat, level4_ref, level_ref, multi, stream_ref
 
 torch.set_num_threads(1)
 
@@ -250,7 +251,7 @@ def test_multilevel_and_lead_stage_keep_the_window_body():
         assert tuple(t) == ck._stream_plan(n, k, F32, kind, 2)
     taps4 = tw.NDDWT("db4", (16, 16, 8, 8), device="cpu").taps_hp
     for adj, kind in ((True, "lead"), (False, "lead_dec")):
-        n, k, t, *_ = ck._stage_geometry((16, 16, 8, 8), taps4, False, adj, F32)
+        (n, k, t, *_), _ = ck._stage_geometry((16, 16, 8, 8), taps4, False, adj, F32)
         assert tuple(t) == ck._stream_plan(n, k, F32, kind)
     including = sorted(p.name for p in ck.CSRC.glob("*.c*")
                        if '#include "nddwt_plane.cuh"' in p.read_text())
@@ -463,6 +464,52 @@ def test_plane_ana_matches_window_body_on_card(dtype):
             _close(got[0], got[1], dtype)
 
 
+@pytest.mark.cuda
+def test_level_launch_refuses_a_plan_not_of_its_body():
+    """``nddwt_dec_level`` and ``nddwt_rec_level`` run the body they are
+    named and return ``cudaErrorInvalidValue`` (1) where the plan does not
+    fit it: the window body's plan named plane, the plane body's named
+    window, the plane body named where the input is off 16 bytes, and a
+    body that does not exist; the plan built for each body runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import ctypes
+
+    shape, stream = (24, 40, 72), torch.cuda.current_stream().cuda_stream
+    taps = tw.NDDWT("db4", shape, device="cuda").taps_hp
+    x = torch.randn(shape, device="cuda")
+    moved = torch.empty(x.numel() + 1, device="cuda")[1:].view(shape).copy_(x)
+    big, out = torch.zeros((15,) + shape, device="cuda"), torch.empty(shape, device="cuda")
+    lib = ck.load()
+    (n, k, plane, left, bit, pad, arr), body = ck.dec_stream_args(x, shape, taps)
+    window = ck._stream_plan(n, k, F32, "dec")
+    assert body == "plane"
+
+    def dec(inp, t, body):
+        return lib.nddwt_dec_level(
+            inp.data_ptr(), big.data_ptr(), out.data_ptr(), 0, *map(ck._ints, (n, k, t, left, bit)),
+            ck._taps_ptr(arr), 8, 0.0, ck._walk_bands(k, window, F32), ck._ints(pad), body,
+            stream)
+
+    assert [dec(x, window, 1), dec(x, plane, 0), dec(moved, plane, 1), dec(x, plane, 2)] == [1] * 4
+    assert [dec(x, plane, 1), dec(x, window, 0), dec(moved, window, 0)] == [0] * 3
+    y = torch.randn((8,) + shape, device="cuda")
+    src = [("y", b) for b in range(8)]
+    _, _, (n, k, plane, left, bit, pad, arr), body = ck.rec_stream_args(y, None, src, taps)
+    window = ck._stream_plan(n, k, F32, "rec")
+    assert body == "plane"
+    idx = (ctypes.c_longlong * 8)(*range(8))
+
+    def rec(t, body):
+        return lib.nddwt_rec_level(
+            y.data_ptr(), y.data_ptr(), out.data_ptr(), 0, *map(ck._ints, (n, k, t, left, bit)),
+            ck._taps_ptr(arr), idx, 1.0, ck._ints(pad), body, stream)
+
+    assert [rec(window, 1), rec(plane, 0), rec(plane, 2)] == [1] * 3
+    assert [rec(plane, 1), rec(window, 0)] == [0] * 2
+    torch.cuda.synchronize()
+
+
 # (view n, taps per slot, halo-padded flags, dtype, the input off 16 bytes):
 # the body nddwt_dec_level takes
 DEC_BODIES = [
@@ -609,7 +656,7 @@ def test_lead_adj_schedule_matches_plain(monkeypatch, shape, wv, dtype, padded, 
     approx = _randn(rng, in_shape, dtype)
     src = [("a", 0)] + [("y", nb + b - 1) for b in range(1, nb)]
     n, k, t, left, arr = (list(v) if not isinstance(v, np.ndarray) else v
-                          for v in ck._stage_geometry(shape, taps, False, True, dtype, pad2))
+                          for v in ck._stage_geometry(shape, taps, False, True, dtype, pad2)[0])
     idx = [-1] + [nb + b - 1 for b in range(1, nb)]
     pad = list(pad2) + [False]
     view = (-1, in_shape[0], in_shape[1], int(np.prod(in_shape[2:])))
@@ -661,7 +708,8 @@ def test_dec_schedule_matches_plain(monkeypatch, shape, wv, dtype, padded, plan,
     taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
     x = _randn(rng, _padded_in(shape, taps, padded), dtype)
     nb = 2 ** len(shape)
-    n, k, t, left, bit, pad, arr = ck._dec_stream_geometry(shape, taps, dtype, padded)
+    n, k, left, bit, pad, arr = ck._level_stream_view(shape, taps, dtype, padded, False)
+    t = ck._stream_plan(n, k, dtype, "dec")
     gw = ck._walk_bands(k, t, dtype)
     assert (gw < ck._ana_bands(k)) == split
     view = tuple(m + (K - 1 if p else 0) for m, K, p in zip(n, k, pad))
@@ -704,7 +752,7 @@ def test_lead_dec_schedule_matches_plain(monkeypatch, shape, wv, dtype, padded, 
     nl = 2 ** (len(shape) - 2)
     temp = _randn(rng, (nl,) + in_shape, dtype)
     n, k, t, left, arr = (list(v) if not isinstance(v, np.ndarray) else v
-                          for v in ck._stage_geometry(shape, taps, False, False, dtype, pad2))
+                          for v in ck._stage_geometry(shape, taps, False, False, dtype, pad2)[0])
     gw = ck._walk_bands(k, t, dtype)
     assert (gw < ck._ana_bands(k)) == split
     view = (nl, in_shape[0], in_shape[1], int(np.prod(in_shape[2:])))
@@ -725,8 +773,8 @@ def test_lead_dec_schedule_matches_plain(monkeypatch, shape, wv, dtype, padded, 
 def _views():
     """(kind, view extents, taps per slot) of the launches the routes send
     to the streamed bodies, over every filter length they take; the 3D
-    analysis kinds are cut, in the test, to the lengths the tile bodies
-    took before them (``_tiles``)."""
+    analysis kinds are cut, in the test, to the lengths outside the stage
+    route (``stage_route``)."""
     for K in range(2, 77, 2):
         yield "2D", [max(K, 9), 1, max(K, 300)], [K, 1, K]
         yield "lead", [max(K, 12), max(K, 20), 200], [K, K, 1]
@@ -757,8 +805,8 @@ def test_stream_plan_fits_and_covers(dtype):
     word = 8 if dtype == F64 else 4
     for kind, n, k in _views():
         ana = kind.startswith("dec") or kind == "lead_dec"
-        if kind.startswith("dec 3D") and ck._tiles(n, k, False, word) is None:
-            continue  # the tile body took no such level
+        if kind.startswith("dec 3D") and ck.stage_route(n, [np.zeros((2, K)) for K in k], dtype):
+            continue  # the stage kernels take such levels
         plan_kind = {"lead": "lead", "lead_dec": "lead_dec"}.get(kind, "dec" if ana else "rec")
         C, T1, T2 = ck._stream_plan(n, k, dtype, plan_kind)
         unrolled = k[0] in (2, 4, 6, 8) and "mixed" not in kind
@@ -828,7 +876,7 @@ def test_stream_smem_is_the_sources_layout():
     assert ck._stream_smem([8, 8, 1], (128, 16, 64), F32, bands=2) == 192 + 4 * 23 * 68 * 4
 
 
-# (shape, wavelet): (stage_route, multi_supported at L3) in f32, bf16, f64,
+# (shape, wavelet): (stage_route, the multilevel route at L3) in f32, bf16, f64,
 # as the routes answered before the streamed synthesis existed.
 ROUTES = [
     ((256, 256, 256), "db4", [(False, False)] * 3),
@@ -851,9 +899,12 @@ ROUTES = [
 
 
 @pytest.mark.parametrize("shape,wv,want", ROUTES)
-def test_routes_are_pinned(shape, wv, want):
-    taps = tw.NDDWT(wv, shape, device="cpu").taps_hp
-    got = [(ck.stage_route(shape, taps, dt), multi.multi_supported(shape, taps, dt, 3))
-           for dt in (F32, BF16, F64)]
+def test_routes_are_pinned(monkeypatch, shape, wv, want):
+    """``stage_route`` and, beyond the flat kernel's size, whether
+    ``NDDWT.route`` takes the multilevel kernels, at L3 and L1."""
+    monkeypatch.setattr(flat, "FLAT_MAX_NUMEL", {None: 0})
+    plan = tw.NDDWT(wv, shape, device="cpu")
+    got = [(ck.stage_route(shape, plan.taps_hp, dt),
+            plan.route(dt, 3, on_card=True) == "multi") for dt in (F32, BF16, F64)]
     assert got == want
-    assert not any(multi.multi_supported(shape, taps, dt, 1) for dt in (F32, BF16, F64))
+    assert not any(plan.route(dt, 1, on_card=True) == "multi" for dt in (F32, BF16, F64))

@@ -23,6 +23,7 @@ Nothing here imports JAX.
 import contextlib
 import sys
 import types
+from functools import partialmethod
 from pathlib import Path
 
 import pytest
@@ -150,7 +151,7 @@ def test_on_inside_a_profiler_window_only():
 def on_card(monkeypatch):
     """The plan takes every tensor for a CUDA one; the wrappers, seeing a
     CPU tensor, run their plain versions."""
-    monkeypatch.setattr(tplan, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     return monkeypatch
 
 
@@ -308,7 +309,8 @@ class _OnCard(torch.Tensor):
 
 @pytest.fixture
 def stub_library(monkeypatch):
-    """Every kernel library stubbed: a launch is recorded and returns 0."""
+    """Every kernel library stubbed: a launch is recorded and returns 0;
+    plans route as on the card."""
     launched = []
 
     class Stub:
@@ -323,6 +325,7 @@ def stub_library(monkeypatch):
                         lambda: types.SimpleNamespace(cuda_stream=0))
     empty = torch.empty
     monkeypatch.setattr(torch, "empty", lambda *a, **k: empty(*a, **k).as_subclass(_OnCard))
+    monkeypatch.setattr(tplan.NDDWT, "route", partialmethod(tplan.NDDWT.route, on_card=True))
     return monkeypatch
 
 
