@@ -89,10 +89,12 @@ def _rec(transform, y):
 
 
 def _dec_rec(transform, x, level, threshold):
-    """The fused iterate's reconstruction, for either kind of transform."""
+    """The fused iterate's reconstruction, for either kind of transform: a
+    single-card plan's reconstruction-only iterate (``NDDWT._iterate``,
+    which never joins a complex iterate's bands)."""
     if _sharded(transform):
         return transform.dec_rec(x, level, threshold=threshold)[1]
-    return transform.dec_rec(x, level, threshold=threshold, band_axis=0)[1]
+    return transform._iterate(x, level, threshold)
 
 
 def _shrink_details(y, lam):
@@ -104,8 +106,8 @@ def _shrink_details(y, lam):
 
 def _prox(transform, v, lam, level):
     """``W^T soft(W v, lam)`` (details only). A scalar ``lam`` goes through
-    the fused ``dec_rec`` iterate (the shrink rides the CUDA analysis
-    kernels)."""
+    the fused iterate (``_dec_rec``: the shrink rides the CUDA analysis
+    kernels, and no band is kept)."""
     if not hasattr(lam, "shape"):
         return _dec_rec(transform, v, level, float(lam))
     return _rec(transform, _shrink_details(_dec(transform, v, level), lam))
@@ -167,8 +169,10 @@ def fista_cs_mri(transform, b, mask, lam, level=2, iters=20, step=1.0):
     """FISTA on the masked-Fourier CS problem; returns the (complex)
     reconstruction. ``b``: observed k-space (the image's shape), ``mask``:
     0/1 sampling mask. On the card each iterate is two FFTs, one complex
-    ``dec_rec`` (both components' level chains and one ``mag_shrink_pair``
-    launch) and torch elementwise ops for the gradient and momentum. An
+    reconstruction-only iterate (``NDDWT._iterate``: both components' level
+    chains and one ``mag_shrink_pair`` launch; its only copies are the
+    split of ``v`` into its re/im pair and the join of the reconstruction)
+    and torch elementwise ops for the gradient and momentum. An
     iteration runs inside the span ``nddwt.solve.iter``, its phases inside
     ``nddwt.solve.data``, ``nddwt.solve.prox`` and ``nddwt.solve.momentum``
     (``tracing.py``)."""

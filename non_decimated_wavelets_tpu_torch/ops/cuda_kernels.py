@@ -428,6 +428,25 @@ def check_array(name, t, ref=None):
         )
 
 
+def _output(out, shape, like):
+    """A synthesis launch's output: ``out`` when given, checked to be a
+    contiguous ``shape`` array of ``like``'s dtype and device that the
+    launch writes in place (it must not overlap the launch's inputs), else
+    a new one."""
+    if out is None:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    check_array("out", out, like)
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"out is {tuple(out.shape)}, expected {tuple(shape)}")
+    return out
+
+
+def _into(out, t):
+    """A plain version's result ``t``, copied into ``out`` when given
+    (checked by ``_output``)."""
+    return t if out is None else _output(out, t.shape, t).copy_(t)
+
+
 def raise_on(lib, err: int, kernel: str) -> None:
     """Raise if a launch returned a CUDA error (``lib`` names it)."""
     if err:
@@ -836,10 +855,11 @@ def rec_stream_args(y, approx, band_src, taps, padded=None):
     return shape, idx, (n, k, t, left, bit, vpad, arr), body
 
 
-def rec_level(y, approx, band_src, taps, scale, padded=None):
+def rec_level(y, approx, band_src, taps, scale, padded=None, out=None):
     """One synthesis level (contract of ``level_ref.rec_level_ref``): band
     ``b`` is ``y[i]`` for ``band_src[b] == ("y", i)`` or ``approx`` for
-    ``("a", 0)``; returns ``scale *`` the adjoint, shaped ``y.shape[1:]``.
+    ``("a", 0)``; returns ``scale *`` the adjoint, shaped ``y.shape[1:]``,
+    written into ``out`` when given (``_output``).
     On the card it streams slot 0 (``rec_stream_args``: axis 0 of a 2D or
     3D array) on the body ``_rec_body`` names, with that body's plan, and
     counts the body in the counter ``nddwt.rec_level.body.plane`` or
@@ -852,7 +872,7 @@ def rec_level(y, approx, band_src, taps, scale, padded=None):
     rows of the left ring neighbour in front and ``K//2 - 1`` of the right
     one behind (``halo_widths``), and the output drops them."""
     if not y.is_cuda:
-        return rec_level_ref(y, approx, band_src, taps, scale, padded)
+        return _into(out, rec_level_ref(y, approx, band_src, taps, scale, padded))
     with tracing.span("nddwt.launch.nddwt_rec_level"):
         check_array("y", y)
         shape, idx, (n, k, t, left, bit, pad, arr), body = rec_stream_args(
@@ -861,7 +881,7 @@ def rec_level(y, approx, band_src, taps, scale, padded=None):
             check_array("approx", approx, y)
         else:
             approx = y
-        out = torch.empty(shape, dtype=y.dtype, device=y.device)
+        out = _output(out, shape, y)
         lib = load()
         with torch.cuda.device(y.device):
             err = lib.nddwt_rec_level(
@@ -1177,19 +1197,20 @@ def lead_adj(y, approx, band_src, taps, padded=None):
     return partial
 
 
-def lane_adj(partial, taps, scale):
+def lane_adj(partial, taps, scale, out=None):
     """Lane stage synthesis (contract of ``level4_ref.lane_adj_ref``):
-    ``scale *`` the adjoint of the lane bands ``(nl, *s)`` -> ``(*s)``."""
+    ``scale *`` the adjoint of the lane bands ``(nl, *s)`` -> ``(*s)``,
+    written into ``out`` when given (``_output``)."""
     _check_stage_array("partial", partial, taps, lead=1)
     shape = tuple(partial.shape[1:])
     if partial.shape[0] != 2 ** (len(shape) - 2):
         raise ValueError(f"expected {2 ** (len(shape) - 2)} lane bands, got "
                          f"{partial.shape[0]}")
     if not partial.is_cuda:
-        return lane_adj_ref(partial, taps, scale)
+        return _into(out, lane_adj_ref(partial, taps, scale))
     with tracing.span("nddwt.launch.nddwt_lane_adj"):
         check_array("partial", partial)
-        out = torch.empty(shape, dtype=partial.dtype, device=partial.device)
+        out = _output(out, shape, partial)
         (n, k, t, left, arr), body = _stage_geometry(shape, taps, True, True, partial.dtype)
         lib = load4()
         with torch.cuda.device(partial.device):
@@ -1253,21 +1274,22 @@ def dec1_level(approx, big, band_off, taps, lam=0.0, final=False):
     return None if final else out
 
 
-def rec1_level(y, approx, band_src, taps, scale):
+def rec1_level(y, approx, band_src, taps, scale, out=None):
     """One 1D synthesis level (contract of ``level_ref.rec_level_ref``):
     the two bands named by ``band_src`` (``("y", i)`` is ``y[i]``,
-    ``("a", 0)`` is ``approx``); returns ``scale *`` the adjoint, ``(N,)``."""
+    ``("a", 0)`` is ``approx``); returns ``scale *`` the adjoint, ``(N,)``,
+    written into ``out`` when given (``_output``)."""
     _check_1d("y", y, taps, 1)
     shape = tuple(y.shape[1:])
     idx = _band_indices(band_src, 2, y, approx, shape)
     if not y.is_cuda:
-        return rec_level_ref(y, approx, band_src, taps, scale)
+        return _into(out, rec_level_ref(y, approx, band_src, taps, scale))
     with tracing.span("nddwt.launch.nddwt_rec1_level"):
         check_array("y", y)
         if -1 in idx:
             check_array("approx", approx, y)
         a, d = (approx if i < 0 else y[i] for i in idx)
-        out = torch.empty(shape, dtype=y.dtype, device=y.device)
+        out = _output(out, shape, y)
         K, arr = _geometry1(taps, True, y.dtype)
         lib = load1()
         with torch.cuda.device(y.device):
@@ -1308,25 +1330,28 @@ def dec_levels(x, taps, level: int, lam: float = 0.0, out=None, *, stages: bool)
     return big
 
 
-def rec_levels(y, taps, level: int, preserve_l2: bool, *, stages: bool):
-    """Multilevel synthesis on the per-level kernels: per level one
-    ``rec1_level`` launch in 1D (``pallas_padded.rec_padded1``), one
-    ``rec_level`` launch in 2D and 3D, or, on the stage route (``stages``),
-    a lead and a lane stage adjoint (``pallas_4d.rec4``): band 0 comes from
-    the previous level's output, the details from ``y[pos + b - 1]`` (the
-    tail of ``pallas_kernels._rec_dispatch``)."""
+def rec_levels(y, taps, level: int, preserve_l2: bool, out=None, *, stages: bool):
+    """Multilevel synthesis, ``(*s)``, written into ``out`` when given, on
+    the per-level kernels: per level one ``rec1_level`` launch in 1D
+    (``pallas_padded.rec_padded1``), one ``rec_level`` launch in 2D and 3D,
+    or, on the stage route (``stages``), a lead and a lane stage adjoint
+    (``pallas_4d.rec4``): band 0 comes from the previous level's output, the
+    details from ``y[pos + b - 1]`` (the tail of
+    ``pallas_kernels._rec_dispatch``). The last level's launch writes
+    ``out``."""
     nb = 2 ** (y.ndim - 1)
     scale = 1.0 if preserve_l2 else 1.0 / nb
     level_kernel = rec1_level if y.ndim == 2 else rec_level
 
-    def one_level(acc, src):
+    def one_level(acc, src, lvl):
+        dst = out if lvl == level - 1 else None
         if stages:
-            return lane_adj(lead_adj(y, acc, src, taps), taps, scale)
-        return level_kernel(y, acc, src, taps, scale)
+            return lane_adj(lead_adj(y, acc, src, taps), taps, scale, out=dst)
+        return level_kernel(y, acc, src, taps, scale, out=dst)
 
-    acc = one_level(None, [("y", b) for b in range(nb)])
+    acc = one_level(None, [("y", b) for b in range(nb)], 0)
     pos = nb
-    for _ in range(1, level):
-        acc = one_level(acc, [("a", 0)] + [("y", pos + b - 1) for b in range(1, nb)])
+    for lvl in range(1, level):
+        acc = one_level(acc, [("a", 0)] + [("y", pos + b - 1) for b in range(1, nb)], lvl)
         pos += nb - 1
     return acc

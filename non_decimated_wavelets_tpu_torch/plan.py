@@ -468,7 +468,7 @@ class NDDWT:
     def _rec_pair(self, yp, level, preserve_l2, route):
         """``(2, B, *s)`` -> ``(2, *s)`` on a pair's ``route``: one flat or
         multilevel launch for both components, or one synthesis chain
-        each."""
+        each, whose last launch writes its component of the result."""
         if route == "fft":
             return _gather([self._rec_bands(yp[c], level, preserve_l2, route=route)
                             for c in range(2)])
@@ -482,8 +482,11 @@ class NDDWT:
         if route == "multi":
             return multi.rec_multi(yp.contiguous(), self.taps_hp, level,
                                    preserve_l2)
-        return _gather([self._rec_kernels(yp[c].contiguous(), level, preserve_l2, route)
-                        for c in range(2)])
+        out = torch.empty((2,) + self.shape, dtype=yp.dtype, device=yp.device)
+        for c in range(2):
+            cuda_kernels.rec_levels(yp[c].contiguous(), self.taps_hp, level,
+                                    preserve_l2, out[c], stages=route == "stage")
+        return out
 
     def _dec_batch(self, x, level, route):
         """``(N, *s)`` -> ``(N, B, *s)`` on a batch's ``route``, no autograd
@@ -589,7 +592,25 @@ class NDDWT:
         per-level analysis kernels' band writes (``lam``), as on the TPU,
         and complex data takes one ``mag_shrink_pair`` launch between the
         components' analyses and syntheses (one multilevel launch each,
-        where the multilevel kernels take the shape)."""
+        where the multilevel kernels take the shape). On the kernels,
+        complex data is split into its re/im pair once and its bands and
+        reconstruction joined once each; the per-level syntheses write
+        their components of the pair in place."""
+        return self._dec_rec(x, level, threshold, band_axis, bands=True)
+
+    def _iterate(self, x, level: int, threshold: float):
+        """``dec_rec(x, level, threshold, band_axis=0)[1]`` without the
+        bands: the solvers' prox ``W^T shrink(W x)``. Complex data on the
+        flat route, or with a threshold on the other kernel routes, never
+        joins its bands, so the iterate's only copies are the split of
+        ``x`` and the join of the reconstruction; every other call runs as
+        ``dec_rec``."""
+        return self._dec_rec(x, level, threshold, 0, bands=False)[1]
+
+    def _dec_rec(self, x, level, threshold, band_axis, bands):
+        """The body of ``dec_rec`` and ``_iterate``, inside the span
+        ``nddwt.dec_rec.<route>.L<level>``; without ``bands`` the first
+        result is None where the bands would only be joined for it."""
         level = self._check_level(level)
         last = self._bands_last(band_axis)
         threshold = self._check_threshold(threshold)
@@ -602,8 +623,9 @@ class NDDWT:
         with tracing.entry("dec_rec", route, level):
             if route == "flat" and not _needs_grad(x):
                 if x.is_complex():
-                    y, xr = (_join(t) for t in flat.pair_split_flat(
-                        _parts(x), self.taps_hp, level, self.preserve_l2, threshold))
+                    yp, xp = flat.pair_split_flat(
+                        _parts(x), self.taps_hp, level, self.preserve_l2, threshold)
+                    y, xr = (_join(yp) if bands else None), _join(xp)
                 else:
                     y, xr = flat.pair_flat(x.contiguous(), self.taps_hp, level,
                                            self.preserve_l2, threshold)
@@ -611,7 +633,7 @@ class NDDWT:
                 if x.is_complex():
                     yp = elemwise.mag_shrink_pair(
                         self._dec_pair(_parts(x), level, route), threshold)
-                    y = _join(yp)
+                    y = _join(yp) if bands else None
                     xr = _join(self._rec_pair(yp, level, self.preserve_l2, route))
                 else:
                     y = self._dec_kernels(x.contiguous(), level, route, lam=threshold)
@@ -621,7 +643,7 @@ class NDDWT:
                 if threshold:
                     y = torch.cat([y[:1], soft_threshold(y[1:], threshold)])
                 xr = _Rec.apply(y, self, level, False, route)
-        return (y.movedim(0, -1) if last else y), xr
+        return (y.movedim(0, -1) if last and y is not None else y), xr
 
     def dec_rec_n(self, x, level: int, thresholds):
         """``len(thresholds)`` ``dec -> soft-threshold -> rec`` sweeps, one
